@@ -1,0 +1,231 @@
+"""Card-only tests of the PyTorch port's CUDA kernels, and the toy
+kernel inputs the CPU tests share.  This file imports no JAX, so it runs
+on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(tests/conftest.py imports JAX, hence --noconftest).  Without a card
+every test here skips.  Against the numpy golden the tolerances are
+those of tests/test_render_brick_mxu.py: tau atol/rtol 5e-2, rgb and
+depth atol 3e-2, n_pairs exact (the golden rounds nothing to bf16).  A
+kernel against its plain version, and the card's frame against the
+CPU's, compute one function with the same roundings: atol 1e-4 and
+equal n_pairs and counters."""
+import numpy as np
+import pytest
+import torch
+
+from google_nerf_tpu_torch.ops.cuda import brick_field as tbf
+
+
+def _toy_inputs(seed=0, T=2, Lp=3, n_blocks=4, sigma_scale=1.0, Bk=8):
+    """Random bricks laid along +z in [-0.5, 0.5]^3 with rays marching
+    through them from z=-1 (tests/test_render_brick_mxu.py's inputs, MLP
+    weights drawn with numpy).  The voxel grid is V = 4 * Bk, so Bk=4
+    bricks span the same space as Bk=8 ones (at a fixed V=32 they would
+    miss every ray)."""
+    rng = np.random.RandomState(seed)
+    V, s = 4 * Bk, 0.5
+    vox = Bk ** 3
+    blk = np.stack([np.full(n_blocks, 1), np.full(n_blocks, 1),
+                    np.arange(n_blocks)], -1)
+    lo = (blk * Bk / V * 2.0 - 1.0) * s
+    hi = ((blk + 1) * Bk / V * 2.0 - 1.0) * s
+    pool3 = rng.randn(n_blocks, vox, 128).astype(np.float32) * 0.1
+    pool3[..., 0::16] = rng.randn(n_blocks, vox, 8) * sigma_scale
+    order = np.arange(n_blocks)
+    pool_blk = np.tile(order[:Lp], T).astype(np.int32)
+    nslots = np.full(T, Lp, np.int32)
+    nslots[0] = Lp - 1                 # tile 0 has one pad slot at its tail
+    meta = np.zeros((T * Lp, 8), np.float32)
+    for t in range(T):
+        for l in range(Lp):
+            meta[t * Lp + l, 0:3] = lo[order[l]]
+            meta[t * Lp + l, 3:6] = hi[order[l]]
+    o = np.concatenate([
+        np.stack([np.full(64, -0.3 + 0.6 * t), np.zeros(64),
+                  np.full(64, -1.0)], -1) for t in range(T)])
+    d = np.stack([rng.uniform(-0.2, 0.2, T * 64),
+                  rng.uniform(-0.2, 0.2, T * 64),
+                  np.ones(T * 64)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t1 = np.full(T * 64, 0.3, np.float32)
+    t2 = np.full(T * 64, 2.5, np.float32)
+    rays = np.concatenate([o, d, t1[:, None], t2[:, None]],
+                          -1).astype(np.float32)
+    sh = rng.randn(T * 64, 16).astype(np.float32) * 0.3
+    ws = [rng.uniform(-1, 1, (a, b)).astype(np.float32) * (6.0 / a) ** 0.5
+          for a, b in ((32, 64), (64, 64), (64, 3))]
+    kw = dict(S=(9 if Bk == 8 else 5), dt=float(np.sqrt(3) / 128),
+              tau_max=float(-np.log(1e-2)), Bk=Bk)
+    return (pool_blk, meta, rays, sh, pool3, *ws), nslots, kw
+
+
+def _torch(args, device="cpu"):
+    return [torch.as_tensor(x, device=device) for x in args]
+
+
+def _assert_matches(got, want):
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got[:, 0], want[:, 0], atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(got[:, 1:5], want[:, 1:5], atol=3e-2)
+    np.testing.assert_array_equal(got[:, 5], want[:, 5])
+
+
+def _assert_same(got, want):
+    """Kernel against plain version: tau, rgb, depth within 1e-4."""
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got[:, :5], want[:, :5], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[:, 5], want[:, 5])
+
+
+def _worklist(T, Lp, nslots, P):
+    """Tile-major worklist over T tiles' P-slot groups, followed by two
+    pad steps that repeat the last tile (wn == 0)."""
+    wt, wl, wn, wf = [], [], [], []
+    for t in range(T):
+        for g in range(-(-int(nslots[t]) // P)):
+            wt.append(t)
+            wl.append(t * Lp + g * P)
+            wn.append(min(P, int(nslots[t]) - g * P))
+            wf.append(int(g == 0))
+    for _ in range(2):
+        wt.append(wt[-1])
+        wl.append(wl[-1])
+        wn.append(0)
+        wf.append(0)
+    return [np.asarray(x, np.int32) for x in (wt, wl, wn, wf)]
+
+
+# ------------------------------------------------------------ card only
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run there only")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,Bk,carry", [
+    ("tp", 8, False), ("wl", 8, False), ("tp", 4, False), ("wl", 4, False),
+    ("tp", 8, True), ("wl", 8, True)])
+def test_cuda_kernel_matches_plain(kernel, Bk, carry):
+    """Each kernel against its plain version on the card; `carry` starts
+    from a nonzero init with some rays already saturated."""
+    dev = _card()
+    args, nslots, kw = _toy_inputs(Lp=4, Bk=Bk)
+    t = _torch(args, dev)
+    t[4] = t[4].to(torch.bfloat16)
+    if carry:
+        init = torch.zeros((128, 8), device=dev)
+        init[:, 0] = torch.linspace(0.0, 6.0, 128, device=dev)
+        init[:, 1:5] = 0.2
+        kw = dict(kw, init=init)
+    if kernel == "tp":
+        fn, plain = tbf.brick_field_tiles_tp, tbf.brick_field_tiles_tp_plain
+        extra = dict(nslots=torch.as_tensor(nslots, device=dev), P=2)
+    else:
+        fn, plain = tbf.brick_field_tiles_wl, tbf.brick_field_tiles_wl_plain
+        t += _torch(_worklist(2, 4, nslots, 2), dev)
+        extra = dict(P=2)
+    before = getattr(fn, "launches")
+    got = fn(*t, **extra, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*t, **extra, **kw)
+    _assert_same(got.cpu().numpy(), want.cpu().numpy())
+    assert float(got[:, 5].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,Bk", [("tp", 8), ("wl", 8), ("tp", 4),
+                                       ("wl", 4)])
+def test_cuda_kernel_matches_golden(kernel, Bk):
+    """Each kernel against the port's numpy golden, the reference that
+    needs no JAX, at the JAX kernel tests' tolerances."""
+    dev = _card()
+    args, nslots, kw = _toy_inputs(Lp=4, Bk=Bk)
+    want = tbf.brick_field_tiles_reference(*args, nslots=nslots, inv2s=1.0,
+                                           V=32, **kw)
+    t = _torch(args, dev)
+    t[4] = t[4].to(torch.bfloat16)
+    if kernel == "tp":
+        got = tbf.brick_field_tiles_tp(
+            *t, nslots=torch.as_tensor(nslots, device=dev), P=2, **kw)
+    else:
+        got = tbf.brick_field_tiles_wl(
+            *t, *_torch(_worklist(2, 4, nslots, 2), dev), P=2, **kw)
+    _assert_matches(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_tp_contract_fails_loudly():
+    """A misaligned lbase or a repeated tid on CUDA tensors trips a
+    device-side assert (no host sync in the wrapper): the process fails
+    at its next sync.  Run in a child, since the assert ends the CUDA
+    context."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    _card()
+    root = Path(__file__).resolve().parents[1]
+    body = ("import sys, torch\n"
+            "sys.path[:0] = [{root!r}, {tests!r}]\n"
+            "from test_torch_cuda import _torch, _toy_inputs\n"
+            "from google_nerf_tpu_torch.ops.cuda import brick_field as b\n"
+            "args, ns, kw = _toy_inputs(Lp=4)\n"
+            "t = _torch(args, 'cuda'); t[4] = t[4].to(torch.bfloat16)\n"
+            "b.brick_field_tiles_tp(*t, {bad}, Lcall=4, P=4, **kw)\n"
+            "torch.cuda.synchronize()\n")
+    for bad in ("lbase=torch.tensor([0, 2], device='cuda')",
+                "tid=torch.tensor([1, 1], device='cuda')"):
+        res = subprocess.run(
+            [sys.executable, "-c", body.format(root=str(root), tests=str(
+                root / "tests"), bad=bad)], capture_output=True, text=True,
+            timeout=300)
+        assert res.returncode != 0, bad
+        assert "assert" in res.stderr.lower(), res.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl_cap", [0, 1])
+def test_cuda_frame_matches_cpu_frame(wl_cap):
+    """The whole worklist frame on the card (K1, and K2 in the drain that
+    wl_cap=1 forces) against the same frame on the CPU (plain versions),
+    at the 16x16 setup of tests/test_render_brick_mxu.py."""
+    from google_nerf_tpu_torch.core.rays import get_ray_directions, get_rays
+    from google_nerf_tpu_torch.data.synthetic import _fibonacci_poses
+    from google_nerf_tpu_torch.models.baked import BakedConfig, bake
+    from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
+    from google_nerf_tpu_torch.models.render_brick_mxu import \
+        render_brick_mxu
+    dev = _card()
+    cfg = NGPConfig(scale=0.5, encoder="packed", grid_size=16,
+                    packed_log2_size=12, packed_levels=4)
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params["packed_table"] *= 1e3
+    bcfg = BakedConfig(voxel_res=32, block=8)
+    baked = bake(params, cfg, torch.ones(1, 16, 16, 16, dtype=torch.bool),
+                 bcfg, device="cpu")
+    K = np.array([[16, 0, 8], [0, 16, 8], [0, 0, 1]], np.float32)
+    o, d = get_rays(get_ray_directions(16, 16, K),
+                    torch.as_tensor(_fibonacci_poses(1, 1.2, 1000)[0]))
+    kw = dict(bcfg=bcfg, max_samples=64, T_threshold=1e-2, L=64,
+              exact_cull=16, pbatch=2, drain_tiles=4, drain_L=64,
+              drain_xc=32, segment_slots=8, wl_cap=wl_cap)
+    launches = (tbf.brick_field_tiles_wl.launches,
+                tbf.brick_field_tiles_tp.launches)
+    got = render_brick_mxu({k: (v.to(dev) if torch.is_tensor(v) else v)
+                            for k, v in baked.items()}, cfg, o.to(dev),
+                           d.to(dev), 16, 16, device=dev, **kw)
+    torch.cuda.synchronize()
+    want = render_brick_mxu(baked, cfg, o, d, 16, 16, device="cpu", **kw)
+    for k in ("rgb", "opacity"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                   rtol=0, atol=1e-4)
+    for k in ("pairs_undrained", "trunc_tiles", "pairs_rendered",
+              "dma_slots"):
+        assert int(got[k]) == int(want[k]), k
+    assert tbf.brick_field_tiles_wl.launches > launches[0]
+    if wl_cap:
+        assert tbf.brick_field_tiles_tp.launches > launches[1]
