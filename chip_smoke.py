@@ -1,37 +1,50 @@
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed N] [--out result.json]
 
 Phases:
   1. print the card (nvidia-smi name, power limit); build the kernels;
-  2. hold K1 (brick_field_tiles_wl) and K2 (brick_field_tiles_tp) against
-     their plain PyTorch versions at serving widths (P=16, S=9, Bk=8, bf16
-     pool, a few hundred tiles) on seeded inputs;
-  3. serve one 800x800 request at full width: packed NGP with random
-     weights from --seed, a 256^3 bf16 bake of the textured scene's
-     occupancy, the bench.py worklist renderer settings;
-  4. render the same frame with both kernels replaced by their plain
-     versions and compare;
-  5. serve the frame again with the worklist budget cut, so that the
-     exact drain (K2) runs;
-  6. time the bake, the warm frame and each kernel on the inputs the
-     main path gave it (its own device time by torch.profiler, and the
-     whole wrapper call by CUDA events), beside its plain version and
-     its bound.
+  2. hold K1 (brick_field_tiles_wl), K2 (brick_field_tiles_tp), K3
+     (brick_field_tiles), K4 (brick_field_tiles_t) and K5
+     (brick_field_tiles_rgba) against their plain PyTorch versions at
+     serving widths (Bk=8, bf16 pool, a few hundred tiles of 32-slot
+     lists) on seeded inputs, and against the port's numpy goldens on 16
+     of those tiles;
+  3. the worklist request `wl256`: one 800x800 frame at full width,
+     packed NGP with random weights from --seed, a 256^3 bf16 bake of the
+     textured scene's occupancy, the bench.py worklist settings (K1 and
+     the K2 drain);
+  4. the same frame with both kernels replaced by their plain versions;
+  5. the wl256 frame again with the worklist budget cut, so that the
+     exact drain (K2) runs on purpose;
+  6. time the bake, the warm frame and K1 on the inputs the request gave
+     it (its own device time by torch.profiler, and the whole wrapper
+     call by CUDA events), beside its plain version and its bound;
+  7. a 512^3 bf16 bake of the same model and the per-chunk requests at
+     800x800: `tp512` (K2, bench.py's mxu stage), `t512` (K4) and `n512`
+     (K3) (test.py's defaults with occupancy bands), and `rgba512` (K5
+     after the per-frame RGBA bake, tools/fps_mxu2.py's rgba settings).
+     Each request: its counters; every kernel call it made against the
+     plain version on the same inputs; the whole frame against the frame
+     rendered through the plain version; its warm frame time; its
+     kernel's device time, wrapper time, plain time and bound.  n512 is
+     also held against t512.
 
 Tolerances.  A kernel against its plain version on the same inputs
-(phases 2 and 6): tau, rgb and depth atol 1e-4, n_pairs exact; both
-compute one function with the same bf16 rounding points, and they have
-agreed to within 5e-7.  A kernel against the numpy golden (phase 2, a
-subset of tiles; the golden rounds nothing to bf16): the JAX kernel
-tests' tau atol/rtol 5e-2, rgb and depth atol 3e-2, n_pairs exact.  The
-kernel frame against the plain frame (phase 4) and the drained frame
-against the uncut one (phase 5): rgb and opacity max abs difference
-1e-4 per pixel, pairs_rendered equal.  Any failed check exits nonzero
-before the result line.  The last stdout line is the result JSON; the
-line before it lists every kernel with its times and its launches in the
-main request of phase 3 (counters reset just before it, read just
-after; both kernels must have launched there).
+(phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
+compute one function with the same bf16 rounding points.  A kernel
+against the numpy golden (phase 2, 16 tiles, live gate open; the golden
+rounds nothing to bf16): the JAX kernel tests' tau atol/rtol 5e-2, rgb
+and depth atol 3e-2, n_pairs exact.  A kernel frame against its plain
+frame (phases 4 and 7) and the drained frame against the uncut one
+(phase 5): rgb and opacity max abs difference 1e-4 per pixel and the
+counters equal.  n512 against t512: rgb max abs 2e-3 (the JAX test's for
+those two kernels, whose corner weights differ in the last bit) and
+pairs_rendered equal.  Any failed check exits nonzero before the result
+line.  The last stdout line is the result JSON; the line before it lists
+every kernel with its times and its launches in its request (counters
+reset just before the request, read just after; each kernel must have
+launched there).
 """
 from __future__ import annotations
 
@@ -46,10 +59,26 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
+PALLAS = "google_nerf_tpu/ops/pallas/brick_field.py"
 SERVE_KW = dict(L=96, exact_cull=96, kernel="wl", pbatch=16,
                 segment_slots=32, wl_cap=5120, drain_tiles=64, drain_L=128,
                 drain_xc=96, max_samples=256, T_threshold=1e-2)
 # bench.py:327-330 (its bands=() is implied by the worklist kernel)
+TP512 = dict(L=192, exact_cull=48, kernel="tp", pbatch=8, bands=(),
+             segment_slots=8, drain_tiles=256, drain_L=384, drain_xc=384,
+             max_samples=256, T_threshold=1e-2)
+# bench.py:284-288, the 512^3 mxu stage
+T512 = dict(L=192, exact_cull=48, kernel="t", pbatch=8, bands="auto",
+            segment_slots=0, drain_tiles=256, drain_L=256, drain_xc=96,
+            macro_tiles=8, macro_L=1024, max_samples=512, T_threshold=1e-2)
+# test.py:166-182 with opt.py's defaults (opt.py:147-199, 232) and
+# --brick_mxu_kernel t --brick_mxu_seg 0, which turns the bands on
+RGBA512 = {k: v for k, v in TP512.items() if k not in ("kernel", "pbatch")}
+# tools/fps_mxu2.py:52 (rgba, 256-sample lattice, segments of 8) on the
+# tp512 lists
+KERNELS = ("brick_field_tiles_wl", "brick_field_tiles_tp",
+           "brick_field_tiles", "brick_field_tiles_t",
+           "brick_field_tiles_rgba")
 
 
 def check(ok: bool, what: str):
@@ -88,18 +117,26 @@ def golden_errors(got, want, what):
     return float((g[:, :5] - w[:, :5]).abs().max())
 
 
-def frame_errors(got, want, what):
+COUNTERS = ("pairs_rendered", "pairs_undrained", "trunc_tiles", "dma_slots")
+
+
+def frame_errors(got, want, what, limit=1e-4, counters=COUNTERS):
     """Per-pixel max abs differences of rgb and opacity (each within
-    1e-4) and equal pairs_rendered; returns (rgb MAE, rgb max, opacity
+    `limit`) and equal counters; returns (rgb MAE, rgb max, opacity
     max)."""
     d_rgb = (got["rgb"] - want["rgb"]).abs()
     d_op = float((got["opacity"] - want["opacity"]).abs().max())
     errs = (float(d_rgb.mean()), float(d_rgb.max()), d_op)
-    check(errs[1] <= 1e-4 and d_op <= 1e-4, f"{what}: rgb max {errs[1]}, "
-          f"opacity max {d_op} (limit 1e-4)")
-    check(int(got["pairs_rendered"]) == int(want["pairs_rendered"]),
-          f"{what}: pairs_rendered differ")
+    check(errs[1] <= limit and d_op <= limit, f"{what}: rgb max {errs[1]}, "
+          f"opacity max {d_op} (limit {limit})")
+    for k in counters:
+        check(int(got[k]) == int(want[k]), f"{what}: {k} {int(got[k])} vs "
+              f"{int(want[k])}")
     return errs
+
+
+def counters_of(frame):
+    return {k: int(frame[k]) for k in COUNTERS}
 
 
 def cuda_ms(fn, reps):
@@ -114,11 +151,23 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def frame_ms(serve, n):
+    """Host-clock ms of n warm frames, each ended by a synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        serve()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t0))
+    return times
+
+
 # -------------------------------------------------------------- phase 2
 
 def serving_width_inputs(bf, n_tiles, seed, dev):
     """Seeded bricks along +z and tiles of rays marching through them, at
-    the serving widths: Bk=8 bf16 slabs, S=9 windows, P=16 groups."""
+    the serving widths: Bk=8 bf16 slabs, S=9 windows, 32-slot lists."""
     g = torch.Generator().manual_seed(seed)
     Bk, V, nb, Lp = 8, 256, 32, 32
     S = bf.window_span(256, Bk, V, 0.5)
@@ -146,12 +195,16 @@ def serving_width_inputs(bf, n_tiles, seed, dev):
           for a, b in ((32, 64), (64, 64), (64, 3))]
     nslots = torch.randint(1, Lp + 1, (n_tiles,), generator=g,
                            dtype=torch.int32)
+    # pre-shaded slabs: the pool's sigma lanes and seeded rgb in [0, 1]
+    rgb = torch.rand(nb, 8, 3, Bk ** 3, generator=g)
+    rgba = torch.cat([pool[..., 0::16].transpose(1, 2)[:, :, None], rgb],
+                     2).reshape(nb, 32, Bk ** 3)
     args = [order.reshape(-1).int(), meta, rays, sh,
             pool.to(torch.bfloat16)] + ws
     args = [a.to(dev).contiguous() for a in args]
     kw = dict(S=S, dt=3 ** 0.5 / 256, tau_max=float(-torch.log(
         torch.tensor(1e-2))), Bk=Bk)
-    return args, nslots.to(dev), Lp, kw
+    return args, rgba.to(dev, torch.bfloat16), nslots.to(dev), Lp, kw
 
 
 def worklist(tiles, nslots, Lp, P, pad):
@@ -169,53 +222,68 @@ def worklist(tiles, nslots, Lp, P, pad):
             for x in (wt, wl, wn, wf)]
 
 
+def numpy_args(args):
+    return [a.float().cpu().numpy() if a.is_floating_point() else
+            a.cpu().numpy() for a in args]
+
+
 def phase2(bf, seed, dev):
-    """Each kernel against its plain version on 384 tiles with a carry,
-    and against the numpy golden on 16 of them from zero.  The golden
-    check opens the live gate (tau_max 1e30): the golden's f32 tau and
-    the kernels' bf16-rounded tau differ by up to ~1%, which flips the
-    gate for rays that end a brick within that of tau_max and so drops
-    or adds a whole brick.  The gate itself is held exactly against the
-    plain version above."""
+    """Each kernel against its plain version on 384 tiles (K1, K2, K5
+    with a carry), and against the numpy golden on 16 of them from zero.
+    The golden check opens the live gate (tau_max 1e30): the golden's f32
+    tau and the kernels' bf16-rounded tau differ by up to ~1%, which
+    flips the gate for rays that end a brick within that of tau_max and
+    so drops or adds a whole brick.  The gate itself is held exactly
+    against the plain versions."""
     T = 384
-    args, nslots, Lp, kw = serving_width_inputs(bf, T, seed, dev)
+    args, rgba, nslots, Lp, kw = serving_width_inputs(bf, T, seed, dev)
+    argsT = list(args)
+    argsT[4] = args[4].transpose(1, 2).contiguous()
     init = torch.zeros(T * 64, 8, device=dev)
     init[::3, 0] = 1.0                 # a carried tau on some rays
     every = torch.arange(T, device=dev)
     wl_args = worklist(every, nslots, Lp, 16, pad=100)
+    tkw = dict(nslots=nslots, Lcall=Lp, **kw)
+    runs = {
+        "brick_field_tiles_wl": (args + wl_args, dict(P=16, init=init, **kw)),
+        "brick_field_tiles_tp": (args, dict(P=16, init=init, **tkw)),
+        "brick_field_tiles": (args, tkw),
+        "brick_field_tiles_t": (argsT, tkw),
+        "brick_field_tiles_rgba": (args[:3] + [rgba], dict(init=init,
+                                                          **tkw))}
     errs = {}
-    got = bf.brick_field_tiles_wl(*args, *wl_args, P=16, init=init, **kw)
-    want = bf.brick_field_tiles_wl_plain(*args, *wl_args, P=16, init=init,
-                                         **kw)
-    errs["brick_field_tiles_wl"] = kernel_errors(got, want)
-    tkw = dict(nslots=nslots, Lcall=Lp, P=16, init=init, **kw)
-    got = bf.brick_field_tiles_tp(*args, **tkw)
-    want = bf.brick_field_tiles_tp_plain(*args, **tkw)
-    errs["brick_field_tiles_tp"] = kernel_errors(got, want)
-    torch.cuda.synchronize()
-    check(float(got[:, 5].sum()) > 0, "phase 2 inputs rendered no pairs")
+    for name, (a, k) in runs.items():
+        got = getattr(bf, name)(*a, **k)
+        errs[name] = kernel_errors(got, getattr(bf, name + "_plain")(*a, **k),
+                                   f"{name} vs plain (phase 2)")
+        check(float(got[:, 5].sum()) > 0, f"phase 2 {name} rendered no pairs")
 
     sub = every[::T // 16]
     kw = dict(kw, tau_max=1e30)
     rows = (sub[:, None] * 64 + torch.arange(64, device=dev)).reshape(-1)
+    gkw = dict(tid=sub.cpu().numpy(), nslots=nslots[sub].cpu().numpy(),
+               inv2s=1.0, V=256, **kw)
     gold = torch.as_tensor(bf.brick_field_tiles_reference(
-        *[a.float().cpu().numpy() if a.is_floating_point() else
-          a.cpu().numpy() for a in args], tid=sub.cpu().numpy(),
-        nslots=nslots[sub].cpu().numpy(), inv2s=1.0, V=256, **kw),
-        device=dev)[rows]
-    got = bf.brick_field_tiles_wl(
-        *args, *worklist(sub, nslots, Lp, 16, pad=3), P=16, **kw)[rows]
-    errs["brick_field_tiles_wl_vs_golden"] = golden_errors(
-        got, gold, "K1 vs numpy golden")
-    got = bf.brick_field_tiles_tp(*args, tid=sub, lbase=sub * Lp,
-                                  nslots=nslots[sub], Lcall=Lp, P=16,
-                                  **kw)[rows]
-    errs["brick_field_tiles_tp_vs_golden"] = golden_errors(
-        got, gold, "K2 vs numpy golden")
+        *numpy_args(args), **gkw), device=dev)[rows]
+    gold_rgba = torch.as_tensor(bf.brick_field_rgba_reference(
+        *numpy_args(args[:3] + [rgba]), **gkw), device=dev)[rows]
+    lkw = dict(tid=sub, lbase=sub * Lp, nslots=nslots[sub], Lcall=Lp, **kw)
+    gots = {
+        "brick_field_tiles_wl": bf.brick_field_tiles_wl(
+            *args, *worklist(sub, nslots, Lp, 16, pad=3), P=16, **kw),
+        "brick_field_tiles_tp": bf.brick_field_tiles_tp(*args, P=16, **lkw),
+        "brick_field_tiles": bf.brick_field_tiles(*args, **lkw),
+        "brick_field_tiles_t": bf.brick_field_tiles_t(*argsT, **lkw),
+        "brick_field_tiles_rgba": bf.brick_field_tiles_rgba(
+            *args[:3], rgba, **lkw)}
+    for name, got in gots.items():
+        want = gold_rgba if name == "brick_field_tiles_rgba" else gold
+        errs[name + "_vs_golden"] = golden_errors(
+            got[rows], want, f"{name} vs numpy golden")
     return errs
 
 
-# ------------------------------------------------------ phases 3 to 6
+# ------------------------------------------------------ the requests
 
 def occupancy(cfg, dev):
     """Cascade-0 occupancy: cells whose center has analytic sigma > 1 in
@@ -245,7 +313,44 @@ class Recorder:
         return self.fn(*args, **kw)
 
 
-def call_work(bf, args, kw, out, rows, tiles, index_bytes):
+def run_request(rbm, bf, name, serve):
+    """Serve one request with `name`'s calls recorded and every kernel's
+    launch counter set to 0 just before; returns (frame, calls, launches
+    of each kernel in this request)."""
+    rec = Recorder(getattr(rbm, name))
+    setattr(rbm, name, rec)
+    for k in KERNELS:
+        getattr(bf, k).launches = 0
+    try:
+        frame = serve()
+        torch.cuda.synchronize()
+    finally:
+        setattr(rbm, name, rec.fn)
+    return frame, rec.calls, {k: getattr(bf, k).launches for k in KERNELS}
+
+
+def plain_frame(rbm, bf, names, serve):
+    """The request rendered with `names` replaced by their plain versions."""
+    saved = {n: getattr(rbm, n) for n in names}
+    for n in names:
+        setattr(rbm, n, getattr(bf, n + "_plain"))
+    try:
+        return serve()
+    finally:
+        for n, f in saved.items():
+            setattr(rbm, n, f)
+
+
+def check_frame(frame, what, n_pixels):
+    rgb = frame["rgb"]
+    check(tuple(rgb.shape) == (n_pixels, 3), f"{what}: rgb shape {rgb.shape}")
+    check(bool(torch.isfinite(rgb).all()), f"{what}: rgb not finite")
+    check(bool(((rgb >= 0) & (rgb <= 1 + 1e-5)).all()),
+          f"{what}: rgb outside [0, 1]")
+    check(int(frame["pairs_rendered"]) > 0, f"{what}: no pairs rendered")
+
+
+def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False):
     """Bytes and operations one kernel call needs on its inputs.
 
     rows/tiles: the list rows the call walks, in order, and their tiles;
@@ -253,8 +358,9 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes):
     live-hit pairs are its first n_pairs(out) - n_pairs(init) hit slots
     in list order (liveness only falls), so the samples the field must
     evaluate and the slabs it must read follow from geometry and the
-    output's pair count."""
-    pool_blk, meta, rays, _, pool3 = args[:5]
+    output's pair count.  rgba: K5 (no sh, no MLP, 32-lane slabs)."""
+    pool_blk, meta, rays = args[:3]
+    pool3 = args[3] if rgba else args[4]
     n0, n1, hit = bf.slab_window(rays.view(-1, 64, 8)[tiles], meta[rows],
                                  kw["dt"])                     # (E, 64)
     S = kw["S"]
@@ -273,15 +379,20 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes):
     slots = live_hit.any(1)
     blocks = torch.unique(pool_blk[rows][slots]).numel()
     n_tiles = torch.unique(tiles).numel()
-    nbytes = (blocks * pool3.shape[1] * 128 * 2          # slabs, once each
-              + len(rows) * (8 * 4 + 4)                  # meta + block id
-              + n_tiles * 64 * (8 + 16 + 8 + 8) * 4      # rays sh init out
-              + (32 * 64 + 64 * 64 + 64 * 3) * 4         # MLP weights
+    ray_floats = 8 + 8 + (8 if init is not None else 0) + (0 if rgba else 16)
+    nbytes = (blocks * pool3[0].numel() * 2               # slabs, once each
+              + len(rows) * (8 * 4 + 4)                   # meta + block id
+              + n_tiles * 64 * ray_floats * 4             # rays sh init out
               + index_bytes)
-    # per live sample: trilerp 8x16 MACs, MLP 16x64 (h half of layer 1)
-    # + 64x64 + 64x3 MACs, composite ~10; per ray: the 16x64 sh half
-    flops = (samples * (2 * (8 * 16 + 16 * 64 + 64 * 64 + 64 * 3) + 10)
-             + n_tiles * 64 * 2 * 16 * 64)
+    if rgba:
+        # per live sample: trilerp 8x4 MACs, composite ~10
+        flops = samples * (2 * 8 * 4 + 10)
+    else:
+        nbytes += (32 * 64 + 64 * 64 + 64 * 3) * 4       # MLP weights
+        # per live sample: trilerp 8x16 MACs, MLP 16x64 (h half of layer
+        # 1) + 64x64 + 64x3 MACs, composite ~10; per ray: the 16x64 sh half
+        flops = (samples * (2 * (8 * 16 + 16 * 64 + 64 * 64 + 64 * 3) + 10)
+                 + n_tiles * 64 * 2 * 16 * 64)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
     return dict(bytes=nbytes, flops=flops, samples=samples,
                 live_slots=int(slots.sum()), distinct_slabs=blocks,
@@ -300,10 +411,21 @@ def wl_rows(args, kw):
     return rows, tiles, 4 * 4 * wt.numel()
 
 
-def tp_rows(args, kw):
-    """K2 call: (rows, tiles, index bytes) of its tile lists."""
-    tid, lb, ns = (kw[k].long() for k in ("tid", "lbase", "nslots"))
-    k = torch.arange(kw["Lcall"], device=tid.device)
+def tile_rows(args, kw):
+    """Tile-list call (K2-K5): (rows, tiles, index bytes) of its lists,
+    with the entries' defaults (every tile, lbase = tid * Lp, Lcall =
+    Lp)."""
+    meta, rays = args[1], args[2]
+    T = rays.shape[0] // 64
+    Lp = meta.shape[0] // T
+    dev = rays.device
+    tid = kw.get("tid")
+    tid = torch.arange(T, device=dev) if tid is None else tid.long()
+    lb = kw.get("lbase")
+    lb = tid * Lp if lb is None else lb.long()
+    ns = kw.get("nslots")
+    ns = torch.full_like(tid, Lp) if ns is None else ns.long()
+    k = torch.arange(kw.get("Lcall") or Lp, device=dev)
     valid = k[None] < ns[:, None]
     return ((lb[:, None] + k[None])[valid],
             tid[:, None].expand_as(valid)[valid], 3 * 4 * tid.numel())
@@ -323,8 +445,8 @@ def time_calls(fn, calls, reps):
 def kernel_device_ms(fn, calls, reps, kernel):
     """The kernel's own device time per launch, by torch.profiler, over
     reps runs of each recorded call: the wrapper's checks, the copy of
-    init into the output and the launch gaps are not in it.  None if
-    the profiler saw no device time."""
+    init into the output and the launch gaps are not in it.  Returns
+    (ms or None if the profiler saw no launch of it, launches seen)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     outs = [torch.empty_like(a[2][:, :8]) for a, _ in calls]
@@ -340,9 +462,9 @@ def kernel_device_ms(fn, calls, reps, kernel):
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
           and kernel in e.key and e.self_device_time_total > 0]
     n = sum(e.count for e in ev)
-    if n != reps * len(calls):
-        return None
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n
+    if n == 0:
+        return None, 0
+    return sum(e.self_device_time_total for e in ev) / 1e3 / n, n
 
 
 def profile_frame(serve):
@@ -372,6 +494,59 @@ def profile_frame(serve):
                         for e in top})
 
 
+# kernel, its CUDA function, the TPU kernel it replaces, its rows
+SPECS = {
+    "brick_field_tiles_wl": ("brick_field_wl_kernel", f"{PALLAS}:936",
+                             wl_rows),
+    "brick_field_tiles_tp": ("brick_field_tp_kernel", f"{PALLAS}:692",
+                             tile_rows),
+    "brick_field_tiles": ("brick_field_n_kernel", f"{PALLAS}:242",
+                          tile_rows),
+    "brick_field_tiles_t": ("brick_field_t_kernel", f"{PALLAS}:469",
+                            tile_rows),
+    "brick_field_tiles_rgba": ("brick_field_rgba_kernel", f"{PALLAS}:1146",
+                               tile_rows)}
+
+
+def measure(bf, name, calls, request, launches, reps):
+    """One kernel on every call its request made: held against the plain
+    version (1e-4), its device time, wrapper time, plain time (one run of
+    every call) and bound.  Returns the kernels-line entry."""
+    kname, src, rows_of = SPECS[name]
+    fn, plain_fn = getattr(bf, name), getattr(bf, name + "_plain")
+    errs, works = [], []
+    for a, k in calls:
+        got = fn(*a, **k)
+        errs.append(kernel_errors(got, plain_fn(*a, **k),
+                                  f"{name} vs plain on a {request} call"))
+        works.append(call_work(bf, a, k, got, *rows_of(a, k),
+                               rgba=name == "brick_field_tiles_rgba"))
+    ms, seen = kernel_device_ms(fn, calls, reps, kname)
+    call_ms = time_calls(fn, calls, reps=reps)
+    ms_by = (f"profiler device time per launch ({seen} launches seen of "
+             f"{reps * len(calls)})")
+    if ms is None:                  # no device trace: the whole call
+        ms, ms_by = call_ms, "CUDA events around the wrapper call"
+    plain_ms = time_calls(plain_fn, calls, reps=1)
+    mean = lambda key: sum(w[key] for w in works) / len(works)  # noqa: E731
+    entry = dict(
+        name=name, route="cuda",
+        source="google_nerf_tpu_torch/csrc/brick_field.cu", replaces=src,
+        launches=launches, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=mean("bound_ms"),
+        bound_by=max(works, key=lambda w: w["bound_ms"])["bound_by"],
+        library_ms=None, request=request, ms_by=ms_by, wrapper_ms=call_ms,
+        calls_timed=len(calls), samples_per_call=mean("samples"),
+        live_slots_per_call=mean("live_slots"),
+        distinct_slabs_per_call=mean("distinct_slabs"))
+    print(f"{request}: {name}: kernel {ms:.4f} ms ({ms_by}), wrapper "
+          f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{entry['bound_ms']:.5f} ms by {entry['bound_by']}, per call "
+          f"over {len(calls)} calls; {launches} launches; max abs err "
+          f"{max(errs):.2e}", flush=True)
+    return entry
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -382,9 +557,11 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on the card")
     import google_nerf_tpu_torch.models.render_brick_mxu as rbm
-    from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     from google_nerf_tpu_torch.models.baked import BakedConfig, bake
+    from google_nerf_tpu_torch.models.baked_rgba import (
+        bake_rgba, render_brick_mxu_rgba)
     from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
     from google_nerf_tpu_torch.models.render_brick import brick_geometry
     from google_nerf_tpu_torch.ops.cuda import brick_field as bf
@@ -407,10 +584,10 @@ def main():
 
     # ---- 2: kernels against plain versions at serving widths
     errs2 = phase2(bf, args.seed, dev)
-    print(f"phase 2: kernels vs plain at serving widths, max abs err "
-          f"{errs2}", flush=True)
+    print(f"phase 2: kernels vs plain and golden at serving widths, max abs "
+          f"err {errs2}", flush=True)
 
-    # ---- 3: the main path at full width
+    # ---- 3: the wl256 request at full width
     cfg = NGPConfig(scale=0.5, encoder="packed", grid_size=128,
                     compute_dtype=torch.bfloat16)
     params = init_ngp(torch.Generator().manual_seed(args.seed), cfg, dev)
@@ -435,130 +612,135 @@ def main():
                                     geometry=geo, device=dev,
                                     **dict(SERVE_KW, **over))
 
-    rec_wl = Recorder(rbm.brick_field_tiles_wl)
-    rec_tp = Recorder(rbm.brick_field_tiles_tp)
-    rbm.brick_field_tiles_wl, rbm.brick_field_tiles_tp = rec_wl, rec_tp
-    bf.brick_field_tiles_wl.launches = bf.brick_field_tiles_tp.launches = 0
-    frame = serve()
-    torch.cuda.synchronize()
-    launches_a = (bf.brick_field_tiles_wl.launches,
-                  bf.brick_field_tiles_tp.launches)
-    rgb = frame["rgb"]
-    check(tuple(rgb.shape) == (800 * 800, 3), f"rgb shape {rgb.shape}")
-    check(bool(torch.isfinite(rgb).all()), "rgb not finite")
-    check(bool(((rgb >= 0) & (rgb <= 1 + 1e-5)).all()), "rgb outside [0,1]")
-    check(int(frame["pairs_undrained"]) == 0, "main frame left pairs "
-          "undrained")
-    check(int(frame["pairs_rendered"]) > 0, "main frame rendered no pairs")
-    check(launches_a[0] > 0, "K1 not launched on the main path")
-    check(launches_a[1] > 0, "K2 (drain) not launched on the main path")
-    print(f"phase 3: frame pairs_rendered {int(frame['pairs_rendered'])} "
-          f"pairs_undrained {int(frame['pairs_undrained'])} trunc_tiles "
-          f"{int(frame['trunc_tiles'])} dma_slots {int(frame['dma_slots'])}"
-          f"; launches K1 {launches_a[0]} K2 {launches_a[1]}; mean opacity "
-          f"{float(frame['opacity'].mean()):.4f}", flush=True)
+    frame, wl_calls, launches_a = run_request(rbm, bf,
+                                              "brick_field_tiles_wl", serve)
+    check_frame(frame, "wl256", 800 * 800)
+    check(int(frame["pairs_undrained"]) == 0, "wl256 left pairs undrained")
+    check(launches_a["brick_field_tiles_wl"] > 0,
+          "K1 not launched on the wl256 request")
+    check(launches_a["brick_field_tiles_tp"] > 0,
+          "K2 (drain) not launched on the wl256 request")
+    print(f"phase 3: wl256 {counters_of(frame)}; launches {launches_a}; "
+          f"mean opacity {float(frame['opacity'].mean()):.4f}", flush=True)
 
     # ---- 4: the same frame through the plain versions
-    rbm.brick_field_tiles_wl = bf.brick_field_tiles_wl_plain
-    rbm.brick_field_tiles_tp = bf.brick_field_tiles_tp_plain
-    plain = serve()
-    rbm.brick_field_tiles_wl, rbm.brick_field_tiles_tp = rec_wl, rec_tp
-    print(f"phase 4: pairs_rendered kernel {int(frame['pairs_rendered'])}"
-          f" plain {int(plain['pairs_rendered'])}", flush=True)
-    mae, dmax, dop = frame_errors(frame, plain, "kernel frame vs plain")
+    plain = plain_frame(rbm, bf, ("brick_field_tiles_wl",
+                                  "brick_field_tiles_tp"), serve)
+    mae, dmax, dop = frame_errors(frame, plain, "wl256 kernel frame vs plain")
     print(f"phase 4: plain frame rgb MAE {mae:.3e}, rgb max diff "
           f"{dmax:.3e}, opacity max diff {dop:.3e}", flush=True)
-    check(int(plain["pairs_undrained"]) == 0, "plain frame left pairs "
-          "undrained")
 
     # ---- 5: a budget cut below the segment load, so the drain runs
-    real_groups = int((rec_wl.calls[0][0][10] > 0).sum())
+    real_groups = int((wl_calls[0][0][10] > 0).sum())
     cut = max(real_groups - 40, 1)
-    bf.brick_field_tiles_wl.launches = bf.brick_field_tiles_tp.launches = 0
-    drained = serve(wl_cap=cut)
-    torch.cuda.synchronize()
-    launches_b = (bf.brick_field_tiles_wl.launches,
-                  bf.brick_field_tiles_tp.launches)
-    check(launches_b[1] > 0, "K2 (drain) not launched with the budget cut")
-    dmae = float((drained["rgb"] - rgb).abs().mean())
+    drained, _, launches_b = run_request(
+        rbm, bf, "brick_field_tiles_tp", lambda: serve(wl_cap=cut))
+    check(launches_b["brick_field_tiles_tp"] > 0,
+          "K2 (drain) not launched with the budget cut")
+    dmae = float((drained["rgb"] - frame["rgb"]).abs().mean())
     print(f"phase 5: wl_cap {cut} (segment-0 load {real_groups} groups): "
-          f"pairs_undrained {int(drained['pairs_undrained'])} trunc_tiles "
-          f"{int(drained['trunc_tiles'])}; launches K1 {launches_b[0]} K2 "
-          f"{launches_b[1]}; rgb MAE vs uncut {dmae:.3e}", flush=True)
+          f"{counters_of(drained)}; launches {launches_b}; rgb MAE vs uncut "
+          f"{dmae:.3e}", flush=True)
     if int(drained["pairs_undrained"]) == 0:
-        frame_errors(drained, frame, "drained frame vs uncut")
-    rbm.brick_field_tiles_wl = rec_wl.fn
-    rbm.brick_field_tiles_tp = rec_tp.fn
+        frame_errors(drained, frame, "drained frame vs uncut",
+                     counters=("pairs_rendered",))
 
-    # ---- 6: timings; each kernel on every call the two requests made
-    frame_ms = []
+    # ---- 6: wl256 timings; K1 on every call of the request
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        serve()
-        torch.cuda.synchronize()
-        frame_ms.append(1e3 * (time.time() - t0))
+    wl_ms = frame_ms(serve, 3)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     breakdown = profile_frame(serve)
-    print(f"phase 6: profiled frame: {breakdown}", flush=True)
-    kernels = []
-    for i, (name, kname, fn, plain_fn, calls, rows_of, src) in enumerate((
-            ("brick_field_tiles_wl", "brick_field_wl_kernel",
-             bf.brick_field_tiles_wl, bf.brick_field_tiles_wl_plain,
-             rec_wl.calls, wl_rows,
-             "google_nerf_tpu/ops/pallas/brick_field.py:936"),
-            ("brick_field_tiles_tp", "brick_field_tp_kernel",
-             bf.brick_field_tiles_tp, bf.brick_field_tiles_tp_plain,
-             rec_tp.calls, tp_rows,
-             "google_nerf_tpu/ops/pallas/brick_field.py:692"))):
-        errs, works = [], []
-        for a, k in calls:
-            got = fn(*a, **k)
-            errs.append(kernel_errors(got, plain_fn(*a, **k)))
-            works.append(call_work(bf, a, k, got, *rows_of(a, k)))
-        ms = kernel_device_ms(fn, calls, 20, kname)
-        call_ms = time_calls(fn, calls, reps=20)
-        ms_by = "profiler device time per launch"
-        if ms is None:                  # no device trace: the whole call
-            ms, ms_by = call_ms, "CUDA events around the wrapper call"
-        plain_ms = time_calls(plain_fn, calls, reps=2)
-        bound = sum(w["bound_ms"] for w in works) / len(works)
-        kernels.append(dict(
-            name=name, route="cuda",
-            source="google_nerf_tpu_torch/csrc/brick_field.cu",
-            replaces=src,
-            launches=launches_a[i],
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=max(works, key=lambda w: w["bound_ms"])["bound_by"],
-            library_ms=None, ms_by=ms_by, wrapper_ms=call_ms,
-            calls_timed=len(calls),
-            launches_budget_cut_frame=launches_b[i],
-            samples_per_call=sum(w["samples"] for w in works) / len(works),
-            live_slots_per_call=sum(w["live_slots"] for w in works)
-            / len(works),
-            distinct_slabs_per_call=sum(w["distinct_slabs"] for w in works)
-            / len(works)))
-        print(f"phase 6: {name}: kernel {ms:.4f} ms ({ms_by}), whole "
-              f"wrapper call {call_ms:.4f} ms by CUDA events (plain "
-              f"{plain_ms:.1f}, bound {bound:.5f} by "
-              f"{kernels[-1]['bound_by']}) over "
-              f"{len(calls)} calls of the two requests; max abs err "
-              f"{max(errs):.2e}",
+    print(f"phase 6: wl256 warm frames {wl_ms} ms; peak memory "
+          f"{peak_gib:.2f} GiB; profiled frame: {breakdown}", flush=True)
+    kernels = [measure(bf, "brick_field_tiles_wl", wl_calls, "wl256",
+                       launches_a["brick_field_tiles_wl"], reps=20)]
+
+    # ---- 7: the 512^3 bake and the per-chunk requests
+    del baked, geo, plain, drained
+    bcfg5 = BakedConfig(voxel_res=512, block=8, dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    baked5 = bake(params, cfg, occ, bcfg5, device=dev)
+    torch.cuda.synchronize()
+    bake5_s = time.time() - t0
+    geo5 = brick_geometry(baked5["block_map"], bcfg5, cfg)
+    print(f"phase 7: baked 512^3: {baked5['n_blocks']} bricks in "
+          f"{bake5_s:.2f} s", flush=True)
+
+    def render(kw):
+        def go():
+            if kw is RGBA512:
+                return render_brick_mxu_rgba(
+                    baked5, cfg, o, d, 800, 800, bcfg=bcfg5, geometry=geo5,
+                    device=dev, **kw)
+            return rbm.render_brick_mxu(baked5, cfg, o, d, 800, 800,
+                                        bcfg=bcfg5, geometry=geo5,
+                                        device=dev, **kw)
+        return go
+
+    requests = (("tp512", TP512, "brick_field_tiles_tp"),
+                ("t512", T512, "brick_field_tiles_t"),
+                ("n512", dict(T512, kernel="n"), "brick_field_tiles"),
+                ("rgba512", RGBA512, "brick_field_tiles_rgba"))
+    summary, frames = {}, {}
+    for request, kw, name in requests:
+        go = render(kw)
+        t0 = time.time()
+        fr, calls, launches = run_request(rbm, bf, name, go)
+        first_s = time.time() - t0
+        check_frame(fr, request, 800 * 800)
+        check(launches[name] > 0, f"{name} not launched on {request}")
+        if request in ("tp512", "rgba512"):   # exact by construction
+            check(int(fr["pairs_undrained"]) == 0,
+                  f"{request} left pairs undrained")
+        t0 = time.time()
+        pl = plain_frame(rbm, bf, (name,), go)
+        plain_s = time.time() - t0
+        errs = frame_errors(fr, pl, f"{request} kernel frame vs plain")
+        print(f"{request}: {counters_of(fr)}; launches {launches}; mean "
+              f"opacity {float(fr['opacity'].mean()):.4f}; first frame "
+              f"{first_s:.2f} s, plain frame {plain_s:.2f} s; vs plain: rgb "
+              f"MAE {errs[0]:.3e} max {errs[1]:.3e}, opacity max "
+              f"{errs[2]:.3e}", flush=True)
+        times = frame_ms(go, 3)
+        prof = profile_frame(go)
+        kernels.append(measure(bf, name, calls, request, launches[name],
+                               reps=3))
+        summary[request] = dict(counters=counters_of(fr), launches=launches,
+                                frame_ms=times, profile=prof,
+                                plain_frame_s=plain_s, plain_frame_err=errs)
+        frames[request] = {k: fr[k] for k in ("rgb", "opacity") + COUNTERS}
+        print(f"{request}: warm frames {times} ms; profiled frame {prof}",
               flush=True)
-    print(f"phase 6: card {card}; bake {bake_s:.3f} s; warm frame median "
-          f"{statistics.median(frame_ms):.2f} ms of {frame_ms}; peak "
-          f"memory {peak_gib:.2f} GiB; per frame K1 {launches_a[0]} calls, "
-          f"K2 {launches_a[1]} calls; total {time.time() - t_start:.0f} s",
-          flush=True)
+        del pl, calls
+    nt = frame_errors(frames["n512"], frames["t512"], "n512 vs t512",
+                      limit=2e-3, counters=("pairs_rendered",))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bake_rgba(baked5, cfg, bcfg5, o[0])
+    torch.cuda.synchronize()
+    rgba_bake_ms = 1e3 * (time.time() - t0)
+    print(f"phase 7: n512 vs t512 rgb MAE {nt[0]:.3e} max {nt[1]:.3e}; "
+          f"per-frame rgba bake {rgba_bake_ms:.2f} ms", flush=True)
+
+    kernels = sorted(kernels, key=lambda e: KERNELS.index(e["name"]))
+    kernels[KERNELS.index("brick_field_tiles_tp")]["launches_wl256"] = \
+        launches_a["brick_field_tiles_tp"]
+    print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
+          f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
+              f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
+              for r, s in summary.items())
+          + f"; total {time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
-                  frame_ms=frame_ms, peak_gib=peak_gib, phase2_err=errs2,
-                  profile=breakdown,
-                  plain_frame_rgb_mae=mae, plain_frame_rgb_max=dmax,
-                  plain_frame_opacity_max=dop,
-                  pairs_rendered=int(frame["pairs_rendered"]),
-                  dma_slots=int(frame["dma_slots"]), kernels=kernels)
+                  bake512_s=bake5_s, n_blocks_512=int(baked5["n_blocks"]),
+                  wl256=dict(frame_ms=wl_ms, peak_gib=peak_gib,
+                             counters=counters_of(frame),
+                             launches=launches_a, profile=breakdown,
+                             plain_frame_err=[mae, dmax, dop]),
+                  requests=summary, n512_vs_t512=nt,
+                  rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
+                  kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

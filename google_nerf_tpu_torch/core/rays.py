@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 
-def pixel_grid(H: int, W: int, device="cpu") -> torch.Tensor:
+def pixel_grid(H: int, W: int, device="cuda") -> torch.Tensor:
     """(H, W, 2) grid of (u=col, v=row) pixel coordinates (no +0.5)."""
     u = torch.arange(W, dtype=torch.float32, device=device)
     v = torch.arange(H, dtype=torch.float32, device=device)
@@ -18,7 +18,7 @@ def pixel_grid(H: int, W: int, device="cpu") -> torch.Tensor:
 
 
 def get_ray_directions(H, W, K, *, convention: str = "rdf", flatten=True,
-                       return_uv=False, device="cpu"):
+                       return_uv=False, device="cuda"):
     """Per-pixel camera-space ray directions through pixel centers.
 
     convention 'rdf' = [right down front], 'rub' = [right up back]."""

@@ -142,7 +142,8 @@ class SyntheticDataset:
         self.img_wh = (w, h)
         self.K = np.array([[w, 0, w / 2], [0, w, h / 2], [0, 0, 1]],
                           np.float32)
-        self.directions = get_ray_directions(h, w, self.K).numpy()
+        self.directions = get_ray_directions(h, w, self.K,
+                                             device="cpu").numpy()
         seed = self.seed if self.split == "train" else self.seed + 1000
         self.poses = _fibonacci_poses(self.n_images, self.cam_radius, seed)
         cache_dir = Path(os.environ.get("GNT_TORCH_GT_CACHE", _GT_CACHE))

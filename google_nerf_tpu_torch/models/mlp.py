@@ -7,7 +7,7 @@ import torch
 
 
 def init_mlp(generator: torch.Generator, dims: Sequence[int],
-             device="cpu", dtype=torch.float32):
+             device="cuda", dtype=torch.float32):
     """dims = [in, hidden..., out] -> list of (din, dout) weights,
     Kaiming-uniform fan-in init U[-sqrt(6/din), sqrt(6/din)]."""
     ws = []

@@ -58,7 +58,7 @@ def packed_config_for_scale(scale: float, n_levels: int = 8,
 
 
 def init_packed_hash(generator: torch.Generator, cfg: PackedHashConfig,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """(L, T, 8F) f32, U[-1e-4, 1e-4] (tcnn's init)."""
     u = torch.rand((cfg.n_levels, cfg.table_size, cfg.row_width),
                    generator=generator, dtype=torch.float32)

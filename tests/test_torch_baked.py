@@ -82,7 +82,7 @@ def test_npz_crosses_both_ways_and_renders_the_same_frame(tmp_path):
                        jax_bf16_to_torch(sc["jbaked"]["pool"])
                        .view(torch.int16))
     ours = render_brick_mxu(baked, sc["cfg"], o, d, 16, 16, bcfg=bcfg,
-                            device="cpu", **FRAME_KW)
+                            kernel="wl", device="cpu", **FRAME_KW)
     theirs = jax_render(sc["jbaked"], sc["jcfg"], sc["o"], sc["d"], 16, 16,
                         bcfg=sc["jbcfg"], kernel="wl", interpret=True,
                         **FRAME_KW)

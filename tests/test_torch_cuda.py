@@ -1,4 +1,4 @@
-"""Card-only tests of the PyTorch port's CUDA kernels, and the toy
+"""Card-only tests of the PyTorch port's CUDA kernels K1-K5, and the toy
 kernel inputs the CPU tests share.  This file imports no JAX, so it runs
 on a machine with a card and no JAX:
 
@@ -61,6 +61,37 @@ def _toy_inputs(seed=0, T=2, Lp=3, n_blocks=4, sigma_scale=1.0, Bk=8):
     return (pool_blk, meta, rays, sh, pool3, *ws), nslots, kw
 
 
+def _toy_rgba_pool(pool3):
+    """(nb, vox, 128) feature pool -> (nb, 32, vox) rgba slabs with h0 =
+    the sigma lane and seeded in-[0, 1] rgb (tests/test_render_brick_mxu
+    .py's _toy_rgba_pool)."""
+    rng = np.random.RandomState(7)
+    nb, vox, _ = pool3.shape
+    h0 = np.swapaxes(pool3[:, :, 0::16], 1, 2)          # (nb, 8, vox)
+    rgb = rng.uniform(0.0, 1.0, (nb, 8, 3, vox)).astype(np.float32)
+    return np.concatenate([h0[:, :, None, :], rgb], axis=2).reshape(
+        nb, 32, vox)
+
+
+def _dense_call(kernel, args, nslots, device="cpu", pool_dtype=None):
+    """(wrapper, plain version, positional tensors, keywords) of K3 ("n"),
+    K4 ("t", transposed pool) or K5 ("rgba", toy rgba slabs) on the toy
+    inputs."""
+    t = _torch(args, device)
+    if kernel == "t":
+        t[4] = t[4].transpose(1, 2).contiguous()
+    elif kernel == "rgba":
+        t = t[:3] + [torch.as_tensor(_toy_rgba_pool(args[4]), device=device)]
+    if pool_dtype is not None:
+        i = 3 if kernel == "rgba" else 4
+        t[i] = t[i].to(pool_dtype)
+    fns = {"n": (tbf.brick_field_tiles, tbf.brick_field_tiles_plain),
+           "t": (tbf.brick_field_tiles_t, tbf.brick_field_tiles_t_plain),
+           "rgba": (tbf.brick_field_tiles_rgba,
+                    tbf.brick_field_tiles_rgba_plain)}[kernel]
+    return (*fns, t, dict(nslots=torch.as_tensor(nslots, device=device)))
+
+
 def _torch(args, device="cpu"):
     return [torch.as_tensor(x, device=device) for x in args]
 
@@ -105,22 +136,20 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel,Bk,carry", [
-    ("tp", 8, False), ("wl", 8, False), ("tp", 4, False), ("wl", 4, False),
-    ("tp", 8, True), ("wl", 8, True)])
-def test_cuda_kernel_matches_plain(kernel, Bk, carry):
-    """Each kernel against its plain version on the card; `carry` starts
-    from a nonzero init with some rays already saturated."""
-    dev = _card()
+def _card_call(kernel, Bk, dev, S=None):
+    """(wrapper, plain, tensors, keywords) of any kernel on the toy
+    inputs, on the card, bf16 pool."""
     args, nslots, kw = _toy_inputs(Lp=4, Bk=Bk)
+    if S is not None:
+        # long windows: rays cross a brick in ~74 samples at this dt, so S
+        # truncates them and the kernel composites S > 64 samples per ray
+        kw = dict(kw, S=S, dt=float(np.sqrt(3) / 512))
+    if kernel in ("n", "t", "rgba"):
+        fn, plain, t, extra = _dense_call(kernel, args, nslots, dev,
+                                          torch.bfloat16)
+        return fn, plain, t, extra, kw, nslots, args
     t = _torch(args, dev)
     t[4] = t[4].to(torch.bfloat16)
-    if carry:
-        init = torch.zeros((128, 8), device=dev)
-        init[:, 0] = torch.linspace(0.0, 6.0, 128, device=dev)
-        init[:, 1:5] = 0.2
-        kw = dict(kw, init=init)
     if kernel == "tp":
         fn, plain = tbf.brick_field_tiles_tp, tbf.brick_field_tiles_tp_plain
         extra = dict(nslots=torch.as_tensor(nslots, device=dev), P=2)
@@ -128,7 +157,29 @@ def test_cuda_kernel_matches_plain(kernel, Bk, carry):
         fn, plain = tbf.brick_field_tiles_wl, tbf.brick_field_tiles_wl_plain
         t += _torch(_worklist(2, 4, nslots, 2), dev)
         extra = dict(P=2)
-    before = getattr(fn, "launches")
+    return fn, plain, t, extra, kw, nslots, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,Bk,carry,S", [
+    ("tp", 8, False, None), ("wl", 8, False, None), ("tp", 4, False, None),
+    ("wl", 4, False, None), ("tp", 8, True, None), ("wl", 8, True, None),
+    ("n", 8, False, None), ("n", 4, False, None), ("t", 8, False, None),
+    ("t", 4, False, None), ("rgba", 8, False, None),
+    ("rgba", 4, False, None), ("rgba", 8, True, None), ("tp", 8, True, 65),
+    ("n", 8, False, 65), ("t", 8, False, 65), ("rgba", 8, True, 65)])
+def test_cuda_kernel_matches_plain(kernel, Bk, carry, S):
+    """Each kernel against its plain version on the card; `carry` starts
+    from a nonzero init with some rays already saturated (K1, K2, K5);
+    S=65 composites windows longer than one pass of the kernel."""
+    dev = _card()
+    fn, plain, t, extra, kw, _, _ = _card_call(kernel, Bk, dev, S)
+    if carry:
+        init = torch.zeros((128, 8), device=dev)
+        init[:, 0] = torch.linspace(0.0, 6.0, 128, device=dev)
+        init[:, 1:5] = 0.2
+        kw = dict(kw, init=init)
+    before = fn.launches
     got = fn(*t, **extra, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
@@ -139,23 +190,22 @@ def test_cuda_kernel_matches_plain(kernel, Bk, carry):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,Bk", [("tp", 8), ("wl", 8), ("tp", 4),
-                                       ("wl", 4)])
+                                       ("wl", 4), ("n", 8), ("n", 4),
+                                       ("t", 8), ("t", 4), ("rgba", 8),
+                                       ("rgba", 4)])
 def test_cuda_kernel_matches_golden(kernel, Bk):
     """Each kernel against the port's numpy golden, the reference that
     needs no JAX, at the JAX kernel tests' tolerances."""
     dev = _card()
-    args, nslots, kw = _toy_inputs(Lp=4, Bk=Bk)
-    want = tbf.brick_field_tiles_reference(*args, nslots=nslots, inv2s=1.0,
-                                           V=32, **kw)
-    t = _torch(args, dev)
-    t[4] = t[4].to(torch.bfloat16)
-    if kernel == "tp":
-        got = tbf.brick_field_tiles_tp(
-            *t, nslots=torch.as_tensor(nslots, device=dev), P=2, **kw)
+    fn, _, t, extra, kw, nslots, args = _card_call(kernel, Bk, dev)
+    if kernel == "rgba":
+        want = tbf.brick_field_rgba_reference(
+            *args[:3], _toy_rgba_pool(args[4]), nslots=nslots, inv2s=1.0,
+            V=32, **kw)
     else:
-        got = tbf.brick_field_tiles_wl(
-            *t, *_torch(_worklist(2, 4, nslots, 2), dev), P=2, **kw)
-    _assert_matches(got.cpu().numpy(), want)
+        want = tbf.brick_field_tiles_reference(*args, nslots=nslots,
+                                               inv2s=1.0, V=32, **kw)
+    _assert_matches(fn(*t, **extra, **kw).cpu().numpy(), want)
 
 
 @pytest.mark.cuda
@@ -187,19 +237,13 @@ def test_cuda_tp_contract_fails_loudly():
         assert "assert" in res.stderr.lower(), res.stderr[-2000:]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("wl_cap", [0, 1])
-def test_cuda_frame_matches_cpu_frame(wl_cap):
-    """The whole worklist frame on the card (K1, and K2 in the drain that
-    wl_cap=1 forces) against the same frame on the CPU (plain versions),
-    at the 16x16 setup of tests/test_render_brick_mxu.py."""
+def _card_scene():
+    """The 16x16 scene of tests/test_render_brick_mxu.py, built by the
+    port on the CPU (seeded torch weights, full occupancy)."""
     from google_nerf_tpu_torch.core.rays import get_ray_directions, get_rays
     from google_nerf_tpu_torch.data.synthetic import _fibonacci_poses
     from google_nerf_tpu_torch.models.baked import BakedConfig, bake
     from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
-    from google_nerf_tpu_torch.models.render_brick_mxu import \
-        render_brick_mxu
-    dev = _card()
     cfg = NGPConfig(scale=0.5, encoder="packed", grid_size=16,
                     packed_log2_size=12, packed_levels=4)
     params = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -208,11 +252,33 @@ def test_cuda_frame_matches_cpu_frame(wl_cap):
     baked = bake(params, cfg, torch.ones(1, 16, 16, 16, dtype=torch.bool),
                  bcfg, device="cpu")
     K = np.array([[16, 0, 8], [0, 16, 8], [0, 0, 1]], np.float32)
-    o, d = get_rays(get_ray_directions(16, 16, K),
+    o, d = get_rays(get_ray_directions(16, 16, K, device="cpu"),
                     torch.as_tensor(_fibonacci_poses(1, 1.2, 1000)[0]))
+    return cfg, bcfg, baked, o, d
+
+
+def _assert_frames_same(got, want):
+    for k in ("rgb", "opacity"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
+                                   rtol=0, atol=1e-4)
+    for k in ("pairs_undrained", "trunc_tiles", "pairs_rendered",
+              "dma_slots"):
+        assert int(got[k]) == int(want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl_cap", [0, 1])
+def test_cuda_frame_matches_cpu_frame(wl_cap):
+    """The whole worklist frame on the card (K1, and K2 in the drain that
+    wl_cap=1 forces) against the same frame on the CPU (plain versions),
+    at the 16x16 setup of tests/test_render_brick_mxu.py."""
+    from google_nerf_tpu_torch.models.render_brick_mxu import \
+        render_brick_mxu
+    dev = _card()
+    cfg, bcfg, baked, o, d = _card_scene()
     kw = dict(bcfg=bcfg, max_samples=64, T_threshold=1e-2, L=64,
               exact_cull=16, pbatch=2, drain_tiles=4, drain_L=64,
-              drain_xc=32, segment_slots=8, wl_cap=wl_cap)
+              drain_xc=32, segment_slots=8, wl_cap=wl_cap, kernel="wl")
     launches = (tbf.brick_field_tiles_wl.launches,
                 tbf.brick_field_tiles_tp.launches)
     got = render_brick_mxu({k: (v.to(dev) if torch.is_tensor(v) else v)
@@ -220,12 +286,40 @@ def test_cuda_frame_matches_cpu_frame(wl_cap):
                            d.to(dev), 16, 16, device=dev, **kw)
     torch.cuda.synchronize()
     want = render_brick_mxu(baked, cfg, o, d, 16, 16, device="cpu", **kw)
-    for k in ("rgb", "opacity"):
-        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
-                                   rtol=0, atol=1e-4)
-    for k in ("pairs_undrained", "trunc_tiles", "pairs_rendered",
-              "dma_slots"):
-        assert int(got[k]) == int(want[k]), k
+    _assert_frames_same(got, want)
     assert tbf.brick_field_tiles_wl.launches > launches[0]
     if wl_cap:
         assert tbf.brick_field_tiles_tp.launches > launches[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,extra", [
+    ("n", dict(bands="auto", exact_cull=16, drain_xc=32)),
+    ("t", dict(bands=((1, 16), (3, 8)), exact_cull=16, drain_xc=32)),
+    ("tp", dict(pbatch=2, segment_slots=8, exact_cull=16, drain_xc=32)),
+    ("rgba", dict(segment_slots=8)), ("n", dict(L=4))])
+def test_cuda_dense_frame_matches_cpu_frame(kernel, extra):
+    """The per-chunk frames on the card (K3, K4, K2, K5 and their drains)
+    against the same frames on the CPU."""
+    from google_nerf_tpu_torch.models.baked_rgba import \
+        render_brick_mxu_rgba
+    from google_nerf_tpu_torch.models.render_brick_mxu import \
+        render_brick_mxu
+    dev = _card()
+    cfg, bcfg, baked, o, d = _card_scene()
+    kw = dict(dict(bcfg=bcfg, max_samples=64, T_threshold=1e-2, L=64,
+                   macro_tiles=0, drain_tiles=4, drain_L=64), **extra)
+    fn = {"n": tbf.brick_field_tiles, "t": tbf.brick_field_tiles_t,
+          "tp": tbf.brick_field_tiles_tp,
+          "rgba": tbf.brick_field_tiles_rgba}[kernel]
+    render = render_brick_mxu_rgba if kernel == "rgba" else render_brick_mxu
+    if kernel != "rgba":
+        kw["kernel"] = kernel
+    before = fn.launches
+    got = render({k: (v.to(dev) if torch.is_tensor(v) else v)
+                  for k, v in baked.items()}, cfg, o.to(dev), d.to(dev), 16,
+                 16, device=dev, **kw)
+    torch.cuda.synchronize()
+    want = render(baked, cfg, o, d, 16, 16, device="cpu", **kw)
+    _assert_frames_same(got, want)
+    assert fn.launches > before

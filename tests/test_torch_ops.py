@@ -35,14 +35,15 @@ def _close(got, want, atol=1e-5, rtol=1e-5):
 def test_ray_directions_match_jax(convention):
     K = np.array([[100.0, 0, 4.0], [0, 90.0, 3.0], [0, 0, 1]], np.float32)
     d, uv = tr.get_ray_directions(6, 8, K, convention=convention,
-                                  return_uv=True)
+                                  return_uv=True, device="cpu")
     jd, juv = jr.get_ray_directions(6, 8, K, convention=convention,
                                     return_uv=True)
     _close(d, jd, atol=0, rtol=0)
     _close(uv, juv, atol=0, rtol=0)
-    assert tr.get_ray_directions(6, 8, K, flatten=False).shape == (6, 8, 3)
+    assert tr.get_ray_directions(6, 8, K, flatten=False,
+                                 device="cpu").shape == (6, 8, 3)
     with pytest.raises(ValueError):
-        tr.get_ray_directions(6, 8, K, convention="xyz")
+        tr.get_ray_directions(6, 8, K, convention="xyz", device="cpu")
 
 
 @pytest.mark.parametrize("batched", [False, True])
@@ -99,8 +100,10 @@ def test_mlp_apply_matches_jax(dtype, atol):
 
 
 def test_init_mlp_is_seeded_kaiming_uniform():
-    ws = init_mlp(torch.Generator().manual_seed(0), [32, 64, 3])
-    again = init_mlp(torch.Generator().manual_seed(0), [32, 64, 3])
+    ws = init_mlp(torch.Generator().manual_seed(0), [32, 64, 3],
+                  device="cpu")
+    again = init_mlp(torch.Generator().manual_seed(0), [32, 64, 3],
+                     device="cpu")
     assert [tuple(w.shape) for w in ws] == [(32, 64), (64, 3)]
     for w, w2, din in zip(ws, again, (32, 64)):
         assert torch.equal(w, w2)

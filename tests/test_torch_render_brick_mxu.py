@@ -115,11 +115,18 @@ def test_worklist_cap_overflow_drains_like_jax(scene, monkeypatch):
 
 
 def test_unported_kernels_raise(scene):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        trbm.render_brick_mxu(scene["baked"], scene["cfg"],
-                              torch.zeros(256, 3), torch.ones(256, 3), 16,
-                              16, bcfg=scene["bcfg"], kernel="tp",
-                              device="cpu")
+    """A kernel name the port does not have raises, and so does
+    segment_slots with a kernel that takes no init carry (n, t), where
+    JAX asserts."""
+    kw = dict(bcfg=scene["bcfg"], device="cpu")
+    rays = (torch.zeros(256, 3), torch.ones(256, 3), 16, 16)
+    with pytest.raises(ValueError, match="not in"):
+        trbm.render_brick_mxu(scene["baked"], scene["cfg"], *rays,
+                              kernel="mxu", **kw)
+    for kernel in ("n", "t"):
+        with pytest.raises(ValueError, match="segment_slots"):
+            trbm.render_brick_mxu(scene["baked"], scene["cfg"], *rays,
+                                  kernel=kernel, segment_slots=8, **kw)
 
 
 def test_weights_end_to_end_match_jax(scene):
