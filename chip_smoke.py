@@ -29,6 +29,16 @@ Phases:
      rendered through the plain version; its warm frame time; its
      kernel's device time, wrapper time, plain time and bound.  n512 is
      also held against t512.
+  8. the tool path, P1-P5: `kernel_probe` (P1 and P2, the row gather on
+     f32 and bf16 tables; P3, the atomic scatter-add; P4, the bulk-copy
+     row gather; at tools/pallas_probe.py's sizes on seeded inputs) and
+     `kernel_ladder` (P5, the 17 rungs of tools/mosaic_bisect.py on its
+     operands), each run through its entry point with the P counters at
+     0; then each kernel against its plain version, its device time
+     (torch.profiler), wrapper time (CUDA events), plain time, the time
+     of each one-call PyTorch version of the same function
+     (`index_select` and `tab[idx]`, `index_add_`; P1-P4; the faster is
+     `library_ms`) and its bound.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -40,7 +50,10 @@ frame (phases 4 and 7) and the drained frame against the uncut one
 (phase 5): rgb and opacity max abs difference 1e-4 per pixel and the
 counters equal.  n512 against t512: rgb max abs 2e-3 (the JAX test's for
 those two kernels, whose corner weights differ in the last bit) and
-pairs_rendered equal.  Any failed check exits nonzero before the result
+pairs_rendered equal.  Phase 8: P1, P2 and P4 bitwise, P3 within atol
+1e-5 (atomic f32 sums in a varying order), the rungs exactly or within
+rtol 1e-5 (k13, k15, k16: f32 sums in another order, exp and sigmoid).
+Any failed check exits nonzero before the result
 line.  The last stdout line is the result JSON; the line before it lists
 every kernel with its times and its launches in its request (counters
 reset just before the request, read just after; each kernel must have
@@ -57,9 +70,13 @@ import time
 
 import torch
 
+from google_nerf_tpu_torch.tools.kernel_probe import cuda_ms
+
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
+H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores
 PALLAS = "google_nerf_tpu/ops/pallas/brick_field.py"
+CSRC = "google_nerf_tpu_torch/csrc"
 SERVE_KW = dict(L=96, exact_cull=96, kernel="wl", pbatch=16,
                 segment_slots=32, wl_cap=5120, drain_tiles=64, drain_L=128,
                 drain_xc=96, max_samples=256, T_threshold=1e-2)
@@ -137,18 +154,6 @@ def frame_errors(got, want, what, limit=1e-4, counters=COUNTERS):
 
 def counters_of(frame):
     return {k: int(frame[k]) for k in COUNTERS}
-
-
-def cuda_ms(fn, reps):
-    """Mean ms of fn() over reps runs after one warm-up, by CUDA events."""
-    fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def frame_ms(serve, n):
@@ -442,29 +447,57 @@ def time_calls(fn, calls, reps):
     return total / len(calls)
 
 
+def device_events(run):
+    """{device kernel name: (total ms, launches seen)} by torch.profiler
+    while run() runs.  The profiler can miss launches (PERF.md), so a
+    kernel's time is its mean over the launches seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def profiled_ms(ev, kernels):
+    """Each named kernel's own device time per launch in device_events'
+    ev: {name: (ms or None if the profiler saw no launch of it, launches
+    seen)}.  A name matches every device kernel whose name contains it."""
+    seen = {}
+    for name in kernels:
+        mine = [v for key, v in ev.items() if name in key]
+        n = sum(c for _, c in mine)
+        seen[name] = (sum(t for t, _ in mine) / n if n else None, n)
+    return seen
+
+
+def per_call_ms(ev, reps):
+    """Device ms of one of the reps identical calls device_events saw:
+    each kernel's mean per launch times its launches per call (its count
+    over reps, rounded, at least 1)."""
+    if not ev:
+        return None
+    return sum(t / n * max(1, round(n / reps)) for t, n in ev.values())
+
+
 def kernel_device_ms(fn, calls, reps, kernel):
     """The kernel's own device time per launch, by torch.profiler, over
     reps runs of each recorded call: the wrapper's checks, the copy of
     init into the output and the launch gaps are not in it.  Returns
     (ms or None if the profiler saw no launch of it, launches seen)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     outs = [torch.empty_like(a[2][:, :8]) for a, _ in calls]
     for (a, k), o in zip(calls, outs):
         fn(*a, **k, out=o)                                  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+
+    def run():
         for (a, k), o in zip(calls, outs):
             for _ in range(reps):
                 fn(*a, **k, out=o)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-          and kernel in e.key and e.self_device_time_total > 0]
-    n = sum(e.count for e in ev)
-    if n == 0:
-        return None, 0
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n, n
+    return profiled_ms(device_events(run), [kernel])[kernel]
 
 
 def profile_frame(serve):
@@ -547,6 +580,153 @@ def measure(bf, name, calls, request, launches, reps):
     return entry
 
 
+# ------------------------------------------------- phase 8: the tool path
+
+# probe: (its CUDA function, the TPU kernel it replaces)
+PROBE_SPECS = {
+    "gather_rows_f32": ("gather_rows_kernel", "tools/pallas_probe.py:43"),
+    "gather_rows_bf16": ("gather_rows_kernel", "tools/pallas_probe.py:78"),
+    "scatter_add_rows": ("scatter_add_rows_kernel",
+                         "tools/pallas_probe.py:124"),
+    "gather_rows_bulk": ("gather_rows_bulk_kernel",
+                         "tools/pallas_probe.py:168")}
+
+
+def bound_of(nbytes, ops, peak):
+    """(bound ms, what binds it) of nbytes moved and ops done at peak."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rung_bound(ladder, k):
+    """Rung k's bound on the tool's operands: the operand bytes it reads
+    once and its (8, 64) f32 output written once; its elementwise
+    operations at the f32 rate, or k8's and k10's products at the bf16
+    tensor-core rate."""
+    S, TPX, N, VOX, ROWW = (ladder.S, ladder.TPX, ladder.N, ladder.VOX,
+                            ladder.ROWW)
+    work = {1: (4 * 8 * TPX, 8 * TPX), 2: (4 * TPX, N), 3: (0, 4 * N),
+            4: (0, S * TPX), 5: (0, 3 * N), 6: (0, 3 * VOX * N),
+            7: (2 * VOX * N, 3 * VOX * N), 8: (2 * ROWW * VOX,
+                                               2 * ROWW * VOX * N),
+            9: (4 * 16 * TPX, 16 * N), 10: (2 * 64 * 32, 2 * 64 * 32 * N),
+            11: (2 * 4 * ROWW * N, 3 * ROWW * N), 12: (4 * TPX, 3 * 8 * TPX),
+            13: (0, 2 * ROWW * N), 14: (4 * (TPX + 1), 3 * N), 15: (12, 9),
+            16: (0, 14 * N), 17: (2 * VOX * N, 2 * VOX * N)}
+    nbytes, ops = work[k]
+    return bound_of(nbytes + 4 * 8 * TPX, ops, H100_BF16_FLOPS
+                    if k in (8, 10) else H100_F32_FLOPS)
+
+
+def phase8(seed, reps=50):
+    """The tool path: kernel_probe and kernel_ladder through their entry
+    points with every P counter at 0 just before (read just after); then
+    each probe and rung against its plain version, with its device time
+    (torch.profiler), wrapper time (CUDA events), plain time, library
+    times (P1-P4: each one-call PyTorch version by CUDA events and by the
+    profiler) and bound.  Returns the kernels-line entries."""
+    from google_nerf_tpu_torch.ops.cuda import ladder, probe
+    from google_nerf_tpu_torch.tools import kernel_ladder, kernel_probe
+    probe.gather_rows.launches = {"float32": 0, "bfloat16": 0}
+    probe.scatter_add_rows.launches = 0
+    probe.gather_rows_bulk.launches = 0
+    ladder.rung.launches = 0
+    rcs = (kernel_probe.main(["--seed", str(seed)]), kernel_ladder.main([]))
+    torch.cuda.synchronize()
+    launches = {"gather_rows_f32": probe.gather_rows.launches["float32"],
+                "gather_rows_bf16": probe.gather_rows.launches["bfloat16"],
+                "scatter_add_rows": probe.scatter_add_rows.launches,
+                "gather_rows_bulk": probe.gather_rows_bulk.launches,
+                "ladder": ladder.rung.launches}
+    check(rcs == (0, 0), f"phase 8: kernel_probe, kernel_ladder exited {rcs}")
+    for name, n in launches.items():
+        check(n > 0, f"phase 8: {name} not launched on the tool path")
+    print(f"phase 8: tool path launches {launches}", flush=True)
+
+    entries = []
+    for pid, p in zip(("P1", "P2", "P3", "P4"),
+                      kernel_probe.probes("cuda", seed)):
+        kname, src = PROBE_SPECS[p.name]
+        ok, err = p.agrees(p.fn(*p.args), p.plain(*p.args))
+        check(ok, f"phase 8: {p.name} vs plain, max abs err {err}")
+        ev = device_events(lambda: [p.fn(*p.args) for _ in range(reps)])
+        ms, seen = profiled_ms(ev, [kname])[kname]
+        wrapper_ms = cuda_ms(lambda: p.fn(*p.args), reps)
+        ms_by = f"profiler device time per launch ({seen} of {reps} seen)"
+        if ms is None:              # no device trace: the whole call
+            ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
+        # each one-call PyTorch version: CUDA events around the call, its
+        # device time per call and the device kernels the profiler saw
+        libraries = {}
+        for lname, call in p.library_calls().items():
+            lev = device_events(lambda: [call() for _ in range(reps)])
+            libraries[lname] = dict(
+                ms=cuda_ms(call, reps), device_ms=per_call_ms(lev, reps),
+                device_kernels={k[:96]: n for k, (_, n) in lev.items()})
+        library = min(libraries, key=lambda n: libraries[n]["ms"])
+        bound_ms, bound_by = bound_of(*p.work(), H100_F32_FLOPS)
+        entries.append(dict(
+            name=p.name, id=pid, route="cuda", source=f"{CSRC}/probe.cu",
+            replaces=src, launches=launches[p.name], max_abs_err=err, ms=ms,
+            plain_ms=cuda_ms(lambda: p.plain(*p.args), reps),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=libraries[library]["ms"], library=library,
+            libraries=libraries, request="kernel_probe", ms_by=ms_by,
+            wrapper_ms=wrapper_ms,
+            # every device kernel of one call (P3's zero fill included)
+            call_device_ms=per_call_ms(ev, reps), rows=p.rows))
+
+    ops = ladder.operands("cuda")
+    rungs, errs = [], []
+    for k in ladder.RUNGS:
+        got, why = kernel_ladder.run_rung(k, ops)
+        check(why is None, f"phase 8: rung k{k} vs plain: {why}")
+        args = ladder.rung_operands(k, ops)
+        want = ladder.rung_plain(k, *args)
+        errs.append(float((got - want).abs().max()))
+        rungs.append(dict(k=k, name=ladder.RUNGS[k][0], value=float(got[0, 0]),
+                          wrapper_ms=cuda_ms(lambda: ladder.rung(k, *args),
+                                             reps),
+                          plain_ms=cuda_ms(lambda: ladder.rung_plain(k, *args),
+                                           reps)))
+        rungs[-1]["bound_ms"], rungs[-1]["bound_by"] = rung_bound(ladder, k)
+
+    def every_rung():
+        for k in ladder.RUNGS:
+            args = ladder.rung_operands(k, ops)
+            for _ in range(reps):
+                ladder.rung(k, *args)
+    seen = profiled_ms(device_events(every_rung),
+                       [f"k{k}_kernel(" for k in ladder.RUNGS])
+    for r in rungs:
+        r["ms"] = seen[f"k{r['k']}_kernel("][0]
+        if r["ms"] is None:
+            r["ms"] = r["wrapper_ms"]
+    total = lambda key: sum(r[key] for r in rungs)  # noqa: E731
+    entries.append(dict(
+        name="ladder", id="P5", route="cuda", source=f"{CSRC}/ladder.cu",
+        replaces="tools/mosaic_bisect.py:21", launches=launches["ladder"],
+        max_abs_err=max(errs), ms=total("ms"), plain_ms=total("plain_ms"),
+        bound_ms=total("bound_ms"),
+        bound_by=max(rungs, key=lambda r: r["bound_ms"])["bound_by"],
+        library_ms=None, request="kernel_ladder",
+        ms_by=("sum over the 17 rungs of each one's profiler device time "
+               "per launch (CUDA events around the call where unseen)"),
+        wrapper_ms=total("wrapper_ms"), rungs=rungs))
+    for e in entries:
+        libs = "; ".join(f"{n} {v['ms']:.4f} ms (device {v['device_ms']} ms"
+                         f" in {v['device_kernels']})"
+                         for n, v in e.get("libraries", {}).items())
+        print(f"phase 8: {e['id']} {e['name']}: kernel {e['ms']:.4f} ms, "
+              f"wrapper {e['wrapper_ms']:.4f} ms (device "
+              f"{e.get('call_device_ms')} ms), plain {e['plain_ms']:.4f} "
+              f"ms, bound {e['bound_ms']:.5f} ms by {e['bound_by']}; "
+              f"{e['launches']} launches; max abs err "
+              f"{e['max_abs_err']:.2e}; library: {libs or None}", flush=True)
+    return entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -564,6 +744,7 @@ def main():
         bake_rgba, render_brick_mxu_rgba)
     from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
     from google_nerf_tpu_torch.models.render_brick import brick_geometry
+    from google_nerf_tpu_torch.ops.cuda import _build
     from google_nerf_tpu_torch.ops.cuda import brick_field as bf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -576,11 +757,13 @@ def main():
     print(card, flush=True)            # name, power limit as nvidia-smi says
 
     t0 = time.time()
-    lib = bf.build()
-    log = lib.with_suffix(".log").read_text()
-    print(f"phase 1: built {lib.name} in {time.time() - t0:.1f} s; "
-          + "; ".join(l.split("info    : ")[-1] for l in log.splitlines()
-                      if "registers" in l or "spill" in l), flush=True)
+    libs = _build.build("brick_field", "probe", "ladder")  # nvcc in parallel
+    build_s = time.time() - t0
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text()
+        print(f"phase 1: built {lib.name} in {build_s:.1f} s; "
+              + "; ".join(l.split("info    : ")[-1] for l in log.splitlines()
+                          if "registers" in l or "spill" in l), flush=True)
 
     # ---- 2: kernels against plain versions at serving widths
     errs2 = phase2(bf, args.seed, dev)
@@ -726,6 +909,7 @@ def main():
     kernels = sorted(kernels, key=lambda e: KERNELS.index(e["name"]))
     kernels[KERNELS.index("brick_field_tiles_tp")]["launches_wl256"] = \
         launches_a["brick_field_tiles_tp"]
+    kernels += phase8(args.seed)
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -744,7 +928,9 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+    # the rungs of P5 are in --out's JSON only
+    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "rungs"}
+                                  for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

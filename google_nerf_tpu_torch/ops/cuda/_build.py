@@ -1,0 +1,79 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each csrc/<name>.cu compiles with nvcc for sm_90a into its own library,
+build/kernels/lib<name>_<key>.so, where <key> hashes the source and the
+flags; the compiler's log (ptxas register and spill report) sits beside
+it as lib<name>_<key>.log.  A library of the same key is reused.  The
+sources have a plain C interface, loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the port's kernels build only "
+                           "where the CUDA toolkit is installed")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library of the current source and flags
+    lives (built or not)."""
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build(*names: str) -> list[Path]:
+    """Compile csrc/<name>.cu for each name not built yet, all nvcc runs
+    started together; returns the libraries' paths in the order given.
+    Raises with the compiler's errors if any build fails."""
+    libs = [library_path(n) for n in names]
+    runs = []
+    for name, lib in zip(names, libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        src = CSRC / f"{name}.cu"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        runs.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in runs:
+        log = proc.communicate()[0]
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def load(name: str, declare) -> ctypes.CDLL:
+    """csrc/<name>.cu's library, built if needed and loaded once per
+    process; declare(lib) sets its functions' argtypes and restypes."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build(name)[0]))
+        declare(lib)
+        _loaded[name] = lib
+    return _loaded[name]

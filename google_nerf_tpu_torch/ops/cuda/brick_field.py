@@ -33,17 +33,13 @@ Differences from the JAX entries:
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from google_nerf_tpu_torch.models.baked import trilerp_w8
+from google_nerf_tpu_torch.ops.cuda import _build
 from google_nerf_tpu_torch.ops.ray_aabb import safe_inverse
 
 TPX = 64          # rays per tile (8x8)
@@ -51,68 +47,39 @@ ROWW = 128        # pool row lanes (8 corners x 16 features)
 FEAT = 16
 RGBA_LANES = 32   # 8 corners x [log sigma, r, g, b]
 ROWS, LANES, RGBA = 0, 1, 2     # pool layouts, as csrc/brick_field.cu
-
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "brick_field.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC")
-_lib_handle = None
 _smem_optin = {}
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the brick-field kernels build "
-                           "only where the CUDA toolkit is installed")
-    return nvcc
-
-
-def build() -> Path:
+def build():
     """Compile csrc/brick_field.cu for sm_90a into build/kernels/ unless a
     library of the same source and flags is there.  Returns its path; the
     compiler's log (ptxas register and spill report) sits beside it."""
-    key = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libbrick_field_{key}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    res = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return _build.build("brick_field")[0]
+
+
+def _declare(lib):
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+    head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
+    tail = [i32, f32, f32, i32, p]               # S, dt, tau_max, Bk, stream
+    lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + tail
+    for name in ("brick_field_tp", "brick_field_n", "brick_field_t"):
+        getattr(lib, name).argtypes = head + [p, p, p, i32, i32] + tail
+    lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
+                                      p, i32, i32] + tail)
+    for name in ("brick_field_wl", "brick_field_tp", "brick_field_n",
+                 "brick_field_t", "brick_field_rgba",
+                 "brick_field_smem_optin"):
+        getattr(lib, name).restype = i32
+    lib.brick_field_smem_optin.argtypes = []
+    lib.brick_field_smem_bytes.argtypes = [i32, i32, i32]
+    lib.brick_field_smem_bytes.restype = i64
+    lib.brick_field_error_string.argtypes = [i32]
+    lib.brick_field_error_string.restype = ctypes.c_char_p
 
 
 def _lib():
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_float)
-        head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
-        tail = [i32, f32, f32, i32, p]               # S, dt, tau_max, Bk, stream
-        lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + tail
-        for name in ("brick_field_tp", "brick_field_n", "brick_field_t"):
-            getattr(lib, name).argtypes = head + [p, p, p, i32, i32] + tail
-        lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
-                                          p, i32, i32] + tail)
-        for name in ("brick_field_wl", "brick_field_tp", "brick_field_n",
-                     "brick_field_t", "brick_field_rgba",
-                     "brick_field_smem_optin"):
-            getattr(lib, name).restype = i32
-        lib.brick_field_smem_optin.argtypes = []
-        lib.brick_field_smem_bytes.argtypes = [i32, i32, i32]
-        lib.brick_field_smem_bytes.restype = i64
-        lib.brick_field_error_string.argtypes = [i32]
-        lib.brick_field_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
+    return _build.load("brick_field", _declare)
 
 
 def window_span(max_samples: int, block: int, voxel_res: int,

@@ -1,6 +1,6 @@
-"""Card-only tests of the PyTorch port's CUDA kernels K1-K5, and the toy
-kernel inputs the CPU tests share.  This file imports no JAX, so it runs
-on a machine with a card and no JAX:
+"""Card-only tests of the PyTorch port's CUDA kernels K1-K5 and P1-P5, and
+the toy kernel inputs the CPU tests share.  This file imports no JAX, so
+it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -323,3 +323,125 @@ def test_cuda_dense_frame_matches_cpu_frame(kernel, extra):
     want = render(baked, cfg, o, d, 16, 16, device="cpu", **kw)
     _assert_frames_same(got, want)
     assert fn.launches > before
+
+
+# -------------------------------------------- tool probes and the ladder
+
+def _probe_launches():
+    from google_nerf_tpu_torch.ops.cuda import probe
+    return {"gather_rows_f32": probe.gather_rows.launches["float32"],
+            "gather_rows_bf16": probe.gather_rows.launches["bfloat16"],
+            "scatter_add_rows": probe.scatter_add_rows.launches,
+            "gather_rows_bulk": probe.gather_rows_bulk.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [{}, dict(t=1000, n=12345, ns=999, nc=77)],
+                         ids=["tool", "ragged"])
+def test_cuda_probes_match_plain(sizes):
+    """P1-P4 at tools/pallas_probe.py's sizes and at sizes no block
+    divides: gathers bitwise, the atomic scatter within atol 1e-5; each
+    call launches its kernel once."""
+    from google_nerf_tpu_torch.tools import kernel_probe
+    _card()
+    for p in kernel_probe.probes("cuda", seed=3, **sizes):
+        before = _probe_launches()
+        got = p.fn(*p.args)
+        torch.cuda.synchronize()
+        after = _probe_launches()
+        assert after[p.name] == before[p.name] + 1, p.name
+        assert sum(after.values()) == sum(before.values()) + 1
+        ok, err = p.agrees(got, p.plain(*p.args))
+        assert ok, (p.name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_bf16_table_and_odd_rows():
+    """A bf16 table with F=16 (32-byte rows) through both gathers; rows
+    of 12 and 10 bytes, which no 16-byte word divides, raise without a
+    launch."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, 1000, (4099,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    tab = torch.randn(1000, 16, generator=g, device="cuda").bfloat16()
+    want = tab.index_select(0, idx)
+    assert torch.equal(probe.gather_rows(tab, idx), want)
+    assert torch.equal(probe.gather_rows_bulk(tab, idx), want)
+    before = dict(probe.gather_rows.launches)
+    for t in (torch.randn(1000, 3, generator=g, device="cuda"),
+              torch.randn(1000, 5, generator=g, device="cuda").bfloat16()):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            probe.gather_rows(t, idx)
+    assert probe.gather_rows.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_bulk_gather_raises_on_rows_it_cannot_copy():
+    """Rows of 12 bytes, of 1024 bytes, and a table 2 bytes off a 16-byte
+    boundary raise; the wrapper never falls back to another path."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    idx = torch.zeros(4, dtype=torch.int32, device="cuda")
+    before = probe.gather_rows_bulk.launches
+    for tab in (torch.zeros(8, 3, device="cuda"),
+                torch.zeros(8, 256, device="cuda"),
+                torch.zeros(65, dtype=torch.bfloat16,
+                            device="cuda")[1:].view(8, 8)):
+        with pytest.raises(ValueError):
+            probe.gather_rows_bulk(tab, idx)
+    assert probe.gather_rows_bulk.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_gather_index_out_of_range_asserts():
+    """An index outside the table trips the kernel's device-side assert
+    (run in a child: the assert ends the CUDA context)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    _card()
+    root = Path(__file__).resolve().parents[1]
+    body = ("import sys, torch\n"
+            f"sys.path[:0] = [{str(root)!r}]\n"
+            "from google_nerf_tpu_torch.ops.cuda import probe\n"
+            "tab = torch.zeros(8, 32, device='cuda')\n"
+            "idx = torch.tensor([0, 8], dtype=torch.int32, device='cuda')\n"
+            "probe.gather_rows(tab, idx)\n"
+            "torch.cuda.synchronize()\n")
+    res = subprocess.run([sys.executable, "-c", body], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0
+    assert "assert" in res.stderr.lower(), res.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 18))
+def test_cuda_ladder_rung_matches_plain(k):
+    """Each rung of P5 on the JAX tool's operands: exact, or within rtol
+    1e-5 for k13, k15 and k16; one launch each."""
+    from google_nerf_tpu_torch.ops.cuda import ladder
+    from google_nerf_tpu_torch.tools import kernel_ladder
+    _card()
+    before = ladder.rung.launches
+    _, why = kernel_ladder.run_rung(k, ladder.operands("cuda"))
+    assert why is None, why
+    assert ladder.rung.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 10])
+def test_cuda_tensor_core_rungs_on_random_operands(k):
+    """k8 and k10's mma.sync fragments on integer-valued random operands
+    (every sum exact), where a misplaced element would show."""
+    from google_nerf_tpu_torch.ops.cuda import ladder
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(k)
+    ops = ladder.operands("cuda")
+    for name, shape in (("slabT", (128, 512)), ("w1", (64, 32))):
+        ops[name] = torch.randint(-4, 5, shape, generator=g, device="cuda"
+                                  ).to(torch.bfloat16)
+    args = ladder.rung_operands(k, ops)
+    got = ladder.rung(k, *args)
+    assert ladder.mismatch(k, got, ladder.rung_plain(k, *args)) is None
