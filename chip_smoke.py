@@ -28,7 +28,10 @@ Phases:
      plain version on the same inputs; the whole frame against the frame
      rendered through the plain version; its warm frame time; its
      kernel's device time, wrapper time, plain time and bound.  n512 is
-     also held against t512.
+     also held against t512.  K3 and K4 (csrc/brick_field_dense.cu) also
+     report their live samples and slots per call, the bound by bytes and
+     by operations apart, and the pool bytes their design requests per
+     call by a model (dense_pool_model; not a measurement).
   8. the tool path, P1-P5: `kernel_probe` (P1 and P2, the row gather on
      f32 and bf16 tables; P3, the atomic scatter-add; P4, the bulk-copy
      row gather; at tools/pallas_probe.py's sizes on seeded inputs) and
@@ -42,7 +45,10 @@ Phases:
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
-compute one function with the same bf16 rounding points.  A kernel
+compute one function with the same bf16 rounding points (K3 and K4 sum
+their MLP products inside mma.sync, in another order than a plain f32
+product, which could round a hidden activation to the neighbouring bf16
+value; on these inputs it moves rgb by less than 1e-5).  A kernel
 against the numpy golden (phase 2, 16 tiles, live gate open; the golden
 rounds nothing to bf16): the JAX kernel tests' tau atol/rtol 5e-2, rgb
 and depth atol 3e-2, n_pairs exact.  A kernel frame against its plain
@@ -70,6 +76,7 @@ import time
 
 import torch
 
+from google_nerf_tpu_torch.tools.brick_inputs import serving_width_inputs
 from google_nerf_tpu_torch.tools.kernel_probe import cuda_ms
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
@@ -96,6 +103,8 @@ RGBA512 = {k: v for k, v in TP512.items() if k not in ("kernel", "pbatch")}
 KERNELS = ("brick_field_tiles_wl", "brick_field_tiles_tp",
            "brick_field_tiles", "brick_field_tiles_t",
            "brick_field_tiles_rgba")
+DENSE = ("brick_field_tiles", "brick_field_tiles_t")   # brick_field_dense.cu
+OFF_LINE = ("rungs", "modelled_pool_bytes_per_call")   # --out's JSON only
 
 
 def check(ok: bool, what: str):
@@ -170,48 +179,6 @@ def frame_ms(serve, n):
 
 # -------------------------------------------------------------- phase 2
 
-def serving_width_inputs(bf, n_tiles, seed, dev):
-    """Seeded bricks along +z and tiles of rays marching through them, at
-    the serving widths: Bk=8 bf16 slabs, S=9 windows, 32-slot lists."""
-    g = torch.Generator().manual_seed(seed)
-    Bk, V, nb, Lp = 8, 256, 32, 32
-    S = bf.window_span(256, Bk, V, 0.5)
-    blk = torch.stack([torch.full((nb,), 15), torch.full((nb,), 15),
-                       torch.arange(nb)], -1).float()
-    lo = (blk * Bk / V * 2 - 1) * 0.5
-    hi = ((blk + 1) * Bk / V * 2 - 1) * 0.5
-    pool = torch.randn(nb, Bk ** 3, 128, generator=g) * 0.3
-    pool[..., 0::16] = torch.randn(nb, Bk ** 3, 8, generator=g) + 2.0
-    # each tile lists the column's bricks front to back; nslots cuts it
-    order = torch.arange(nb).expand(n_tiles, Lp)
-    meta = torch.cat([lo[order], hi[order], torch.zeros(n_tiles, Lp, 2)],
-                     -1).reshape(-1, 8)
-    o = torch.stack([torch.rand(n_tiles * 64, generator=g) * 0.06 - 0.03,
-                     torch.rand(n_tiles * 64, generator=g) * 0.06 - 0.03,
-                     torch.full((n_tiles * 64,), -1.0)], -1)
-    d = torch.stack([torch.rand(n_tiles * 64, generator=g) * 0.02 - 0.01,
-                     torch.rand(n_tiles * 64, generator=g) * 0.02 - 0.01,
-                     torch.ones(n_tiles * 64)], -1)
-    d = d / d.norm(dim=-1, keepdim=True)
-    rays = torch.cat([o, d, torch.full((n_tiles * 64, 1), 0.5),
-                      torch.full((n_tiles * 64, 1), 1.5)], -1)
-    sh = torch.randn(n_tiles * 64, 16, generator=g) * 0.3
-    ws = [(torch.rand(a, b, generator=g) * 2 - 1) * (6 / a) ** 0.5
-          for a, b in ((32, 64), (64, 64), (64, 3))]
-    nslots = torch.randint(1, Lp + 1, (n_tiles,), generator=g,
-                           dtype=torch.int32)
-    # pre-shaded slabs: the pool's sigma lanes and seeded rgb in [0, 1]
-    rgb = torch.rand(nb, 8, 3, Bk ** 3, generator=g)
-    rgba = torch.cat([pool[..., 0::16].transpose(1, 2)[:, :, None], rgb],
-                     2).reshape(nb, 32, Bk ** 3)
-    args = [order.reshape(-1).int(), meta, rays, sh,
-            pool.to(torch.bfloat16)] + ws
-    args = [a.to(dev).contiguous() for a in args]
-    kw = dict(S=S, dt=3 ** 0.5 / 256, tau_max=float(-torch.log(
-        torch.tensor(1e-2))), Bk=Bk)
-    return args, rgba.to(dev, torch.bfloat16), nslots.to(dev), Lp, kw
-
-
 def worklist(tiles, nslots, Lp, P, pad):
     """Tile-major (wt, wl, wn, wf) over the given tiles' P-slot groups
     plus `pad` pad steps repeating the last tile."""
@@ -241,7 +208,7 @@ def phase2(bf, seed, dev):
     so drops or adds a whole brick.  The gate itself is held exactly
     against the plain versions."""
     T = 384
-    args, rgba, nslots, Lp, kw = serving_width_inputs(bf, T, seed, dev)
+    args, rgba, nslots, Lp, kw = serving_width_inputs(T, seed, dev)
     argsT = list(args)
     argsT[4] = args[4].transpose(1, 2).contiguous()
     init = torch.zeros(T * 64, 8, device=dev)
@@ -355,20 +322,25 @@ def check_frame(frame, what, n_pixels):
     check(int(frame["pairs_rendered"]) > 0, f"{what}: no pairs rendered")
 
 
-def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False):
+def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
+              lanes=None):
     """Bytes and operations one kernel call needs on its inputs.
 
     rows/tiles: the list rows the call walks, in order, and their tiles;
     index_bytes: the size of its worklist or tile-list arrays.  A ray's
     live-hit pairs are its first n_pairs(out) - n_pairs(init) hit slots
     in list order (liveness only falls), so the samples the field must
-    evaluate and the slabs it must read follow from geometry and the
-    output's pair count.  rgba: K5 (no sh, no MLP, 32-lane slabs)."""
+    evaluate follow from geometry and the output's pair count.  Of the
+    pool the function needs each distinct voxel those samples touch, in
+    any brick, once: its 8 corners x 16 features (256 bytes; K5 8 x 4, 64
+    bytes).  rgba: K5 (no sh, no MLP, 32-lane slabs).  lanes: K3 (False)
+    or K4 (True), whose design's pool reads are also modelled
+    (dense_pool_model)."""
     pool_blk, meta, rays = args[:3]
     pool3 = args[3] if rgba else args[4]
+    vox = kw["Bk"] ** 3
     n0, n1, hit = bf.slab_window(rays.view(-1, 64, 8)[tiles], meta[rows],
                                  kw["dt"])                     # (E, 64)
-    S = kw["S"]
     init = kw.get("init")
     added = out[:, 5] - (init[:, 5] if init is not None else 0.0)
     added = added.view(-1, 64)[tiles]                          # (E, 64)
@@ -380,12 +352,13 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False):
         len(tiles), device=tiles.device), 0), 0).values
     base = (cum - hit.int())[start]
     live_hit = hit & ((cum - base) <= added)
-    samples = int((torch.clamp(n1 - n0 + 1, max=S) * live_hit).sum())
+    ei, lid = sample_voxels(rays, meta, rows, tiles, live_hit, n0, n1, kw)
+    samples = ei.numel()
+    voxels = torch.unique(pool_blk[rows][ei].long() * vox + lid).numel()
     slots = live_hit.any(1)
-    blocks = torch.unique(pool_blk[rows][slots]).numel()
     n_tiles = torch.unique(tiles).numel()
     ray_floats = 8 + 8 + (8 if init is not None else 0) + (0 if rgba else 16)
-    nbytes = (blocks * pool3[0].numel() * 2               # slabs, once each
+    nbytes = (voxels * pool3[0].numel() * 2 // vox      # voxels, once each
               + len(rows) * (8 * 4 + 4)                   # meta + block id
               + n_tiles * 64 * ray_floats * 4             # rays sh init out
               + index_bytes)
@@ -399,10 +372,62 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False):
         flops = (samples * (2 * (8 * 16 + 16 * 64 + 64 * 64 + 64 * 3) + 10)
                  + n_tiles * 64 * 2 * 16 * 64)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
-    return dict(bytes=nbytes, flops=flops, samples=samples,
-                live_slots=int(slots.sum()), distinct_slabs=blocks,
+    work = dict(bytes=nbytes, flops=flops, samples=samples,
+                live_slots=int(slots.sum()), distinct_voxels=voxels,
                 bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_bytes_ms=1e3 * t_bytes, bound_ops_ms=1e3 * t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if lanes is not None:
+        # rays alive at the start of their batch of 8 list slots: those
+        # whose hits before it are fewer than their live hits, or whose
+        # tau never reached tau_max
+        pos = torch.arange(len(tiles), device=tiles.device) - start
+        bstart = start + pos // 8 * 8
+        spent = ((cum - hit.int())[bstart] - base) >= added
+        ended = out.view(-1, 64, 8)[tiles][..., 0] >= kw["tau_max"]
+        sigma_pairs = hit & ~(spent & ended)
+        work["modelled_pool_bytes"] = dense_pool_model(
+            sample_voxels(rays, meta, rows, tiles, sigma_pairs, n0, n1, kw),
+            (ei, lid), vox, lanes)
+    return work
+
+
+def sample_voxels(rays, meta, rows, tiles, pairs, n0, n1, kw):
+    """Entry index and brick-local voxel of every window sample of the
+    (entry, ray) pairs marked in `pairs` (E, 64), located as the kernels
+    locate them."""
+    S, Bk = kw["S"], kw["Bk"]
+    dt_t = torch.tensor(kw["dt"], device=rays.device)
+    r = rays.view(-1, 64, 8)[tiles]                            # (E, 64, 8)
+    n_s = n0[..., None] + torch.arange(S, device=rays.device)
+    ok = pairs[..., None] & (n_s <= n1[..., None])
+    ei, ri, si = ok.nonzero(as_tuple=True)
+    ts = r[ei, ri, 6] + (n_s[ei, ri, si] + 0.5) * dt_t
+    xyz = r[ei, ri, 0:3] + ts[:, None] * r[ei, ri, 3:6]
+    lo, hi = meta[rows][ei, 0:3], meta[rows][ei, 3:6]
+    u = torch.clamp((xyz - lo) * (torch.full_like(lo, float(Bk)) / (hi - lo)),
+                    0.0, Bk - 1e-3)
+    v0 = torch.floor(u)
+    return ei, ((v0[:, 0] * Bk + v0[:, 1]) * Bk + v0[:, 2]).long()
+
+
+def dense_pool_model(sigma, shade, vox, lanes):
+    """Pool bytes the K3/K4 design requests in one call, by a model, not
+    a measurement: each 32-byte sector counted once per (tile, slot) that
+    reads it.  sigma: (entry, voxel) of the sigma pass's samples, every
+    window sample of a hit pair whose ray is alive at its batch's start,
+    which reads feature 0 of the 8 corners; shade: those of the live
+    pairs' samples, which read the whole voxel.  K3's 256-byte voxel row
+    holds corner c's features in sector c, so both passes touch all 8
+    sectors of a row (and shade's samples are among sigma's); K4 reads a
+    voxel's value from each of the 128 lane rows of the transposed slab,
+    16 voxels a sector: 8 lane rows in the sigma pass, the other 120 in
+    shading."""
+    (es, ls), (eh, lh) = sigma, shade
+    if not lanes:
+        return torch.unique(es * vox + ls).numel() * 256
+    return (torch.unique(es * vox + ls // 16).numel() * 8 * 32
+            + torch.unique(eh * vox + lh // 16).numel() * 120 * 32)
 
 
 def wl_rows(args, kw):
@@ -546,6 +571,7 @@ def measure(bf, name, calls, request, launches, reps):
     version (1e-4), its device time, wrapper time, plain time (one run of
     every call) and bound.  Returns the kernels-line entry."""
     kname, src, rows_of = SPECS[name]
+    dense = name in DENSE
     fn, plain_fn = getattr(bf, name), getattr(bf, name + "_plain")
     errs, works = [], []
     for a, k in calls:
@@ -553,7 +579,9 @@ def measure(bf, name, calls, request, launches, reps):
         errs.append(kernel_errors(got, plain_fn(*a, **k),
                                   f"{name} vs plain on a {request} call"))
         works.append(call_work(bf, a, k, got, *rows_of(a, k),
-                               rgba=name == "brick_field_tiles_rgba"))
+                               rgba=name == "brick_field_tiles_rgba",
+                               lanes=(name == "brick_field_tiles_t"
+                                      if dense else None)))
     ms, seen = kernel_device_ms(fn, calls, reps, kname)
     call_ms = time_calls(fn, calls, reps=reps)
     ms_by = (f"profiler device time per launch ({seen} launches seen of "
@@ -564,19 +592,31 @@ def measure(bf, name, calls, request, launches, reps):
     mean = lambda key: sum(w[key] for w in works) / len(works)  # noqa: E731
     entry = dict(
         name=name, route="cuda",
-        source="google_nerf_tpu_torch/csrc/brick_field.cu", replaces=src,
+        source=f"{CSRC}/brick_field{'_dense' if dense else ''}.cu",
+        replaces=src,
         launches=launches, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=mean("bound_ms"),
         bound_by=max(works, key=lambda w: w["bound_ms"])["bound_by"],
         library_ms=None, request=request, ms_by=ms_by, wrapper_ms=call_ms,
         calls_timed=len(calls), samples_per_call=mean("samples"),
         live_slots_per_call=mean("live_slots"),
-        distinct_slabs_per_call=mean("distinct_slabs"))
+        distinct_voxels_per_call=mean("distinct_voxels"),
+        bound_bytes_ms=mean("bound_bytes_ms"),
+        bound_ops_ms=mean("bound_ops_ms"))
     print(f"{request}: {name}: kernel {ms:.4f} ms ({ms_by}), wrapper "
           f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{entry['bound_ms']:.5f} ms by {entry['bound_by']}, per call "
           f"over {len(calls)} calls; {launches} launches; max abs err "
           f"{max(errs):.2e}", flush=True)
+    if dense:
+        entry["modelled_pool_bytes_per_call"] = mean("modelled_pool_bytes")
+        print(f"{request}: {name}: {entry['samples_per_call']:.0f} samples "
+              f"and {entry['live_slots_per_call']:.1f} live slots per call; "
+              f"bound by bytes {entry['bound_bytes_ms']:.5f} ms "
+              f"({mean('bytes'):.0f} bytes, {entry['distinct_voxels_per_call']:.0f} "
+              f"distinct voxels), by operations {entry['bound_ops_ms']:.5f} "
+              f"ms; pool bytes the design requests, modelled: "
+              f"{entry['modelled_pool_bytes_per_call']:.0f}", flush=True)
     return entry
 
 
@@ -757,7 +797,8 @@ def main():
     print(card, flush=True)            # name, power limit as nvidia-smi says
 
     t0 = time.time()
-    libs = _build.build("brick_field", "probe", "ladder")  # nvcc in parallel
+    libs = _build.build("brick_field", "brick_field_dense", "probe",
+                        "ladder")                      # nvcc in parallel
     build_s = time.time() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text()
@@ -928,9 +969,10 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    # the rungs of P5 are in --out's JSON only
-    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "rungs"}
-                                  for e in kernels]}))
+    # P5's rungs and the modelled pool bytes of K3/K4 are in --out's JSON
+    # only
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k not in OFF_LINE} for e in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,18 @@
-// Brick-field kernels of the tile-raster serving renderer, for Hopper
-// (sm_90a).  Built with nvcc into a shared library with a plain C
-// interface and loaded through ctypes by
+// Brick-field kernels K1, K2 and K5 of the tile-raster serving renderer,
+// for Hopper (sm_90a).  Built with nvcc into a shared library with a plain
+// C interface and loaded through ctypes by
 // google_nerf_tpu_torch/ops/cuda/brick_field.py, which also holds the
-// plain PyTorch versions these kernels are tested against.
+// plain PyTorch versions these kernels are tested against.  K3 and K4 are
+// in brick_field_dense.cu.
 //
 // What they replace (google_nerf_tpu/ops/pallas/brick_field.py)
 //   brick_field_wl   <- brick_field_tiles_wl / _kernel_wl (K1, worklist grid)
 //   brick_field_tp   <- brick_field_tiles_tp / _kernel_tp (K2, dense tile
 //                       grid with list addressing and an init carry)
-//   brick_field_n    <- brick_field_tiles / _kernel (K3, dense tile grid,
-//                       row-layout pool, each tile from zero)
-//   brick_field_t    <- brick_field_tiles_t / _kernel_t (K4, as K3 on the
-//                       transposed pool (n_blocks, 128, Bk^3))
 //   brick_field_rgba <- brick_field_tiles_rgba / _kernel_rgba (K5, pre-
 //                       shaded (n_blocks, 32, Bk^3) slabs, no MLP, carry)
-// K1-K4 compute brick_field_tiles_reference: for each 8x8 ray tile and each
-// brick of its front-to-back list, slab-test the tile's 64 rays against
+// K1 and K2 compute brick_field_tiles_reference: for each 8x8 ray tile and
+// each brick of its front-to-back list, slab-test the tile's 64 rays against
 // the brick AABB, lay the lattice window of at most S samples, trilerp the
 // brick-local Bk^3 lattice, sigma*dt = min(exp(min(h0, 30))*dt, 80),
 // rgb = sigmoid(MLP 32->64->64->3 of [sh16, h16]), and composite front to
@@ -28,15 +25,14 @@
 // w_c * v_c is rounded to bf16 before the f32 corner sum (the TPU's bf16
 // group-reduce matmul); sh, h and the two hidden activations are rounded
 // to bf16 and every product accumulates in f32.  The corner weights keep
-// each TPU kernel's own form: K3 takes where(bit, f, 1-f) as the row
-// kernels here always did; K4 and K5 take (1-f) + bit*(2f-1), which can
-// differ in the last bit.  The library is built without fast math and
-// with --fmad=false, so the slab test's ceil/floor window bounds round
-// exactly as in PyTorch and n_pairs matches exactly; the MLP uses explicit
-// fmaf, which that flag does not touch.
+// each TPU kernel's own form: K1 and K2 take where(bit, f, 1-f); K5 takes
+// (1-f) + bit*(2f-1), which can differ in the last bit.  The library is
+// built without fast math and with --fmad=false, so the slab test's
+// ceil/floor window bounds round exactly as in PyTorch and n_pairs matches
+// exactly; the MLP uses explicit fmaf, which that flag does not touch.
 //
 // What bounds them on the H100
-//   Bytes: each distinct slab a call touches read once (K1-K4: Bk^3 = 512
+//   Bytes: each distinct slab a call touches read once (K1, K2: Bk^3 = 512
 //   rows x 256 B = 128 KiB per brick; K5: 32 KiB), plus the rays, sh and
 //   carry of its tiles.  A K1 call of the 800^2 bench frame touches ~1.4k
 //   distinct bricks (~180 MB: ~0.055 ms at 3.35 TB/s).
@@ -49,17 +45,15 @@
 //
 // What this simple design does about it
 //   * No one-hot trilerp: the TPU kernel's (N,512)x(512,128) one-hot
-//     matmul exists because Mosaic has no vector gather.  K1-K3 give each
+//     matmul exists because Mosaic has no vector gather.  K1 and K2 give each
 //     (ray, sample) a thread that reads its voxel's 256-byte row (8
 //     corners x 16 bf16 features) straight from global memory through L2;
 //     a tile's narrow ray bundle touches only a fraction of the 512 rows.
-//   * K4's transposed pool puts a voxel's 128 values Bk^3 elements apart,
-//     so a thread would make 128 strided 2-byte loads.  K4 instead stages
-//     the whole (128, Bk^3) slab in shared memory with coalesced 16-byte
-//     loads, once per (tile, slot) that has a live hit, and each sample
-//     reads its 128 values from there.  The 128 KiB stage allows one block
-//     per SM, so K4 runs 256 threads a block.  K5 stages its 32 KiB slab
-//     the same way; with no MLP it is bound by those bytes.
+//   * K5's slab puts a voxel's 32 values Bk^3 elements apart, so K5 stages
+//     the whole (32, Bk^3) slab (32 KiB) in shared memory with coalesced
+//     16-byte loads, once per (tile, slot) that has a live hit, and each
+//     sample reads its values from there; with no MLP it is bound by those
+//     bytes.
 //   * Only live samples are evaluated: rays that miss the brick or have
 //     saturated contribute exactly zero in the reference, so the block
 //     compacts the (ray, sample) pairs of live hit rays before the field.
@@ -78,9 +72,8 @@
 //     sub-brick: a sub-brick whose rays have no live hit adds nothing and
 //     is skipped, so n_pairs = sum(hit & live) matches.
 //   * The state buffer `out` holds the carry-in on entry (the wrapper
-//     copies `init` there; K3 and K4 zero it for each listed tile, as the
-//     TPU kernels do at l == 0) and is updated in place for listed tiles
-//     only; every other tile keeps its row.
+//     copies `init` there) and is updated in place for listed tiles only;
+//     every other tile keeps its row.
 //   wgmma, TMA slab staging and a persistent grid are later work.
 
 #include <cuda_bf16.h>
@@ -94,15 +87,13 @@ constexpr int ROWW = 128;     // pool row: 8 corners x 16 features
 constexpr int FEAT = 16;
 constexpr int HID = 64;       // rgb MLP width
 constexpr int NTHREADS = 128;
-constexpr int NTHREADS_T = 256;   // K4: one block per SM, so wider blocks
 constexpr int A1_STRIDE = HID + 1;   // padded: rows of different rays
                                      // land in different banks
 constexpr int MAX_CHUNK = 32;   // window samples per ray in one pass
 
 // Field kinds: how a sample's corner values are found and shaded.
 enum Kind {
-  ROWS = 0,    // (n_blocks, Bk^3, 128) rows from global memory, MLP (K1-K3)
-  LANES = 1,   // (n_blocks, 128, Bk^3) slab staged in shared memory, MLP (K4)
+  ROWS = 0,    // (n_blocks, Bk^3, 128) rows from global memory, MLP (K1, K2)
   RGBA = 2     // (n_blocks, 32, Bk^3) slab staged, [log sigma, rgb] (K5)
 };
 
@@ -131,7 +122,7 @@ __device__ __forceinline__ float bf16r(float x) {
 }
 
 struct Smem {
-  __nv_bfloat16* slab;   // staged slab (LANES, RGBA)
+  __nv_bfloat16* slab;   // staged slab (RGBA)
   float* w1;      // 32*64
   float* w2;      // 64*64, transposed: w2[j*64 + i] = W2[i, j]
   float* w3;      // 64*3
@@ -146,7 +137,7 @@ struct Smem {
 
 __host__ __device__ inline size_t slab_elems(int kind, int Bk) {
   const size_t vox = (size_t)Bk * Bk * Bk;
-  return kind == LANES ? ROWW * vox : kind == RGBA ? 32 * vox : 0;
+  return kind == RGBA ? 32 * vox : 0;
 }
 
 // Dynamic shared memory of a kernel; the slab comes first, and its byte
@@ -178,9 +169,9 @@ __device__ Smem carve(float* base, int kind, int SC, int Bk) {
   return s;
 }
 
-// Load weights, the tile's rays and carried state (zeros if ZERO);
+// Load weights, the tile's rays and carried state;
 // precompute the sh half of MLP layer 1 for the tile's 64 rays.
-template <int KIND, bool ZERO, int NT>
+template <int KIND, int NT>
 __device__ void tile_begin(const Args& a, const Smem& s, int tile) {
   const int tid = threadIdx.x;
   if (KIND != RGBA) {
@@ -192,7 +183,7 @@ __device__ void tile_begin(const Args& a, const Smem& s, int tile) {
   const int64_t r0 = (int64_t)tile * TPX;
   for (int i = tid; i < TPX * 8; i += NT) {
     s.ray[i] = a.rays[r0 * 8 + i];
-    s.st[i] = ZERO ? 0.f : a.out[r0 * 8 + i];
+    s.st[i] = a.out[r0 * 8 + i];
   }
   __syncthreads();
   if (KIND != RGBA) {
@@ -341,21 +332,12 @@ __device__ void eval_sample(const Args& a, const Smem& s, int r, float n,
             h[q * 8 + f] += bf16r(wc * __bfloat162float(v[f]));
         }
       }
-    } else {   // LANES: slab[(c * 16 + f) * vox + lid]
-      const __nv_bfloat16* col = s.slab + lid;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float wc = corner_w<true>(c, fr);
-#pragma unroll
-        for (int f = 0; f < FEAT; ++f)
-          h[f] += bf16r(wc * __bfloat162float(col[(c * FEAT + f) * vox]));
-      }
     }
     shade(a, s, r, h, sd_out, rgb_out);
   }
 }
 
-// Copy brick pb's slab into shared memory (LANES, RGBA) with 16-byte loads.
+// Copy brick pb's slab into shared memory (RGBA) with 16-byte loads.
 template <int KIND, int NT>
 __device__ void stage(const Args& a, const Smem& s, int64_t pb) {
   if (KIND == ROWS) return;
@@ -467,7 +449,7 @@ brick_field_wl_kernel(Args a, const int32_t* wt, const int32_t* wl,
   const int tile = wt[j0];
   if (tile < 0 || tile >= a.T) return;
   const Smem s = carve(smem, ROWS, a.SC, a.Bk);
-  tile_begin<ROWS, false, NTHREADS>(a, s, tile);
+  tile_begin<ROWS, NTHREADS>(a, s, tile);
   for (int base = j0;; base += NTHREADS) {
     const int j = base + threadIdx.x;
     const bool end = j >= Ns || (j > j0 && (wt[j] != tile || wf[j] == 1));
@@ -491,7 +473,7 @@ brick_field_wl_kernel(Args a, const int32_t* wt, const int32_t* wl,
 
 // The tile-list kernels: one block per entry of tid, walking
 // min(nslots, Lcall) list rows from lbase.
-template <int KIND, bool ZERO, int NT>
+template <int KIND, int NT>
 __device__ void tiles_body(const Args& a, const int32_t* tid,
                            const int32_t* lbase, const int32_t* nslots,
                            int Lcall) {
@@ -500,7 +482,7 @@ __device__ void tiles_body(const Args& a, const int32_t* tid,
   const int tile = tid[b];
   if (tile < 0 || tile >= a.T) return;
   const Smem s = carve(smem, KIND, a.SC, a.Bk);
-  tile_begin<KIND, ZERO, NT>(a, s, tile);
+  tile_begin<KIND, NT>(a, s, tile);
   const int n = min(nslots[b], Lcall);
   for (int l = 0; l < n; ++l) sub_brick<KIND, NT>(a, s, (int64_t)lbase[b] + l);
   tile_end<NT>(a, s, tile);
@@ -510,28 +492,14 @@ __device__ void tiles_body(const Args& a, const int32_t* tid,
 __global__ void __launch_bounds__(NTHREADS)
 brick_field_tp_kernel(Args a, const int32_t* tid, const int32_t* lbase,
                       const int32_t* nslots, int Lcall) {
-  tiles_body<ROWS, false, NTHREADS>(a, tid, lbase, nslots, Lcall);
-}
-
-// K3: row pool, each listed tile from zero.
-__global__ void __launch_bounds__(NTHREADS)
-brick_field_n_kernel(Args a, const int32_t* tid, const int32_t* lbase,
-                     const int32_t* nslots, int Lcall) {
-  tiles_body<ROWS, true, NTHREADS>(a, tid, lbase, nslots, Lcall);
-}
-
-// K4: transposed pool staged per live (tile, slot), each tile from zero.
-__global__ void __launch_bounds__(NTHREADS_T)
-brick_field_t_kernel(Args a, const int32_t* tid, const int32_t* lbase,
-                     const int32_t* nslots, int Lcall) {
-  tiles_body<LANES, true, NTHREADS_T>(a, tid, lbase, nslots, Lcall);
+  tiles_body<ROWS, NTHREADS>(a, tid, lbase, nslots, Lcall);
 }
 
 // K5: pre-shaded rgba slabs staged per live (tile, slot), from the carry.
 __global__ void __launch_bounds__(NTHREADS)
 brick_field_rgba_kernel(Args a, const int32_t* tid, const int32_t* lbase,
                         const int32_t* nslots, int Lcall) {
-  tiles_body<RGBA, false, NTHREADS>(a, tid, lbase, nslots, Lcall);
+  tiles_body<RGBA, NTHREADS>(a, tid, lbase, nslots, Lcall);
 }
 
 Args make_args(const int32_t* pool_blk, const float* meta, int64_t n_rows,
@@ -588,7 +556,7 @@ const char* brick_field_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Dynamic shared memory a kernel of `kind` (0 rows, 1 lanes, 2 rgba)
+// Dynamic shared memory a kernel of `kind` (0 rows, 2 rgba)
 // takes at window span S and brick edge Bk, and the current device's
 // opt-in limit for one block.
 int64_t brick_field_smem_bytes(int kind, int S, int Bk) {
@@ -636,8 +604,6 @@ int brick_field_wl(const int32_t* pool_blk, const float* meta, int64_t n_rows,
   }
 
 TILE_ENTRY(brick_field_tp, brick_field_tp_kernel, ROWS, NTHREADS)
-TILE_ENTRY(brick_field_n, brick_field_n_kernel, ROWS, NTHREADS)
-TILE_ENTRY(brick_field_t, brick_field_t_kernel, LANES, NTHREADS_T)
 
 // K5 takes no sh and no MLP weights.
 int brick_field_rgba(const int32_t* pool_blk, const float* meta,

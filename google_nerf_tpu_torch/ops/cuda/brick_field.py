@@ -15,8 +15,11 @@ h16]) with tau carried across bricks and the live gate tau < tau_max.
 K5 computes `brick_field_rgba_reference`: the trilerped corner [log
 sigma, r, g, b] with rgb clipped to [0, 1].
 
-The CUDA kernels live in csrc/brick_field.cu and are built with nvcc on
-first use into build/kernels/ (a plain C interface loaded with ctypes).
+The CUDA kernels live in csrc/brick_field.cu (K1, K2, K5) and
+csrc/brick_field_dense.cu (K3, K4: list slots in batches of 8, the live
+gate resolved before shading, the MLP on mma.sync), each built with nvcc
+on first use into its own library in build/kernels/ (a plain C interface
+loaded with ctypes).
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; there is no fallback between the two.
 
@@ -46,15 +49,16 @@ TPX = 64          # rays per tile (8x8)
 ROWW = 128        # pool row lanes (8 corners x 16 features)
 FEAT = 16
 RGBA_LANES = 32   # 8 corners x [log sigma, r, g, b]
-ROWS, LANES, RGBA = 0, 1, 2     # pool layouts, as csrc/brick_field.cu
+ROWS, LANES, RGBA = 0, 1, 2     # pool layouts
 _smem_optin = {}
 
 
 def build():
-    """Compile csrc/brick_field.cu for sm_90a into build/kernels/ unless a
-    library of the same source and flags is there.  Returns its path; the
-    compiler's log (ptxas register and spill report) sits beside it."""
-    return _build.build("brick_field")[0]
+    """Compile csrc/brick_field.cu and csrc/brick_field_dense.cu for
+    sm_90a into build/kernels/ unless libraries of the same sources and
+    flags are there.  Returns their paths; each compiler log (ptxas
+    register and spill report) sits beside its library."""
+    return _build.build("brick_field", "brick_field_dense")
 
 
 def _declare(lib):
@@ -63,12 +67,10 @@ def _declare(lib):
     head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
     tail = [i32, f32, f32, i32, p]               # S, dt, tau_max, Bk, stream
     lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + tail
-    for name in ("brick_field_tp", "brick_field_n", "brick_field_t"):
-        getattr(lib, name).argtypes = head + [p, p, p, i32, i32] + tail
+    lib.brick_field_tp.argtypes = head + [p, p, p, i32, i32] + tail
     lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
                                       p, i32, i32] + tail)
-    for name in ("brick_field_wl", "brick_field_tp", "brick_field_n",
-                 "brick_field_t", "brick_field_rgba",
+    for name in ("brick_field_wl", "brick_field_tp", "brick_field_rgba",
                  "brick_field_smem_optin"):
         getattr(lib, name).restype = i32
     lib.brick_field_smem_optin.argtypes = []
@@ -78,8 +80,24 @@ def _declare(lib):
     lib.brick_field_error_string.restype = ctypes.c_char_p
 
 
+def _declare_dense(lib):
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_float)
+    for name in ("brick_field_n", "brick_field_t"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([p, p, i64, p, p, p, i64, p, p, p, p, i32, p, p, p,
+                        i32, i32, i32, f32, f32, i32, p])
+        fn.restype = i32
+    lib.brick_field_dense_error_string.argtypes = [i32]
+    lib.brick_field_dense_error_string.restype = ctypes.c_char_p
+
+
 def _lib():
     return _build.load("brick_field", _declare)
+
+
+def _dense_lib():
+    return _build.load("brick_field_dense", _declare_dense)
 
 
 def window_span(max_samples: int, block: int, voxel_res: int,
@@ -455,7 +473,7 @@ def _prepare(pool_blk, meta, rays, sh, pool3, ws, S, Bk, init, out, *,
         raise ValueError("the pool must be 16-byte aligned")
     if S < 1:
         raise ValueError(f"window span S={S} < 1")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and carry:    # K3/K4 (no carry): fixed size
         _check_smem(kind, S, Bk, dev)
     if rays.ndim != 2 or rays.shape[0] % TPX or rays.shape[1] != 8:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected "
@@ -543,19 +561,21 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _launch(name, *cargs, dev):
-    """Call the C entry `name` on dev's current stream; raise on error."""
+def _launch(name, *cargs, dev, dense=False):
+    """Call the C entry `name` (of the dense library if `dense`) on dev's
+    current stream; raise on error."""
     with torch.cuda.device(dev):
-        lib = _lib()
+        lib = _dense_lib() if dense else _lib()
         err = getattr(lib, name)(
             *cargs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
-        msg = lib.brick_field_error_string(err).decode()
+        msg = (lib.brick_field_dense_error_string if dense else
+               lib.brick_field_error_string)(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def _launch_tiles(name, pool_blk, meta, rays, sh, pool3, ws, out, T, tid,
-                  lbase, nslots, Lcall, S, dt, tau_max, Bk):
+                  lbase, nslots, Lcall, S, dt, tau_max, Bk, dense=False):
     if tid.shape[0] == 0:
         return False
     head = [_ptr(pool_blk), _ptr(meta), meta.shape[0], _ptr(rays)]
@@ -565,7 +585,8 @@ def _launch_tiles(name, pool_blk, meta, rays, sh, pool3, ws, out, T, tid,
         body = [_ptr(sh), _ptr(pool3), pool3.shape[0], *map(_ptr, ws),
                 _ptr(out), T]
     _launch(name, *head, *body, _ptr(tid), _ptr(lbase), _ptr(nslots),
-            tid.shape[0], Lcall, S, dt, tau_max, Bk, dev=pool3.device)
+            tid.shape[0], Lcall, S, dt, tau_max, Bk, dev=pool3.device,
+            dense=dense)
     return True
 
 
@@ -665,7 +686,8 @@ def brick_field_tiles_tp_plain(pool_blk, meta, rays, sh, pool3, w1, w2, w3,
 def _dense(name, kind, pool_blk, meta, rays, sh, pool3, w1, w2, w3, S, dt,
            tau_max, tid, lbase, nslots, Lcall, Bk, out, plain):
     """K3 (row pool) and K4 (transposed pool): each listed tile from
-    zero, one slot at a time; `plain` forces the plain version."""
+    zero; `plain` forces the plain version, which walks one slot at a
+    time (the kernel takes 8 slots at a time, same sums)."""
     T, pool_blk, tid, lbase, nslots, Lcall, out = _prepare_tiles(
         pool_blk, meta, rays, sh, pool3, (w1, w2, w3), tid, lbase, nslots,
         Lcall, S, Bk, None, out, kind=kind, carry=False)
@@ -678,14 +700,14 @@ def _dense(name, kind, pool_blk, meta, rays, sh, pool3, w1, w2, w3, S, dt,
                             zero=True), False
     return out, _launch_tiles(name, pool_blk, meta, rays, sh, pool3,
                               (w1, w2, w3), out, T, tid, lbase, nslots,
-                              Lcall, S, dt, tau_max, Bk)
+                              Lcall, S, dt, tau_max, Bk, dense=True)
 
 
 def brick_field_tiles(pool_blk, meta, rays, sh, pool3, w1, w2, w3, *,
                       S: int, dt: float, tau_max: float, tid=None,
                       lbase=None, nslots=None, Lcall: int = 0, Bk: int = 8,
                       out=None):
-    """K3, dense tile grid, one list slot at a time.  Tile tid[b]
+    """K3, dense tile grid.  Tile tid[b]
     (distinct) walks list rows lbase[b] + l for l < min(nslots[b], Lcall)
     from zero, as the JAX kernel zeroes its block at l == 0.  pool3 is the
     row layout (n_blocks, Bk^3, 128), bf16 on CUDA; defaults, other

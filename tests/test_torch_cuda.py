@@ -61,6 +61,21 @@ def _toy_inputs(seed=0, T=2, Lp=3, n_blocks=4, sigma_scale=1.0, Bk=8):
     return (pool_blk, meta, rays, sh, pool3, *ws), nslots, kw
 
 
+def _dense_brick_inputs(S=None, n_tiles=4, device="cpu"):
+    """The seeded serving-width bricks and rays of chip_smoke.py phase 2
+    (tools/brick_inputs.py: Bk=8 bf16 pool, 32-slot lists) at toy size,
+    sigma raised so that rays saturate after a few bricks: (args, nslots,
+    Lp, keywords).  S: a window span longer than one field pass of the
+    dense kernels, at a finer dt."""
+    from google_nerf_tpu_torch.tools.brick_inputs import serving_width_inputs
+    args, _, nslots, Lp, kw = serving_width_inputs(n_tiles, 0, device)
+    raise_sigma = torch.tensor([2.0] + [0.0] * 15, device=device).repeat(8)
+    args[4] = (args[4].float() + raise_sigma).to(torch.bfloat16)
+    if S is not None:
+        kw = dict(kw, S=S, dt=float(np.sqrt(3) / 4096))
+    return args, nslots, Lp, kw
+
+
 def _toy_rgba_pool(pool3):
     """(nb, vox, 128) feature pool -> (nb, 32, vox) rgba slabs with h0 =
     the sigma lane and seeded in-[0, 1] rgb (tests/test_render_brick_mxu
@@ -206,6 +221,44 @@ def test_cuda_kernel_matches_golden(kernel, Bk):
         want = tbf.brick_field_tiles_reference(*args, nslots=nslots,
                                                inv2s=1.0, V=32, **kw)
     _assert_matches(fn(*t, **extra, **kw).cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n", "t"])
+@pytest.mark.parametrize("Lcall,S", [(5, None), (12, None), (32, None),
+                                     (12, 65)])
+def test_cuda_dense_batches_match_plain(layout, Lcall, S):
+    """K3 and K4, which take 8 list slots a batch, on dense bricks where
+    the gate closes inside a batch (tests/test_torch_brick_field_batched.py
+    counts it on these inputs): Lcall below, above and a multiple of 8,
+    one listed tile whose rays miss every brick, one with no slot, and an
+    unlisted tile whose `out` row is kept; S=65 composites windows over
+    several passes."""
+    dev = _card()
+    args, nslots, Lp, kw = _dense_brick_inputs(S, n_tiles=6, device=dev)
+    if layout == "t":
+        args[4] = args[4].transpose(1, 2).contiguous()
+    args[2] = args[2].clone()
+    args[2][64:128, 0] += 1.0                 # tile 1 misses every brick
+    tid = torch.tensor([0, 1, 2, 4, 5], device=dev)        # tile 3 unlisted
+    ns = nslots[tid].clone()
+    ns[2] = 0                                 # tile 2 has no slot
+    fn, plain = ((tbf.brick_field_tiles_t, tbf.brick_field_tiles_t_plain)
+                 if layout == "t" else
+                 (tbf.brick_field_tiles, tbf.brick_field_tiles_plain))
+    call = dict(tid=tid, lbase=tid * Lp, nslots=ns, Lcall=Lcall, **kw)
+    out = torch.full((6 * 64, 8), 0.25, device=dev)
+    before = fn.launches
+    got = fn(*args, out=out.clone(), **call)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, out=out.clone(), **call)
+    _assert_same(got.cpu().numpy(), want.cpu().numpy())
+    assert bool((got[192:256] == 0.25).all())
+    assert bool((got[64:192] == 0).all())
+    tau = got[got[:, 5] > 0, 0]               # rays with a live hit
+    assert bool((tau >= kw["tau_max"]).any())
+    assert not bool((tau >= kw["tau_max"]).all())
 
 
 @pytest.mark.cuda
