@@ -9,7 +9,11 @@ Phases:
      (brick_field_tiles_rgba) against their plain PyTorch versions at
      serving widths (Bk=8, bf16 pool, a few hundred tiles of 32-slot
      lists) on seeded inputs, and against the port's numpy goldens on 16
-     of those tiles;
+     of those tiles.  The carry kernels (K1, K2, K5) start from an init
+     with tau partly spent on some rays and at or past tau_max on others
+     (on every ray of some tiles), and some tiles list no slot: the rows
+     of those tiles must keep init bit for bit (K1 and K2 return early
+     there);
   3. the worklist request `wl256`: one 800x800 frame at full width,
      packed NGP with random weights from --seed, a 256^3 bf16 bake of the
      textured scene's occupancy, the bench.py worklist settings (K1 and
@@ -28,7 +32,7 @@ Phases:
      plain version on the same inputs; the whole frame against the frame
      rendered through the plain version; its warm frame time; its
      kernel's device time, wrapper time, plain time and bound.  n512 is
-     also held against t512.  K3 and K4 (csrc/brick_field_dense.cu) also
+     also held against t512.  K1-K4 (csrc/brick_field_dense.cu) also
      report their live samples and slots per call, the bound by bytes and
      by operations apart, and the pool bytes their design requests per
      call by a model (dense_pool_model; not a measurement).
@@ -45,7 +49,7 @@ Phases:
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
-compute one function with the same bf16 rounding points (K3 and K4 sum
+compute one function with the same bf16 rounding points (K1-K4 sum
 their MLP products inside mma.sync, in another order than a plain f32
 product, which could round a hidden activation to the neighbouring bf16
 value; on these inputs it moves rgb by less than 1e-5).  A kernel
@@ -103,7 +107,7 @@ RGBA512 = {k: v for k, v in TP512.items() if k not in ("kernel", "pbatch")}
 KERNELS = ("brick_field_tiles_wl", "brick_field_tiles_tp",
            "brick_field_tiles", "brick_field_tiles_t",
            "brick_field_tiles_rgba")
-DENSE = ("brick_field_tiles", "brick_field_tiles_t")   # brick_field_dense.cu
+DENSE = KERNELS[:4]          # K1-K4, csrc/brick_field_dense.cu
 OFF_LINE = ("rungs", "modelled_pool_bytes_per_call")   # --out's JSON only
 
 
@@ -213,22 +217,33 @@ def phase2(bf, seed, dev):
     argsT[4] = args[4].transpose(1, 2).contiguous()
     init = torch.zeros(T * 64, 8, device=dev)
     init[::3, 0] = 1.0                 # a carried tau on some rays
+    init[1::5, 0] = kw["tau_max"] + 1.0           # some rays saturated
+    init.view(T, 64, 8)[5::11, :, 0] = kw["tau_max"]   # whole tiles
+    ns0 = nslots.clone()
+    ns0[3::7] = 0                      # some tiles list no slot
     every = torch.arange(T, device=dev)
-    wl_args = worklist(every, nslots, Lp, 16, pad=100)
+    wl_args = worklist(every, ns0, Lp, 16, pad=100)
     tkw = dict(nslots=nslots, Lcall=Lp, **kw)
+    ckw = dict(tkw, nslots=ns0, init=init)
     runs = {
         "brick_field_tiles_wl": (args + wl_args, dict(P=16, init=init, **kw)),
-        "brick_field_tiles_tp": (args, dict(P=16, init=init, **tkw)),
+        "brick_field_tiles_tp": (args, dict(P=16, **ckw)),
         "brick_field_tiles": (args, tkw),
         "brick_field_tiles_t": (argsT, tkw),
-        "brick_field_tiles_rgba": (args[:3] + [rgba], dict(init=init,
-                                                          **tkw))}
+        "brick_field_tiles_rgba": (args[:3] + [rgba], ckw)}
+    # the rows of tiles with no slot or no live ray, which must keep init
+    keep = ((ns0 == 0)[:, None] | (init[:, 0] >= kw["tau_max"]).view(T, 64)
+            .all(1, keepdim=True)).expand(T, 64).reshape(-1)
     errs = {}
     for name, (a, k) in runs.items():
         got = getattr(bf, name)(*a, **k)
         errs[name] = kernel_errors(got, getattr(bf, name + "_plain")(*a, **k),
                                    f"{name} vs plain (phase 2)")
         check(float(got[:, 5].sum()) > 0, f"phase 2 {name} rendered no pairs")
+        if "init" in k:
+            check(torch.equal(got[keep], init[keep]),
+                  f"phase 2 {name}: a tile with no slot or no live ray "
+                  "changed")
 
     sub = every[::T // 16]
     kw = dict(kw, tau_max=1e30)
@@ -333,9 +348,14 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
     evaluate follow from geometry and the output's pair count.  Of the
     pool the function needs each distinct voxel those samples touch, in
     any brick, once: its 8 corners x 16 features (256 bytes; K5 8 x 4, 64
-    bytes).  rgba: K5 (no sh, no MLP, 32-lane slabs).  lanes: K3 (False)
-    or K4 (True), whose design's pool reads are also modelled
-    (dense_pool_model)."""
+    bytes).  rgba: K5 (no sh, no MLP, 32-lane slabs).  lanes: K1-K3
+    (False) or K4 (True), whose design's pool reads are also modelled
+    (dense_pool_model).  That model starts a batch of 8 list slots at
+    every 8th of a tile's rows in the call (pos // 8 below).  K2-K4 batch
+    a tile's list from lbase, so it holds for them; K1 batches each
+    worklist step apart, so it holds while every step but a tile's last
+    lists P rows with P a multiple of 8, as the worklist frame's steps
+    and phase 2's do."""
     pool_blk, meta, rays = args[:3]
     pool3 = args[3] if rgba else args[4]
     vox = kw["Bk"] ** 3
@@ -412,12 +432,12 @@ def sample_voxels(rays, meta, rows, tiles, pairs, n0, n1, kw):
 
 
 def dense_pool_model(sigma, shade, vox, lanes):
-    """Pool bytes the K3/K4 design requests in one call, by a model, not
+    """Pool bytes the K1-K4 design requests in one call, by a model, not
     a measurement: each 32-byte sector counted once per (tile, slot) that
     reads it.  sigma: (entry, voxel) of the sigma pass's samples, every
     window sample of a hit pair whose ray is alive at its batch's start,
     which reads feature 0 of the 8 corners; shade: those of the live
-    pairs' samples, which read the whole voxel.  K3's 256-byte voxel row
+    pairs' samples, which read the whole voxel.  K1-K3's 256-byte voxel row
     holds corner c's features in sector c, so both passes touch all 8
     sectors of a row (and shade's samples are among sigma's); K4 reads a
     voxel's value from each of the 128 lane rows of the transposed slab,
@@ -969,7 +989,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    # P5's rungs and the modelled pool bytes of K3/K4 are in --out's JSON
+    # P5's rungs and the modelled pool bytes of K1-K4 are in --out's JSON
     # only
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k not in OFF_LINE} for e in kernels]}))

@@ -1,45 +1,56 @@
-// The dense brick-field tile kernels K3 and K4 of the tile-raster serving
-// renderer, for Hopper (sm_90a).  Built with nvcc into a shared library
-// with a plain C interface and loaded through ctypes by
+// The brick-field tile kernels K1-K4 of the tile-raster serving renderer,
+// for Hopper (sm_90a), on one batched body.  Built with nvcc into a shared
+// library with a plain C interface and loaded through ctypes by
 // google_nerf_tpu_torch/ops/cuda/brick_field.py, which also holds the plain
-// PyTorch versions these kernels are tested against.
+// PyTorch versions these kernels are tested against.  K5 (pre-shaded
+// slabs, no MLP) is in brick_field.cu.
 //
 // What they replace (google_nerf_tpu/ops/pallas/brick_field.py)
-//   brick_field_n <- brick_field_tiles / _kernel (K3: dense tile grid,
-//                    row-layout pool (n_blocks, Bk^3, 128), each listed tile
-//                    from zero)
-//   brick_field_t <- brick_field_tiles_t / _kernel_t (K4: K3 on the
-//                    transposed pool (n_blocks, 128, Bk^3))
-// Both compute brick_field_tiles_reference: for each 8x8 ray tile and each
-// brick of its front-to-back list, slab-test the tile's 64 rays against the
-// brick AABB, lay the lattice window of at most S samples, trilerp the
-// brick-local Bk^3 lattice, sigma*dt = min(exp(min(h0, 30))*dt, 80), rgb =
-// sigmoid(MLP 32->64->64->3 of [sh16, h16]), and composite front to back
-// with tau carried across bricks under the live gate tau < tau_max.
-// Output per ray: [tau, r, g, b, depth*w, n_pairs, 0, 0].
+//   brick_field_wl <- brick_field_tiles_wl / _kernel_wl (K1: a tile-major
+//                     worklist of (tile, P-slot group) steps, init carry)
+//   brick_field_tp <- brick_field_tiles_tp / _kernel_tp (K2: tile grid with
+//                     list addressing, init carry)
+//   brick_field_n  <- brick_field_tiles / _kernel (K3: tile grid, each
+//                     listed tile from zero)
+//   brick_field_t  <- brick_field_tiles_t / _kernel_t (K4: K3 on the
+//                     transposed pool (n_blocks, 128, Bk^3))
+// K1-K3 read the row-layout pool (n_blocks, Bk^3, 128).  All four compute
+// brick_field_tiles_reference: for each 8x8 ray tile and each brick of its
+// front-to-back list, slab-test the tile's 64 rays against the brick AABB,
+// lay the lattice window of at most S samples, trilerp the brick-local
+// Bk^3 lattice, sigma*dt = min(exp(min(h0, 30))*dt, 80), rgb = sigmoid(MLP
+// 32->64->64->3 of [sh16, h16]), and composite front to back with tau
+// carried across bricks under the live gate tau < tau_max.  Output per
+// ray: [tau, r, g, b, depth*w, n_pairs, c6, c7], where c6, c7 are K1/K2's
+// init values and 0 for K3/K4.
 //
 // Rounding follows the TPU kernels: slab values are bf16; each corner's
 // w_c * v_c is rounded to bf16 before the f32 corner sum; sh, h and the two
 // hidden activations are rounded to bf16 and every product accumulates in
 // f32 (here inside mma.sync, whose order of summation differs from a plain
 // f32 dot product, so a hidden activation can round to the neighbouring
-// bf16 value).  K3's corner weights are where(bit, f, 1-f), K4's (1-f) +
-// bit*(2f-1), as the TPU kernels differ.  The library is built without fast
-// math and with --fmad=false, so the slab test's window bounds and sigma
-// round exactly as in PyTorch and n_pairs and tau match exactly.
+// bf16 value).  Corner weights take each TPU kernel's form, chosen by a
+// template flag apart from the pool layout: K3's where(bit, f, 1-f); K1,
+// K2 and K4's (1-f) + bit*(2f-1).  The two differ in the last bit when f <
+// 1/2 has bits below 2^-24, i.e. in a brick's first voxel along an axis (u
+// < 1), which moves a bf16 corner product now and then.  The library is
+// built without fast math and with --fmad=false, so the slab test's window
+// bounds and sigma round exactly as in PyTorch and n_pairs and tau match
+// exactly.
 //
 // What bounds them on the H100
 //   Bytes: each distinct voxel that a live sample touches read once (its
-//   8 corners x 16 features, 256 B), plus the list rows and the rays, sh
-//   and output of the call's tiles.  Operations: per live sample 8x16
-//   trilerp MACs and 16x64 + 64x64 + 64x3 MLP MACs (~11 kFLOP), ~0.002 ms
-//   on the bf16 tensor cores for an n512/t512 call of the 800^2 frame.
+//   8 corners x 16 features, 256 B), plus the list rows and the rays, sh,
+//   init and output of the call's tiles.  Operations: per live sample 8x16
+//   trilerp MACs and 16x64 + 64x64 + 64x3 MLP MACs (~11 kFLOP), a few
+//   microseconds of the bf16 tensor cores for a call of the 800^2 frame.
 //   Bytes bind (PERF.md has both bounds per call), and the earlier
 //   slot-serial design sat far above them, bound instead by latency: one
 //   block walked its tile's list one slot at a time with several barriers
 //   and a serial prefix sum per slot, a dead slot cost a barrier, each
-//   sample's MLP was a chain of ~5.4k dependent fmaf, and K4 re-staged a
-//   128 KiB slab per live (tile, slot) at one block per SM.
+//   sample's MLP was a chain of ~5.4k dependent fmaf, every block staged
+//   the weights first (a dead tile's too), and K4 re-staged a 128 KiB slab
+//   per live (tile, slot) at one block per SM.
 //
 // What this design does about it
 //   * Batched slots: a block of 64*G threads owns one tile and takes its
@@ -54,6 +65,26 @@
 //     and only then are the other 15 features and the MLP evaluated, for
 //     the samples of live pairs only.  The sums are the same sums in the
 //     same order as the slot-serial walk.
+//   * The carry (K1, K2): the state starts from the tile's `out` rows,
+//     which hold init (the wrapper copies it there), instead of zero.  It
+//     enters each batch only through the gate and T_bef, as any earlier
+//     slot's state does, so the batched order stays exact; columns 6-7
+//     keep init's values.
+//   * Early return (K1, K2): a block reads its tile and slot count, then
+//     its 64 carried tau, and returns before it stages anything if it has
+//     no slot or no ray with tau < tau_max.  It writes nothing, so its rows
+//     keep init; the gate would have added nothing.  Dead-tile elision in
+//     a segmented frame (nslots = 0) and the drain's tiles that need no
+//     drain launch such blocks.
+//   * K1's worklist: one block per step; a block not at a tile's first
+//     step (wf != 1) returns at once.  A wf == 1 block scans its run of
+//     steps (up to Ns, another tile or the next wf == 1) 512 at a time and
+//     walks each step's rows wl[j] + k, k < min(wn[j], P), in batches of
+//     at most G that never straddle two steps: the contract makes rows
+//     absolute and P-aligned, not contiguous across steps.  The gate is
+//     resolved in list order whatever the grouping, so this is exact; with
+//     P a multiple of G only a step's short tail is a short batch.  A pad
+//     step (wn == 0) costs nothing.
 //   * The live samples are listed by a block scan (warp shuffles), not a
 //     serial loop, and evaluated in passes of at most CAP samples, so shared
 //     memory is sized by the pass, not by 64 x S; a pair's samples are
@@ -69,14 +100,16 @@
 //   * K4 stages no slab: each sample reads its voxel's values straight from
 //     the transposed pool (through L1/L2), so a call reads only the voxels
 //     of its samples: feature 0 of every window sample of a ray alive at
-//     the batch start, the rest for live pairs' samples only.  K3 reads a
-//     sample's 256-byte row with 16-byte loads, as before.
+//     the batch start, the rest for live pairs' samples only.  K1-K3 read a
+//     sample's 256-byte row with 16-byte loads.
 //   * G = 8 slots a batch (chosen on the card over 2 and 4: larger batches
 //     halve the serial steps of a tile's walk).  Shared memory is ~76 KiB a
-//     block, so two 512-thread blocks fit an SM; K3's registers are capped
-//     so that two do.  The grid is still one block per listed tile.
-//   * `out` is zeroed for each listed tile (the TPU kernels zero their block
-//     at l == 0) and every other tile keeps its row.
+//     block, so two 512-thread blocks fit an SM; K1-K3's registers are
+//     capped so that two do.  The grid is one block per listed tile (K1:
+//     per worklist step).
+//   * K3/K4 write each listed tile's `out` rows (the TPU kernels zero their
+//     block at l == 0); K1/K2 update them in place; every other tile keeps
+//     its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +145,8 @@ struct Args {
   const float* w1;             // (32, 64)
   const float* w2;             // (64, 64)
   const float* w3;             // (64, 3)
-  float* out;                  // (T*64, 8), listed tiles overwritten
+  float* out;                  // (T*64, 8): K1/K2 carry-in, updated in
+                               // place; K3/K4 listed tiles overwritten
   int T;
   int S;                       // window span (samples per ray per brick)
   float dt;
@@ -142,6 +176,11 @@ struct Smem {
   float rgb[CAP * 3];         // and rgb
   alignas(16) __nv_bfloat16 atile[NW][16 * FEAT];   // per-warp A tile
 };
+
+__device__ __forceinline__ Smem& smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return *reinterpret_cast<Smem*>(smem_raw);
+}
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -198,15 +237,15 @@ __device__ __forceinline__ int locate(const Args& a, const float* ray,
 }
 
 // Trilinear weight of corner c (bit k = offset on axis k, x = LSB).
-// LANES (K4): the TPU t-kernel's (1-f) + bit*(2f-1); ROWS: where(bit, f,
-// 1-f).
-template <int L>
+// LERP (K1, K2, K4): the TPU kernels' (1-f) + bit*(2f-1); else (K3)
+// where(bit, f, 1-f).
+template <bool LERP>
 __device__ __forceinline__ float corner_w(int c, const float* fr) {
   float w[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const bool bit = (c >> k) & 1;
-    if (L == LANES)
+    if (LERP)
       w[k] = bit ? (1.f - fr[k]) + (2.f * fr[k] - 1.f) : 1.f - fr[k];
     else
       w[k] = bit ? fr[k] : 1.f - fr[k];
@@ -230,7 +269,7 @@ __device__ __forceinline__ float sigma_dt(const Args& a, float h0) {
 
 // sigma*dt of window sample n from feature 0 alone; the same operations
 // in the same order as feature 0 of trilerp_half, so the same bits.
-template <int L>
+template <int L, bool LERP>
 __device__ float sample_sigma(const Args& a, const float* ray, float n,
                               const float* box, int64_t pb) {
   float fr[3];
@@ -238,12 +277,12 @@ __device__ float sample_sigma(const Args& a, const float* ray, float n,
   float h0 = 0.f;
 #pragma unroll
   for (int c = 0; c < 8; ++c)
-    h0 += bf16r(corner_w<L>(c, fr) * ldg_bf16(feat<L>(a, pb, lid, c, 0)));
+    h0 += bf16r(corner_w<LERP>(c, fr) * ldg_bf16(feat<L>(a, pb, lid, c, 0)));
   return sigma_dt(a, h0);
 }
 
 // Features 8q .. 8q+7 of window sample n, trilerped.
-template <int L>
+template <int L, bool LERP>
 __device__ void trilerp_half(const Args& a, const float* ray, float n,
                              const float* box, int64_t pb, int q,
                              float h[8]) {
@@ -253,7 +292,7 @@ __device__ void trilerp_half(const Args& a, const float* ray, float n,
   for (int f = 0; f < 8; ++f) h[f] = 0.f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const float wc = corner_w<L>(c, fr);
+    const float wc = corner_w<LERP>(c, fr);
     if (L == ROWS) {
       const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
           feat<L>(a, pb, lid, c, 8 * q)));
@@ -295,7 +334,7 @@ __device__ int block_scan(int v, Smem& s, int* total) {
 
 // The field of the pass's m listed samples: sigma*dt and rgb into s.sd,
 // s.rgb.  Each warp takes 16 samples at a time, two lanes a sample.
-template <int L>
+template <int L, bool LERP>
 __device__ void field_pass(const Args& a, Smem& s, int m) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = lane & 1, gq = lane >> 2, t = lane & 3;
@@ -310,8 +349,8 @@ __device__ void field_pass(const Args& a, Smem& s, int m) {
     if (k < m) {
       const int d = s.desc[k], i = d & 1023, j = d >> 10, g = i >> 6;
       r = i & (TPX - 1);
-      trilerp_half<L>(a, s.ray + r * 8, s.n0[i] + (float)j, s.box + g * 6,
-                      s.pb[g], q, h);
+      trilerp_half<L, LERP>(a, s.ray + r * 8, s.n0[i] + (float)j,
+                            s.box + g * 6, s.pb[g], q, h);
       if (q == 0) s.sd[k] = sigma_dt(a, h[0]);
     }
     uint4 hv;
@@ -380,20 +419,25 @@ __device__ void field_pass(const Args& a, Smem& s, int m) {
   }
 }
 
-// One block per entry of tid: tile tid[b] walks list rows lbase[b] + l,
-// l < min(nslots[b], Lcall), from zero, G slots at a time.
-template <int L>
-__device__ void dense_body(const Args& a, const int32_t* tid,
-                           const int32_t* lbase, const int32_t* nslots,
-                           int Lcall) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int b = blockIdx.x;
-  const int tile = tid[b];
-  if (tile < 0 || tile >= a.T) return;
-  const int x = threadIdx.x, r = x & (TPX - 1), g = x >> 6;
+// The tile's rays and its starting state: its `out` rows (CARRY: they
+// hold init) or zero.  Returns, block-uniform, whether any ray is alive
+// (tau < tau_max); from zero every ray is.
+template <bool CARRY>
+__device__ bool tile_start(const Args& a, Smem& s, int64_t r0) {
+  bool alive = !CARRY;
+  for (int e = threadIdx.x; e < TPX * 8; e += NT) {
+    s.ray[e] = a.rays[r0 * 8 + e];
+    const float v = CARRY ? a.out[r0 * 8 + e] : 0.f;
+    s.st[e] = v;
+    if (CARRY && (e & 7) == 0 && v < a.tau_max) alive = true;
+  }
+  return __syncthreads_or(alive);
+}
 
-  // weights as bf16 B fragments, the tile's rays, zero state, sh half
+// The MLP weights as bf16 B fragments and the sh half of layer 1 for the
+// tile's 64 rays.
+__device__ void stage(const Args& a, Smem& s, int64_t r0) {
+  const int x = threadIdx.x;
   for (int e = x; e < 8 * 32; e += NT)
     s.w1f[e] = b_frag(a.w1 + FEAT * HID, HID, HID, 0, (e >> 5) * 8, e & 31);
   for (int e = x; e < 32 * 32; e += NT) {
@@ -402,11 +446,6 @@ __device__ void dense_body(const Args& a, const int32_t* tid,
   }
   for (int e = x; e < 4 * 32; e += NT)
     s.w3f[e] = b_frag(a.w3, 3, 3, (e >> 5) * 16, 0, e & 31);
-  const int64_t r0 = (int64_t)tile * TPX;
-  for (int e = x; e < TPX * 8; e += NT) {
-    s.ray[e] = a.rays[r0 * 8 + e];
-    s.st[e] = 0.f;
-  }
   if (x < 4 * 32) {   // sh half of layer 1: warp w takes rays 16w .. 16w+15
     const int lane = x & 31, gq = lane >> 2, t = lane & 3;
     const int row = 16 * (x >> 5) + gq;
@@ -426,131 +465,161 @@ __device__ void dense_body(const Args& a, const int32_t* tid,
     }
   }
   __syncthreads();
+}
 
+// List rows row0 .. row0 + nb - 1 (nb <= G) into the tile's state, in
+// list order.  Returns, block-uniform, whether any ray is still alive.
+template <int L, bool LERP>
+__device__ bool batch(const Args& a, Smem& s, int64_t row0, int nb) {
+  const int x = threadIdx.x, r = x & (TPX - 1), g = x >> 6;
   const float* ray = s.ray + r * 8;
-  const int n = min(nslots[b], Lcall);
-  for (int base = 0; base < n; base += G) {
-    // 1. slab test and the sum of sigma*dt of pair (r, g)
-    const int64_t row = (int64_t)lbase[b] + base + g;
-    int64_t pb = -1;
-    if (base + g < n && row >= 0 && row < a.n_rows) pb = a.pool_blk[row];
-    if (pb >= a.n_blocks) pb = -1;
-    float box[6];
-    int cnt = 0;
-    float n0 = 0.f, run = 0.f;
-    if (pb >= 0) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) box[k] = a.meta[row * 8 + k];
-      if (r == 0) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) s.box[g * 6 + k] = box[k];
-      }
-      const float t1 = ray[6], t2 = ray[7];
-      float ta = t1, tb = t2;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float d = ray[3 + k];
-        const float dd = fabsf(d) > 1e-10f ? d : (d >= 0.f ? 1e-10f : -1e-10f);
-        const float inv = 1.f / dd;
-        const float p = (box[k] - ray[k]) * inv;
-        const float pq = (box[3 + k] - ray[k]) * inv;
-        ta = fmaxf(ta, fminf(p, pq));
-        tb = fminf(tb, fmaxf(p, pq));
-      }
-      n0 = fmaxf(ceilf((ta - t1) / a.dt - 0.5f), 0.f);
-      const float n1 = floorf((tb - t1) / a.dt - 0.5f);
-      if ((tb > ta) && (n1 >= n0) && (t2 > 0.f))
-        cnt = (int)fminf(n1 - n0 + 1.f, (float)a.S);
-      // rays dead at the batch start stay dead: no sigma for them.  The
-      // loads of SIGMA_ILP samples go out together; run sums in order.
-      if (cnt > 0 && s.st[r * 8] < a.tau_max)
-        for (int j0 = 0; j0 < cnt; j0 += SIGMA_ILP) {
-          float sd[SIGMA_ILP];
-#pragma unroll
-          for (int u = 0; u < SIGMA_ILP; ++u)
-            sd[u] = j0 + u < cnt ? sample_sigma<L>(a, ray, n0 + (float)(j0 + u),
-                                                   box, pb)
-                                 : 0.f;
-#pragma unroll
-          for (int u = 0; u < SIGMA_ILP; ++u)
-            if (j0 + u < cnt) run += sd[u];
-        }
-    }
-    if (r == 0) s.pb[g] = (int)pb;
-    s.n0[x] = n0;
-    s.cnt[x] = cnt;
-    s.run[x] = run;
-    __syncthreads();
 
-    // 2. the live gate, slot by slot in list order, per ray
-    bool alive = false;
-    if (x < TPX) {
-      float* st = s.st + x * 8;
-#pragma unroll 1
-      for (int k = 0; k < G; ++k) {
-        const int i = k * TPX + x;
-        float tbef = -1.f;
-        if (s.cnt[i] > 0 && st[0] < a.tau_max) {
-          tbef = expf(-st[0]);
-          st[0] += s.run[i];
-          st[5] += 1.f;
-        }
-        s.tb[i] = tbef;
-      }
-      alive = st[0] < a.tau_max;
+  // 1. slab test and the sum of sigma*dt of pair (r, g)
+  const int64_t row = row0 + g;
+  int64_t pb = -1;
+  if (g < nb && row >= 0 && row < a.n_rows) pb = a.pool_blk[row];
+  if (pb >= a.n_blocks) pb = -1;
+  float box[6];
+  int cnt = 0;
+  float n0 = 0.f, run = 0.f;
+  if (pb >= 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) box[k] = a.meta[row * 8 + k];
+    if (r == 0) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) s.box[g * 6 + k] = box[k];
     }
-    const bool any_alive = __syncthreads_or(alive);
-
-    // 3. list the live pairs' samples; field and composite in passes
-    const bool live = s.tb[x] >= 0.f;
-    const int c = live ? cnt : 0;
-    int M;
-    const int off = block_scan(c, s, &M);
-    float run_c = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f;
-    for (int p0 = 0; p0 < M; p0 += CAP) {
-      const int m = min(M - p0, CAP);
-      const int lo = max(off, p0), hi = min(off + c, p0 + m);
-      for (int k = lo; k < hi; ++k) s.desc[k - p0] = ((k - off) << 10) | x;
-      __syncthreads();
-      field_pass<L>(a, s, m);
-      __syncthreads();
-      for (int k = lo; k < hi; ++k) {
-        const float sd = s.sd[k - p0];
-        const float* cc = s.rgb + (k - p0) * 3;
-        const float w = expf(-run_c) * (1.f - expf(-sd));
-        cr += w * cc[0];
-        cg += w * cc[1];
-        cb += w * cc[2];
-        dep += w * (ray[6] + ((n0 + (float)(k - off)) + 0.5f) * a.dt);
-        run_c += sd;
-      }
-      __syncthreads();   // the next pass rewrites desc, sd and rgb
+    const float t1 = ray[6], t2 = ray[7];
+    float ta = t1, tb = t2;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float d = ray[3 + k];
+      const float dd = fabsf(d) > 1e-10f ? d : (d >= 0.f ? 1e-10f : -1e-10f);
+      const float inv = 1.f / dd;
+      const float p = (box[k] - ray[k]) * inv;
+      const float pq = (box[3 + k] - ray[k]) * inv;
+      ta = fmaxf(ta, fminf(p, pq));
+      tb = fminf(tb, fmaxf(p, pq));
     }
-    s.acc[x * 4 + 0] = cr;
-    s.acc[x * 4 + 1] = cg;
-    s.acc[x * 4 + 2] = cb;
-    s.acc[x * 4 + 3] = dep;
-    __syncthreads();
-
-    // 4. the live pairs' colour and depth into the state, in list order
-    if (x < TPX) {
-      float* st = s.st + x * 8;
-#pragma unroll 1
-      for (int k = 0; k < G; ++k) {
-        const int i = k * TPX + x;
-        const float tbef = s.tb[i];
-        if (tbef >= 0.f) {
-          st[1] += tbef * s.acc[i * 4 + 0];
-          st[2] += tbef * s.acc[i * 4 + 1];
-          st[3] += tbef * s.acc[i * 4 + 2];
-          st[4] += tbef * s.acc[i * 4 + 3];
-        }
+    n0 = fmaxf(ceilf((ta - t1) / a.dt - 0.5f), 0.f);
+    const float n1 = floorf((tb - t1) / a.dt - 0.5f);
+    if ((tb > ta) && (n1 >= n0) && (t2 > 0.f))
+      cnt = (int)fminf(n1 - n0 + 1.f, (float)a.S);
+    // rays dead at the batch start stay dead: no sigma for them.  The
+    // loads of SIGMA_ILP samples go out together; run sums in order.
+    if (cnt > 0 && s.st[r * 8] < a.tau_max)
+      for (int j0 = 0; j0 < cnt; j0 += SIGMA_ILP) {
+        float sd[SIGMA_ILP];
+#pragma unroll
+        for (int u = 0; u < SIGMA_ILP; ++u)
+          sd[u] = j0 + u < cnt
+                      ? sample_sigma<L, LERP>(a, ray, n0 + (float)(j0 + u),
+                                              box, pb)
+                      : 0.f;
+#pragma unroll
+        for (int u = 0; u < SIGMA_ILP; ++u)
+          if (j0 + u < cnt) run += sd[u];
       }
-    }
-    if (!any_alive) break;   // every ray saturated: later slots add nothing
   }
+  if (r == 0) s.pb[g] = (int)pb;
+  s.n0[x] = n0;
+  s.cnt[x] = cnt;
+  s.run[x] = run;
   __syncthreads();
-  for (int e = x; e < TPX * 8; e += NT) a.out[r0 * 8 + e] = s.st[e];
+
+  // 2. the live gate, slot by slot in list order, per ray
+  bool alive = false;
+  if (x < TPX) {
+    float* st = s.st + x * 8;
+#pragma unroll 1
+    for (int k = 0; k < G; ++k) {
+      const int i = k * TPX + x;
+      float tbef = -1.f;
+      if (s.cnt[i] > 0 && st[0] < a.tau_max) {
+        tbef = expf(-st[0]);
+        st[0] += s.run[i];
+        st[5] += 1.f;
+      }
+      s.tb[i] = tbef;
+    }
+    alive = st[0] < a.tau_max;
+  }
+  const bool any_alive = __syncthreads_or(alive);
+
+  // 3. list the live pairs' samples; field and composite in passes
+  const bool live = s.tb[x] >= 0.f;
+  const int c = live ? cnt : 0;
+  int M;
+  const int off = block_scan(c, s, &M);
+  float run_c = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f;
+  for (int p0 = 0; p0 < M; p0 += CAP) {
+    const int m = min(M - p0, CAP);
+    const int lo = max(off, p0), hi = min(off + c, p0 + m);
+    for (int k = lo; k < hi; ++k) s.desc[k - p0] = ((k - off) << 10) | x;
+    __syncthreads();
+    field_pass<L, LERP>(a, s, m);
+    __syncthreads();
+    for (int k = lo; k < hi; ++k) {
+      const float sd = s.sd[k - p0];
+      const float* cc = s.rgb + (k - p0) * 3;
+      const float w = expf(-run_c) * (1.f - expf(-sd));
+      cr += w * cc[0];
+      cg += w * cc[1];
+      cb += w * cc[2];
+      dep += w * (ray[6] + ((n0 + (float)(k - off)) + 0.5f) * a.dt);
+      run_c += sd;
+    }
+    __syncthreads();   // the next pass rewrites desc, sd and rgb
+  }
+  s.acc[x * 4 + 0] = cr;
+  s.acc[x * 4 + 1] = cg;
+  s.acc[x * 4 + 2] = cb;
+  s.acc[x * 4 + 3] = dep;
+  __syncthreads();
+
+  // 4. the live pairs' colour and depth into the state, in list order
+  if (x < TPX) {
+    float* st = s.st + x * 8;
+#pragma unroll 1
+    for (int k = 0; k < G; ++k) {
+      const int i = k * TPX + x;
+      const float tbef = s.tb[i];
+      if (tbef >= 0.f) {
+        st[1] += tbef * s.acc[i * 4 + 0];
+        st[2] += tbef * s.acc[i * 4 + 1];
+        st[3] += tbef * s.acc[i * 4 + 2];
+        st[4] += tbef * s.acc[i * 4 + 3];
+      }
+    }
+  }
+  return any_alive;
+}
+
+__device__ void tile_end(const Args& a, Smem& s, int64_t r0) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < TPX * 8; e += NT) a.out[r0 * 8 + e] = s.st[e];
+}
+
+// K2-K4: one block per entry of tid; tile tid[b] walks list rows lbase[b]
+// + l, l < min(nslots[b], Lcall), G slots at a time, from its carried
+// state (CARRY) or from zero.
+template <int L, bool CARRY, bool LERP>
+__device__ void tiles_body(const Args& a, const int32_t* tid,
+                           const int32_t* lbase, const int32_t* nslots,
+                           int Lcall) {
+  Smem& s = smem();
+  const int b = blockIdx.x;
+  const int tile = tid[b];
+  if (tile < 0 || tile >= a.T) return;
+  const int n = min(nslots[b], Lcall);
+  if (CARRY && n <= 0) return;           // no slot: the rows keep init
+  const int64_t r0 = (int64_t)tile * TPX;
+  if (!tile_start<CARRY>(a, s, r0)) return;   // every carried ray dead
+  if (n > 0) stage(a, s, r0);
+  for (int base = 0; base < n; base += G)
+    if (!batch<L, LERP>(a, s, (int64_t)lbase[b] + base, min(G, n - base)))
+      break;   // every ray saturated: later slots add nothing
+  tile_end(a, s, r0);
 }
 
 // K3: row pool.  Registers capped for two blocks of 512 threads per SM
@@ -558,7 +627,7 @@ __device__ void dense_body(const Args& a, const int32_t* tid,
 __global__ void __launch_bounds__(NT, 2)
 brick_field_n_kernel(Args a, const int32_t* tid, const int32_t* lbase,
                      const int32_t* nslots, int Lcall) {
-  dense_body<ROWS>(a, tid, lbase, nslots, Lcall);
+  tiles_body<ROWS, false, false>(a, tid, lbase, nslots, Lcall);
 }
 
 // K4: transposed pool.  Its 64 scattered loads a lane need registers:
@@ -567,20 +636,76 @@ brick_field_n_kernel(Args a, const int32_t* tid, const int32_t* lbase,
 __global__ void __launch_bounds__(NT, 1)
 brick_field_t_kernel(Args a, const int32_t* tid, const int32_t* lbase,
                      const int32_t* nslots, int Lcall) {
-  dense_body<LANES>(a, tid, lbase, nslots, Lcall);
+  tiles_body<LANES, false, true>(a, tid, lbase, nslots, Lcall);
+}
+
+// K2: row pool, from the carry.
+__global__ void __launch_bounds__(NT, 2)
+brick_field_tp_kernel(Args a, const int32_t* tid, const int32_t* lbase,
+                      const int32_t* nslots, int Lcall) {
+  tiles_body<ROWS, true, true>(a, tid, lbase, nslots, Lcall);
+}
+
+// K1: one block per worklist step.  A block at a tile's first step (wf ==
+// 1) renders the tile's run of consecutive steps from its carry; the rest
+// return.  The run is scanned NT steps at a time in parallel, so a long
+// tail of pad steps costs one load per thread, not a serial walk.
+__global__ void __launch_bounds__(NT, 2)
+brick_field_wl_kernel(Args a, const int32_t* wt, const int32_t* wl,
+                      const int32_t* wn, const int32_t* wf, int Ns, int P) {
+  __shared__ int c_wl[NT], c_wn[NT], c_end;
+  Smem& s = smem();
+  const int j0 = blockIdx.x;
+  if (wf[j0] != 1) return;
+  const int tile = wt[j0];
+  if (tile < 0 || tile >= a.T) return;
+  const int64_t r0 = (int64_t)tile * TPX;
+  if (!tile_start<true>(a, s, r0)) return;    // every carried ray dead
+  bool staged = false, alive = true;
+  for (int base = j0; alive; base += NT) {
+    const int j = base + threadIdx.x;
+    const bool end = j >= Ns || (j > j0 && (wt[j] != tile || wf[j] == 1));
+    if (threadIdx.x == 0) c_end = NT;
+    __syncthreads();
+    if (end) {
+      atomicMin(&c_end, (int)threadIdx.x);
+    } else {
+      c_wl[threadIdx.x] = wl[j];
+      c_wn[threadIdx.x] = min(wn[j], P);
+    }
+    __syncthreads();
+    const int n_steps = c_end;
+    for (int t = 0; t < n_steps && alive; ++t)
+      for (int k = 0; k < c_wn[t] && alive; k += G) {
+        if (!staged) {       // the first slot of the run
+          stage(a, s, r0);
+          staged = true;
+        }
+        alive = batch<ROWS, true>(a, s, (int64_t)c_wl[t] + k,
+                                  min(G, c_wn[t] - k));
+      }
+    if (n_steps < NT) break;
+    __syncthreads();         // the next scan rewrites c_wl, c_wn, c_end
+  }
+  if (staged) tile_end(a, s, r0);   // else no slot: the rows keep init
+}
+
+template <typename K>
+int set_smem(K kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(Smem));
 }
 
 int launch(void (*kernel)(Args, const int32_t*, const int32_t*,
                           const int32_t*, int),
            const Args& a, const int32_t* tid, const int32_t* lbase,
            const int32_t* nslots, int Tb, int Lcall, void* stream) {
-  const size_t bytes = sizeof(Smem);
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const int err = set_smem(kernel);
   if (err) return err;
   if (Tb == 0) return 0;
-  kernel<<<Tb, NT, bytes, (cudaStream_t)stream>>>(a, tid, lbase, nslots,
-                                                  Lcall);
+  kernel<<<Tb, NT, sizeof(Smem), (cudaStream_t)stream>>>(a, tid, lbase,
+                                                         nslots, Lcall);
   return (int)cudaGetLastError();
 }
 
@@ -630,7 +755,25 @@ const char* brick_field_dense_error_string(int err) {
     return launch(KERNEL, a, tid, lbase, nslots, Tb, Lcall, stream);         \
   }
 
+DENSE_ENTRY(brick_field_tp, brick_field_tp_kernel)
 DENSE_ENTRY(brick_field_n, brick_field_n_kernel)
 DENSE_ENTRY(brick_field_t, brick_field_t_kernel)
+
+int brick_field_wl(const int32_t* pool_blk, const float* meta, int64_t n_rows,
+                   const float* rays, const float* sh, const void* pool,
+                   int64_t n_blocks, const float* w1, const float* w2,
+                   const float* w3, float* out, int T, const int32_t* wt,
+                   const int32_t* wl, const int32_t* wn, const int32_t* wf,
+                   int Ns, int P, int S, float dt, float tau_max, int Bk,
+                   void* stream) {
+  const Args a = make_args(pool_blk, meta, n_rows, rays, sh, pool, n_blocks,
+                           w1, w2, w3, out, T, S, dt, tau_max, Bk);
+  const int err = set_smem(brick_field_wl_kernel);
+  if (err) return err;
+  if (Ns == 0) return 0;
+  brick_field_wl_kernel<<<Ns, NT, sizeof(Smem), (cudaStream_t)stream>>>(
+      a, wt, wl, wn, wf, Ns, P);
+  return (int)cudaGetLastError();
+}
 
 }  // extern "C"

@@ -13,13 +13,17 @@ brick contributing the baked field (brick-local trilerp of 8 corners x
 16 features, sigma from h0, rgb from the 32->64->64->3 MLP on [sh16,
 h16]) with tau carried across bricks and the live gate tau < tau_max.
 K5 computes `brick_field_rgba_reference`: the trilerped corner [log
-sigma, r, g, b] with rgb clipped to [0, 1].
+sigma, r, g, b] with rgb clipped to [0, 1].  Corner weights take each
+TPU kernel's form: K3's where(bit, f, 1 - f); K1, K2, K4 and K5's (1 -
+f) + bit * (2f - 1), which differs in the last bit in a brick's first
+voxel along an axis.
 
-The CUDA kernels live in csrc/brick_field.cu (K1, K2, K5) and
-csrc/brick_field_dense.cu (K3, K4: list slots in batches of 8, the live
-gate resolved before shading, the MLP on mma.sync), each built with nvcc
-on first use into its own library in build/kernels/ (a plain C interface
-loaded with ctypes).
+The CUDA kernels live in csrc/brick_field_dense.cu (K1-K4 on one body:
+list slots in batches of 8, the live gate resolved before shading, the
+MLP on mma.sync; K1/K2 start from the carry and return early when it
+leaves them nothing to do) and csrc/brick_field.cu (K5), each built with
+nvcc on first use into its own library in build/kernels/ (a plain C
+interface loaded with ctypes).
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; there is no fallback between the two.
 
@@ -61,33 +65,32 @@ def build():
     return _build.build("brick_field", "brick_field_dense")
 
 
+_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+         ctypes.c_void_p]                        # S, dt, tau_max, Bk, stream
+
+
 def _declare(lib):
-    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_float)
-    head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
-    tail = [i32, f32, f32, i32, p]               # S, dt, tau_max, Bk, stream
-    lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + tail
-    lib.brick_field_tp.argtypes = head + [p, p, p, i32, i32] + tail
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
-                                      p, i32, i32] + tail)
-    for name in ("brick_field_wl", "brick_field_tp", "brick_field_rgba",
-                 "brick_field_smem_optin"):
+                                      p, i32, i32] + _TAIL)
+    for name in ("brick_field_rgba", "brick_field_smem_optin"):
         getattr(lib, name).restype = i32
     lib.brick_field_smem_optin.argtypes = []
-    lib.brick_field_smem_bytes.argtypes = [i32, i32, i32]
+    lib.brick_field_smem_bytes.argtypes = [i32, i32]
     lib.brick_field_smem_bytes.restype = i64
     lib.brick_field_error_string.argtypes = [i32]
     lib.brick_field_error_string.restype = ctypes.c_char_p
 
 
 def _declare_dense(lib):
-    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_float)
-    for name in ("brick_field_n", "brick_field_t"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([p, p, i64, p, p, p, i64, p, p, p, p, i32, p, p, p,
-                        i32, i32, i32, f32, f32, i32, p])
-        fn.restype = i32
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
+    lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + _TAIL
+    for name in ("brick_field_tp", "brick_field_n", "brick_field_t"):
+        getattr(lib, name).argtypes = head + [p, p, p, i32, i32] + _TAIL
+    for name in ("brick_field_wl", "brick_field_tp", "brick_field_n",
+                 "brick_field_t"):
+        getattr(lib, name).restype = i32
     lib.brick_field_dense_error_string.argtypes = [i32]
     lib.brick_field_dense_error_string.restype = ctypes.c_char_p
 
@@ -238,8 +241,9 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
 
 
 def _lerp_w8(frac):
-    """Corner weights in the TPU t-kernels' form: per axis (1 - f) +
-    bit * (2f - 1), which can differ from trilerp_w8 in the last bit."""
+    """Corner weights in the form of the TPU kernels K1, K2, K4 and K5:
+    per axis (1 - f) + bit * (2f - 1), which can differ from trilerp_w8
+    (K3's where(bit, f, 1 - f)) in the last bit."""
     bits = torch.tensor([[(c >> k) & 1 for k in range(3)] for c in range(8)],
                         dtype=frac.dtype, device=frac.device)
     f = frac[..., None, :]                                    # (..., 1, 3)
@@ -269,7 +273,8 @@ def _mlp_field(pool3, shv, ws, *, lanes: bool, lerp: bool):
     """K1-K4's field of M samples: (bi tile, ri ray, blk pool block, lid
     voxel row, frac (M, 3)) -> (h0, rgb), in the kernels' roundings (bf16
     slab, bf16-rounded corner products and MLP operands, f32 sums).
-    lanes: pool3 is (n_blocks, 128, Bk^3); lerp: the t-kernels' weights."""
+    lanes: pool3 is (n_blocks, 128, Bk^3); lerp: the weights (1 - f) +
+    bit * (2f - 1) of K1, K2 and K4, else K3's where(bit, f, 1 - f)."""
     w1b, w2b, w3b = (_bf(w) for w in ws)
     weights = _lerp_w8 if lerp else trilerp_w8
 
@@ -368,7 +373,7 @@ def _tiles_plain(pool_blk, meta, rays, tid, lbase, nslots, out, make_field,
     return out
 
 
-def _mlp_maker(sh, pool3, ws, *, lanes=False, lerp=False):
+def _mlp_maker(sh, pool3, ws, *, lerp, lanes=False):
     T = sh.shape[0] // TPX
     return lambda tid_l: _mlp_field(pool3, sh.view(T, TPX, FEAT)[tid_l], ws,
                                     lanes=lanes, lerp=lerp)
@@ -400,7 +405,7 @@ def _wl_plain(pool_blk, meta, rays, sh, pool3, w1, w2, w3, wt, wl, wn, wf,
     tid_l = torch.as_tensor(tiles, device=dev)
     st = out.view(T, TPX, 8)[tid_l].clone()
     r = rays.view(T, TPX, 8)[tid_l]
-    field = _mlp_maker(sh, pool3, (w1, w2, w3))(tid_l)
+    field = _mlp_maker(sh, pool3, (w1, w2, w3), lerp=True)(tid_l)
     for c in range(max(len(s) for s in runs)):
         step = torch.as_tensor([s[c] if c < len(s) else -1 for s in runs],
                                device=dev)
@@ -441,14 +446,14 @@ def _index(name, t, device, n):
     return t
 
 
-def _check_smem(kind, S, Bk, dev):
-    """Raise unless the kernel's shared memory at (S, Bk) fits the
-    device's opt-in limit for one block."""
+def _check_smem(S, Bk, dev):
+    """Raise unless K5's shared memory at (S, Bk) fits the device's
+    opt-in limit for one block."""
     lib = _lib()
     if dev.index not in _smem_optin:
         with torch.cuda.device(dev):
             _smem_optin[dev.index] = lib.brick_field_smem_optin()
-    need, have = lib.brick_field_smem_bytes(kind, S, Bk), _smem_optin[
+    need, have = lib.brick_field_smem_bytes(S, Bk), _smem_optin[
         dev.index]
     if need > have:
         raise ValueError(f"S={S}, Bk={Bk} needs {need} bytes of shared "
@@ -473,8 +478,8 @@ def _prepare(pool_blk, meta, rays, sh, pool3, ws, S, Bk, init, out, *,
         raise ValueError("the pool must be 16-byte aligned")
     if S < 1:
         raise ValueError(f"window span S={S} < 1")
-    if dev.type == "cuda" and carry:    # K3/K4 (no carry): fixed size
-        _check_smem(kind, S, Bk, dev)
+    if dev.type == "cuda" and kind == RGBA:   # K1-K4: a fixed size
+        _check_smem(S, Bk, dev)
     if rays.ndim != 2 or rays.shape[0] % TPX or rays.shape[1] != 8:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected "
                          f"(T*{TPX}, 8)")
@@ -561,21 +566,22 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _launch(name, *cargs, dev, dense=False):
-    """Call the C entry `name` (of the dense library if `dense`) on dev's
-    current stream; raise on error."""
+def _launch(name, *cargs, dev):
+    """Call the C entry `name` (K5's in csrc/brick_field.cu, the others in
+    csrc/brick_field_dense.cu) on dev's current stream; raise on error."""
+    rgba = name == "brick_field_rgba"
     with torch.cuda.device(dev):
-        lib = _dense_lib() if dense else _lib()
+        lib = _lib() if rgba else _dense_lib()
         err = getattr(lib, name)(
             *cargs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
-        msg = (lib.brick_field_dense_error_string if dense else
-               lib.brick_field_error_string)(err).decode()
+        msg = (lib.brick_field_error_string if rgba else
+               lib.brick_field_dense_error_string)(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def _launch_tiles(name, pool_blk, meta, rays, sh, pool3, ws, out, T, tid,
-                  lbase, nslots, Lcall, S, dt, tau_max, Bk, dense=False):
+                  lbase, nslots, Lcall, S, dt, tau_max, Bk):
     if tid.shape[0] == 0:
         return False
     head = [_ptr(pool_blk), _ptr(meta), meta.shape[0], _ptr(rays)]
@@ -585,8 +591,7 @@ def _launch_tiles(name, pool_blk, meta, rays, sh, pool3, ws, out, T, tid,
         body = [_ptr(sh), _ptr(pool3), pool3.shape[0], *map(_ptr, ws),
                 _ptr(out), T]
     _launch(name, *head, *body, _ptr(tid), _ptr(lbase), _ptr(nslots),
-            tid.shape[0], Lcall, S, dt, tau_max, Bk, dev=pool3.device,
-            dense=dense)
+            tid.shape[0], Lcall, S, dt, tau_max, Bk, dev=pool3.device)
     return True
 
 
@@ -657,8 +662,9 @@ def brick_field_tiles_tp(pool_blk, meta, rays, sh, pool3, w1, w2, w3, *,
         Lcall, P, S, Bk, init, out)
     if pool3.device.type == "cpu":
         return _tiles_plain(pool_blk, meta, rays, tid, lbase, nslots, out,
-                            _mlp_maker(sh, pool3, (w1, w2, w3)), S=S, dt=dt,
-                            tau_max=tau_max, Lcall=Lcall, Bk=Bk, zero=False)
+                            _mlp_maker(sh, pool3, (w1, w2, w3), lerp=True),
+                            S=S, dt=dt, tau_max=tau_max, Lcall=Lcall, Bk=Bk,
+                            zero=False)
     if _launch_tiles("brick_field_tp", pool_blk, meta, rays, sh, pool3,
                      (w1, w2, w3), out, T, tid, lbase, nslots, Lcall, S, dt,
                      tau_max, Bk):
@@ -679,8 +685,9 @@ def brick_field_tiles_tp_plain(pool_blk, meta, rays, sh, pool3, w1, w2, w3,
         pool_blk, meta, rays, sh, pool3, w1, w2, w3, tid, lbase, nslots,
         Lcall, P, S, Bk, init, out)
     return _tiles_plain(pool_blk, meta, rays, tid, lbase, nslots, out,
-                        _mlp_maker(sh, pool3, (w1, w2, w3)), S=S, dt=dt,
-                        tau_max=tau_max, Lcall=Lcall, Bk=Bk, zero=False)
+                        _mlp_maker(sh, pool3, (w1, w2, w3), lerp=True),
+                        S=S, dt=dt, tau_max=tau_max, Lcall=Lcall, Bk=Bk,
+                        zero=False)
 
 
 def _dense(name, kind, pool_blk, meta, rays, sh, pool3, w1, w2, w3, S, dt,
@@ -700,7 +707,7 @@ def _dense(name, kind, pool_blk, meta, rays, sh, pool3, w1, w2, w3, S, dt,
                             zero=True), False
     return out, _launch_tiles(name, pool_blk, meta, rays, sh, pool3,
                               (w1, w2, w3), out, T, tid, lbase, nslots,
-                              Lcall, S, dt, tau_max, Bk, dense=True)
+                              Lcall, S, dt, tau_max, Bk)
 
 
 def brick_field_tiles(pool_blk, meta, rays, sh, pool3, w1, w2, w3, *,

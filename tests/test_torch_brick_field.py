@@ -166,6 +166,74 @@ def test_wrappers_reject_bad_arguments():
         tbf.brick_field_tiles_tp(*t, tid=torch.tensor([1, 1]), P=4, **kw)
 
 
+def _first_voxel_flip(seed=0, tries=32):
+    """One tile of rays through the brick [0, 1/4]^2 x [-1/2, -1/4] with
+    origins in its first voxel column along x and y, where the fraction
+    f = u < 1 keeps bits below 2^-24, so that the corner weights (1 - f)
+    + bit * (2f - 1) and where(bit, f, 1 - f) can differ in the last bit.
+    A seeded search over the rays finds a sample, one of its corners c
+    and a bf16 feature-0 value v whose product w_c * v rounds to another
+    bf16 under the two forms (the flip of largest size).  Returns the
+    tile's kernel inputs with that v at (voxel, corner c, feature 0) and
+    every other pool value 0, so tau exposes the flip, and the ray."""
+    from test_torch_brick_field_batched import _samples
+    args, _, kw = _toy_inputs(T=1, Lp=1, n_blocks=1)
+    args = [np.array(a) for a in args]
+    args[1][0, 0:2], args[1][0, 3:5] = 0.0, 0.25
+    rng = np.random.RandomState(seed)
+    vs = torch.tensor(((1 + np.arange(128)[:, None] / 128)
+                       * 2.0 ** np.arange(4)).reshape(-1), dtype=torch.float32)
+    meta = torch.as_tensor(args[1])
+    for _ in range(tries):
+        args[2][:, 0:2] = rng.uniform(0.0, 0.03, (64, 2))
+        d = np.stack([rng.uniform(-0.01, 0.01, 64),
+                      rng.uniform(-0.01, 0.01, 64), np.ones(64)], -1)
+        args[2][:, 3:6] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        r = torch.as_tensor(args[2])[None]
+        n0, n1, hit = tbf.slab_window(r, meta, kw["dt"])
+        n_s = n0[..., None] + torch.arange(kw["S"], dtype=torch.float32)
+        ok = hit[..., None] & (n_s <= n1[..., None])
+        (_, ri, _), lid, frac, _ = _samples(
+            r, meta, n0, ok, kw["S"], torch.tensor(kw["dt"]), kw["Bk"])
+        prod = [tbf._bf(w(frac)[..., None] * vs)
+                for w in (tbf._lerp_w8, tbf.trilerp_w8)]   # (M, 8, |vs|)
+        gap = (prod[0] - prod[1]).abs()
+        if bool((gap > 0).any()):
+            m, c, k = np.unravel_index(int(gap.argmax()), gap.shape)
+            args[4] = np.zeros_like(args[4])
+            args[4][0, int(lid[m]), c * 16] = float(vs[k])
+            return args, kw, int(ri[m])
+    raise AssertionError("no flip found")
+
+
+def test_k1_k2_take_the_tpu_corner_weights():
+    """K1 and K2 take JAX's corner weights (1 - f) + bit * (2f - 1), as
+    `_kernel_tp` and `_kernel_wl` do: on inputs where a corner product
+    rounds to another bf16 under where(bit, f, 1 - f), each plain tau
+    equals its JAX entry's (interpret mode) to rtol 1e-6, and the where
+    form misses that ray's tau by far more."""
+    args, kw, ray = _first_voxel_flip()
+    nslots = np.ones(1, np.int32)
+    wl_args = [np.zeros(1, np.int32), np.zeros(1, np.int32),
+               np.ones(1, np.int32), np.ones(1, np.int32)]
+    t = _torch(args)
+    want_tp = _jax_tp(args, nslots, kw, 1)[:, 0]
+    want_wl = _jax_wl(args, wl_args, kw, 1)[:, 0]
+    got_tp = tbf.brick_field_tiles_tp(*t, nslots=torch.as_tensor(nslots),
+                                      P=1, **kw)[:, 0].numpy()
+    got_wl = tbf.brick_field_tiles_wl(*t, *_torch(wl_args), P=1,
+                                      **kw)[:, 0].numpy()
+    np.testing.assert_allclose(got_tp, want_tp, rtol=1e-6)
+    np.testing.assert_allclose(got_wl, want_wl, rtol=1e-6)
+    where = tbf._tiles_plain(
+        t[0], t[1], t[2], torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.as_tensor(nslots),
+        torch.zeros(64, 8), tbf._mlp_maker(t[3], t[4], t[5:8], lerp=False),
+        S=kw["S"], dt=kw["dt"], tau_max=kw["tau_max"], Lcall=1, Bk=kw["Bk"],
+        zero=True)[:, 0].numpy()
+    assert abs(where[ray] - want_tp[ray]) > 1e-5 * want_tp[ray]
+
+
 @pytest.mark.parametrize("Bk,sub", [(8, False), (8, True), (4, False)])
 def test_port_golden_matches_jax_golden(Bk, sub):
     """The port's copy of the numpy golden (the JAX-free reference the

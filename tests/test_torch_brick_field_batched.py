@@ -1,6 +1,6 @@
-"""The batched schedule of the dense kernels K3 and K4
+"""The batched schedule of the tile kernels K1-K4
 (csrc/brick_field_dense.cu), modelled in plain PyTorch and held bit for bit
-against the slot-serial plain version `_tiles_plain`.
+against the slot-serial plain versions `_tiles_plain` and `_wl_plain`.
 
 The kernels take a tile's list G slots at a time: each (ray, slot) pair's
 window and its sum of sigma*dt first (from the trilerped features alone),
@@ -9,15 +9,20 @@ the MLP, for the samples of live pairs only, composited per pair in window
 order and added to the state in list order.  That is the same sums in the
 same order as one slot at a time, because a brick's run, sum w*rgb and sum
 w*t start from zero and meet the carried state only through the gate and
-T_bef = exp(-tau).  The model below is test-only; the inputs are the
-seeded serving-width bricks of tools/brick_inputs.py (chip_smoke.py phase
-2's) at toy size, with denser sigma so the gate closes within the first
-few slots.  The kernels take G = 8; the model is held at G 1, 3 and 8."""
+T_bef = exp(-tau).  K3/K4 start each tile from zero, K1/K2 from its init
+row (and skip a tile with no slot or no live ray, which the gate leaves
+unchanged anyway); K2-K4 batch a tile's list from lbase, K1 each worklist
+step's rows apart (a batch never straddles two steps).  The model below is
+test-only; the inputs are the seeded serving-width bricks of
+tools/brick_inputs.py (chip_smoke.py phase 2's) at toy size, with denser
+sigma so the gate closes within the first few slots.  The kernels take
+G = 8; the model is held at G 1, 3 and 8."""
 import pytest
 import torch
 
 from google_nerf_tpu_torch.ops.cuda import brick_field as tbf
-from test_torch_cuda import _dense_brick_inputs
+from test_torch_cuda import (_carry_inputs, _dense_brick_inputs,
+                             _split_worklist)
 
 TPX, FEAT = tbf.TPX, tbf.FEAT
 
@@ -53,31 +58,60 @@ def _sd(h0, dt_t):
     return torch.clamp_max(torch.exp(torch.clamp_max(h0, 30.0)) * dt_t, 80.0)
 
 
-def batched_model(args, nslots, *, S, dt, tau_max, Lcall, Bk, G, lanes):
-    """K3 (lanes False) or K4 (lanes True, transposed pool) on every tile
-    from zero, G list slots at a time.  Returns (out, mlp samples, pairs
-    whose gate closed after the first slot of their batch)."""
+def tile_batches(tid, lbase, nslots, Lcall, G):
+    """K2-K4's schedule: tile b takes rows lbase[b] + l, l < min(nslots[b],
+    Lcall), G at a time -> (B, batches, G) list rows, -1 for none."""
+    n = torch.clamp(nslots.long(), max=Lcall)
+    l = torch.arange(-(-Lcall // G) * G)
+    rows = torch.where(l[None] < n[:, None], lbase.long()[:, None] + l, -1)
+    return rows.view(len(tid), -1, G)
+
+
+def worklist_batches(wt, wl, wn, wf, P, G):
+    """K1's schedule: each wf == 1 step starts a tile, whose run of steps
+    (same wt, wf == 0) gives rows wl[j] + k, k < min(wn[j], P), each step
+    in batches of G of its own -> (tiles, (B, batches, G) list rows)."""
+    tiles, runs = [], []
+    for j0 in range(len(wt)):
+        if int(wf[j0]) != 1:
+            continue
+        j, run = j0, []
+        while j < len(wt) and (j == j0 or (wt[j] == wt[j0] and wf[j] != 1)):
+            rows = [int(wl[j]) + k for k in range(min(int(wn[j]), P))]
+            run += [rows[i:i + G] + [-1] * (G - len(rows[i:i + G]))
+                    for i in range(0, len(rows), G)]
+            j += 1
+        tiles.append(int(wt[j0]))
+        runs.append(run)
+    nb = max(len(r) for r in runs)
+    return (torch.tensor(tiles),
+            torch.tensor([r + [[-1] * G] * (nb - len(r)) for r in runs]))
+
+
+def batched_model(args, tiles, batches, st, *, S, dt, tau_max, Bk, lanes,
+                  lerp):
+    """The batched body on `tiles` from the state st (B, 64, 8), updated
+    in place, taking each tile's list rows batch by batch (batches (B,
+    n, G), -1 for no row).  Returns (mlp samples, pairs whose gate closed
+    after the first slot of their batch)."""
     pool_blk, meta, rays, sh, pool3, w1, w2, w3 = args
     T = rays.shape[0] // TPX
-    Lp = meta.shape[0] // T
-    tid = torch.arange(T)
-    r = rays.view(T, TPX, 8)
-    st = torch.zeros(T, TPX, 8)
+    r = rays.view(T, TPX, 8)[tiles]
     dt_t = torch.tensor(dt, dtype=torch.float32)
-    h_of = _trilerp(pool3, lanes, lanes)
+    h_of = _trilerp(pool3, lanes, lerp)
     field = tbf._mlp_maker(sh, pool3, (w1, w2, w3), lanes=lanes,
-                           lerp=lanes)(tid)
+                           lerp=lerp)(tiles)
     n_mlp = closed_mid_batch = 0
-    for base in range(0, Lcall, G):
+    for batch in batches.unbind(1):
         # 1. every pair's window and sum of sigma*dt, for rays alive at the
         #    batch start
         alive0 = st[..., 0] < tau_max
         slots = []
-        for l in range(base, min(base + G, Lcall)):
-            rows = tid * Lp + l
+        for row in batch.unbind(1):
+            rows = row.clamp(0, meta.shape[0] - 1)
             m, pb = meta[rows], pool_blk[rows].long()
             n0, n1, hit = tbf.slab_window(r, m, dt)
-            hit = hit & (l < nslots)[:, None]
+            hit = hit & (row >= 0)[:, None]
             n_s = n0[..., None] + torch.arange(S, dtype=torch.float32)
             ok = (hit & alive0)[..., None] & (n_s <= n1[..., None])
             idx, lid, frac, ts = _samples(r, m, n0, ok, S, dt_t, Bk)
@@ -120,7 +154,16 @@ def batched_model(args, nslots, *, S, dt, tau_max, Lcall, Bk, G, lanes):
                 run = run + sd_d[..., s]
             st[..., 1:4] += sl["T_bef"][..., None] * rgbw
             st[..., 4] += sl["T_bef"] * depw
-    return st.view(T * TPX, 8), n_mlp, closed_mid_batch
+    return n_mlp, closed_mid_batch
+
+
+def _run_model(args, tiles, batches, out, kw, *, lanes, lerp):
+    """The model on `tiles` from their rows of out (in place)."""
+    st = out.view(-1, TPX, 8)[tiles].clone()
+    counts = batched_model(args, tiles, batches, st, lanes=lanes, lerp=lerp,
+                           **kw)
+    out.view(-1, TPX, 8)[tiles] = st
+    return counts
 
 
 CASES = ([(layout, G, Lcall, None) for layout in ("n", "t")
@@ -130,19 +173,20 @@ CASES = ([(layout, G, Lcall, None) for layout in ("n", "t")
 
 @pytest.mark.parametrize("layout,G,Lcall,S", CASES)
 def test_batched_schedule_matches_plain_bitwise(layout, G, Lcall, S):
-    """tau, rgb, depth and n_pairs bit for bit; some rays saturate and the
-    gate closes inside a batch (G > 1).  S=65: windows longer than one
-    field pass."""
-    args, nslots, _, kw = _dense_brick_inputs(S)
+    """K3/K4 from zero: tau, rgb, depth and n_pairs bit for bit; some rays
+    saturate and the gate closes inside a batch (G > 1).  S=65: windows
+    longer than one field pass."""
+    args, nslots, Lp, kw = _dense_brick_inputs(S)
     lanes = layout == "t"
     if lanes:
         args[4] = args[4].transpose(1, 2).contiguous()
     plain = (tbf.brick_field_tiles_t_plain if lanes
              else tbf.brick_field_tiles_plain)
     want = plain(*args, nslots=nslots, Lcall=Lcall, **kw)
-    got, n_mlp, closed = batched_model(args, nslots, Lcall=Lcall, G=G,
-                                       lanes=lanes, S=kw["S"], dt=kw["dt"],
-                                       tau_max=kw["tau_max"], Bk=kw["Bk"])
+    tid = torch.arange(len(nslots))
+    got = torch.zeros_like(want)
+    n_mlp, closed = _run_model(args, tid, tile_batches(
+        tid, tid * Lp, nslots, Lcall, G), got, kw, lanes=lanes, lerp=lanes)
     assert torch.equal(got, want)
     assert float(want[:, 5].sum()) > 0
     saturated = want[:, 0] >= kw["tau_max"]
@@ -150,3 +194,54 @@ def test_batched_schedule_matches_plain_bitwise(layout, G, Lcall, S):
     if G > 1:
         assert closed > 0
     assert n_mlp > 0
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("P,Lcall", [(8, 16), (16, 32), (4, 12)])
+def test_batched_carry_matches_plain_bitwise(G, P, Lcall):
+    """K2 from its init carry, bit for bit against its plain version:
+    listed tiles 0, 1, 2, 4, 5 (tile 3 unlisted), tile 2 with no slot,
+    tile 5 saturated on entry; K2's P and an Lcall that G need not
+    divide.  Unlisted and skipped tiles keep init's rows, columns 6-7
+    keep init's values everywhere."""
+    args, nslots, Lp, kw, init = _carry_inputs()
+    tid = torch.tensor([0, 1, 2, 4, 5])
+    ns = nslots[tid].clone()
+    ns[2] = 0
+    call = dict(tid=tid, lbase=tid * Lp, nslots=ns, Lcall=Lcall, **kw)
+    want = tbf.brick_field_tiles_tp_plain(*args, P=P, init=init, **call)
+    got = init.clone()
+    n_mlp, closed = _run_model(args, tid, tile_batches(
+        tid, tid * Lp, ns, Lcall, G), got, kw, lanes=False, lerp=True)
+    assert torch.equal(got, want)
+    assert torch.equal(want[2 * TPX:4 * TPX], init[2 * TPX:4 * TPX])
+    assert torch.equal(want[5 * TPX:], init[5 * TPX:])
+    assert torch.equal(want[:, 6:8], init[:, 6:8])
+    assert bool((want[:, 5] > init[:, 5]).any()) and n_mlp > 0
+    if G > 1:
+        assert closed > 0
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("P", [8, 16])
+def test_batched_worklist_matches_plain_bitwise(G, P):
+    """K1 from its init carry, bit for bit against its plain version, each
+    step batched apart: a tile split over two steps with fewer than P rows
+    on the first, a tile with no step, pad steps, a tile saturated on
+    entry."""
+    args, nslots, Lp, kw, init = _carry_inputs()
+    wl_args = _split_worklist(nslots, Lp, P)
+    want = tbf.brick_field_tiles_wl_plain(*args, *wl_args, P=P, init=init,
+                                          **kw)
+    got = init.clone()
+    tiles, batches = worklist_batches(*wl_args, P, G)
+    assert tiles.tolist() == [0, 1, 4, 5]
+    n_mlp, closed = _run_model(args, tiles, batches, got, kw, lanes=False,
+                               lerp=True)
+    assert torch.equal(got, want)
+    assert torch.equal(want[2 * TPX:4 * TPX], init[2 * TPX:4 * TPX])
+    assert torch.equal(want[5 * TPX:], init[5 * TPX:])
+    assert bool((want[TPX:2 * TPX, 5] > init[TPX:2 * TPX, 5]).any())
+    assert n_mlp > 0
+    if G > 1:
+        assert closed > 0

@@ -143,6 +143,42 @@ def _worklist(T, Lp, nslots, P):
     return [np.asarray(x, np.int32) for x in (wt, wl, wn, wf)]
 
 
+def _carry_inputs(device="cpu"):
+    """Six dense tiles (_dense_brick_inputs) and a seeded init carry: tau
+    partly spent on most rays, at or past tau_max on some (on all of tile
+    5's, whose block returns at once), and just below it on others, whose
+    gate the first live slot of a batch closes: (args, nslots, Lp,
+    keywords, init)."""
+    args, nslots, Lp, kw = _dense_brick_inputs(n_tiles=6, device=device)
+    g = torch.Generator().manual_seed(11)
+    tau_max, n = kw["tau_max"], 6 * 64
+    init = torch.zeros(n, 8)
+    init[:, 0] = torch.rand(n, generator=g) * 0.5 * tau_max
+    init[:, 1:5] = torch.rand(n, 4, generator=g) * 0.3
+    init[:, 5] = torch.randint(0, 4, (n,), generator=g).float()
+    init[:, 6:8] = torch.rand(n, 2, generator=g)
+    init[::5, 0] = tau_max + 0.5
+    init[2::5, 0] = tau_max - 0.05
+    init[5 * 64:, 0] = tau_max
+    return args, nslots, Lp, kw, init.to(device)
+
+
+def _split_worklist(nslots, Lp, P, device="cpu"):
+    """Tile-major worklist over tiles 0, 1, 4 and 5 of _carry_inputs in
+    P-aligned steps: tile 1 takes two steps, the first listing fewer than
+    P rows, so its rows are not contiguous; tiles 2 and 3 have no step;
+    two pad steps repeat the last tile."""
+    steps = [(1, Lp, P // 2 - 1, 1), (1, Lp + P, 5, 0)]   # (wt, wl, wn, wf)
+    for t in (0, 4, 5):
+        n = int(nslots[t])
+        steps += [(t, t * Lp + g * P, min(P, n - g * P), int(g == 0))
+                  for g in range(-(-n // P))]
+    steps.sort(key=lambda s: s[0])                        # tile-major
+    steps += [steps[-1][:2] + (0, 0)] * 2
+    return [torch.tensor(x, dtype=torch.int32, device=device)
+            for x in zip(*steps)]
+
+
 # ------------------------------------------------------------ card only
 
 def _card():
@@ -259,6 +295,42 @@ def test_cuda_dense_batches_match_plain(layout, Lcall, S):
     tau = got[got[:, 5] > 0, 0]               # rays with a live hit
     assert bool((tau >= kw["tau_max"]).any())
     assert not bool((tau >= kw["tau_max"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,P,Lcall", [
+    ("tp", 8, 16), ("tp", 16, 32), ("tp", 4, 12), ("wl", 8, 0),
+    ("wl", 16, 0)])
+def test_cuda_carry_matches_plain(kernel, P, Lcall):
+    """K2 and K1 from a carry on dense bricks (tests/test_torch_brick_field
+    _batched.py holds their batched order to the plain versions bit for
+    bit on these inputs): rays saturated on entry, a gate that a batch's
+    first slot closes, a tile with no slot (K2) or no step (K1), an
+    unlisted tile, a saturated tile whose block returns at once, K1's
+    split steps and pad steps, K2 at an Lcall that 8 does not divide.
+    Kernel against plain within 1e-4, n_pairs exact; the rows of tiles 2,
+    3 and 5 and columns 6-7 keep init bit for bit."""
+    dev = _card()
+    args, nslots, Lp, kw, init = _carry_inputs(dev)
+    if kernel == "tp":
+        fn, plain = tbf.brick_field_tiles_tp, tbf.brick_field_tiles_tp_plain
+        tid = torch.tensor([0, 1, 2, 4, 5], device=dev)
+        ns = nslots[tid].clone()
+        ns[2] = 0
+        a, call = args, dict(tid=tid, lbase=tid * Lp, nslots=ns, Lcall=Lcall)
+    else:
+        fn, plain = tbf.brick_field_tiles_wl, tbf.brick_field_tiles_wl_plain
+        a, call = args + _split_worklist(nslots, Lp, P, dev), {}
+    before = fn.launches
+    got = fn(*a, P=P, init=init, **call, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*a, P=P, init=init, **call, **kw)
+    _assert_same(got.cpu().numpy(), want.cpu().numpy())
+    assert torch.equal(got[2 * 64:4 * 64], init[2 * 64:4 * 64])
+    assert torch.equal(got[5 * 64:], init[5 * 64:])
+    assert torch.equal(got[:, 6:8], init[:, 6:8])
+    assert bool((got[:, 5] > init[:, 5]).any())
 
 
 @pytest.mark.cuda
