@@ -12,8 +12,8 @@ Phases:
      of those tiles.  The carry kernels (K1, K2, K5) start from an init
      with tau partly spent on some rays and at or past tau_max on others
      (on every ray of some tiles), and some tiles list no slot: the rows
-     of those tiles must keep init bit for bit (K1 and K2 return early
-     there);
+     of those tiles must keep init bit for bit (K1, K2 and K5 return
+     early there);
   3. the worklist request `wl256`: one 800x800 frame at full width,
      packed NGP with random weights from --seed, a 256^3 bf16 bake of the
      textured scene's occupancy, the bench.py worklist settings (K1 and
@@ -32,7 +32,7 @@ Phases:
      plain version on the same inputs; the whole frame against the frame
      rendered through the plain version; its warm frame time; its
      kernel's device time, wrapper time, plain time and bound.  n512 is
-     also held against t512.  K1-K4 (csrc/brick_field_dense.cu) also
+     also held against t512.  K1-K5 (csrc/brick_field_dense.cu) also
      report their live samples and slots per call, the bound by bytes and
      by operations apart, and the pool bytes their design requests per
      call by a model (dense_pool_model; not a measurement).
@@ -45,7 +45,8 @@ Phases:
      (torch.profiler), wrapper time (CUDA events), plain time, the time
      of each one-call PyTorch version of the same function
      (`index_select` and `tab[idx]`, `index_add_`; P1-P4; the faster is
-     `library_ms`) and its bound.
+     `library_ms`) and its bound; P5 also each rung's device time and
+     bound.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -107,7 +108,9 @@ RGBA512 = {k: v for k, v in TP512.items() if k not in ("kernel", "pbatch")}
 KERNELS = ("brick_field_tiles_wl", "brick_field_tiles_tp",
            "brick_field_tiles", "brick_field_tiles_t",
            "brick_field_tiles_rgba")
-DENSE = KERNELS[:4]          # K1-K4, csrc/brick_field_dense.cu
+# pool lane rows of the lane-major layouts: K4's transposed pool and
+# K5's pre-shaded slabs (K1-K3 read the row pool)
+LANE_ROWS = {"brick_field_tiles_t": 128, "brick_field_tiles_rgba": 32}
 OFF_LINE = ("rungs", "modelled_pool_bytes_per_call")   # --out's JSON only
 
 
@@ -338,7 +341,7 @@ def check_frame(frame, what, n_pixels):
 
 
 def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
-              lanes=None):
+              lane_rows=0):
     """Bytes and operations one kernel call needs on its inputs.
 
     rows/tiles: the list rows the call walks, in order, and their tiles;
@@ -348,10 +351,11 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
     evaluate follow from geometry and the output's pair count.  Of the
     pool the function needs each distinct voxel those samples touch, in
     any brick, once: its 8 corners x 16 features (256 bytes; K5 8 x 4, 64
-    bytes).  rgba: K5 (no sh, no MLP, 32-lane slabs).  lanes: K1-K3
-    (False) or K4 (True), whose design's pool reads are also modelled
+    bytes).  rgba: K5 (no sh, no MLP, 32-lane slabs).  lane_rows: the
+    lane rows of the pool's lane-major layout (K4 128, K5 32; K1-K3's row
+    pool 0), for the model of the pool reads the design requests
     (dense_pool_model).  That model starts a batch of 8 list slots at
-    every 8th of a tile's rows in the call (pos // 8 below).  K2-K4 batch
+    every 8th of a tile's rows in the call (pos // 8 below).  K2-K5 batch
     a tile's list from lbase, so it holds for them; K1 batches each
     worklist step apart, so it holds while every step but a tile's last
     lists P rows with P a multiple of 8, as the worklist frame's steps
@@ -397,18 +401,17 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_bytes_ms=1e3 * t_bytes, bound_ops_ms=1e3 * t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-    if lanes is not None:
-        # rays alive at the start of their batch of 8 list slots: those
-        # whose hits before it are fewer than their live hits, or whose
-        # tau never reached tau_max
-        pos = torch.arange(len(tiles), device=tiles.device) - start
-        bstart = start + pos // 8 * 8
-        spent = ((cum - hit.int())[bstart] - base) >= added
-        ended = out.view(-1, 64, 8)[tiles][..., 0] >= kw["tau_max"]
-        sigma_pairs = hit & ~(spent & ended)
-        work["modelled_pool_bytes"] = dense_pool_model(
-            sample_voxels(rays, meta, rows, tiles, sigma_pairs, n0, n1, kw),
-            (ei, lid), vox, lanes)
+    # rays alive at the start of their batch of 8 list slots: those whose
+    # hits before it are fewer than their live hits, or whose tau never
+    # reached tau_max
+    pos = torch.arange(len(tiles), device=tiles.device) - start
+    bstart = start + pos // 8 * 8
+    spent = ((cum - hit.int())[bstart] - base) >= added
+    ended = out.view(-1, 64, 8)[tiles][..., 0] >= kw["tau_max"]
+    sigma_pairs = hit & ~(spent & ended)
+    work["modelled_pool_bytes"] = dense_pool_model(
+        sample_voxels(rays, meta, rows, tiles, sigma_pairs, n0, n1, kw),
+        (ei, lid), vox, lane_rows)
     return work
 
 
@@ -431,23 +434,24 @@ def sample_voxels(rays, meta, rows, tiles, pairs, n0, n1, kw):
     return ei, ((v0[:, 0] * Bk + v0[:, 1]) * Bk + v0[:, 2]).long()
 
 
-def dense_pool_model(sigma, shade, vox, lanes):
-    """Pool bytes the K1-K4 design requests in one call, by a model, not
+def dense_pool_model(sigma, shade, vox, lane_rows):
+    """Pool bytes the K1-K5 design requests in one call, by a model, not
     a measurement: each 32-byte sector counted once per (tile, slot) that
     reads it.  sigma: (entry, voxel) of the sigma pass's samples, every
     window sample of a hit pair whose ray is alive at its batch's start,
     which reads feature 0 of the 8 corners; shade: those of the live
     pairs' samples, which read the whole voxel.  K1-K3's 256-byte voxel row
     holds corner c's features in sector c, so both passes touch all 8
-    sectors of a row (and shade's samples are among sigma's); K4 reads a
-    voxel's value from each of the 128 lane rows of the transposed slab,
-    16 voxels a sector: 8 lane rows in the sigma pass, the other 120 in
-    shading."""
+    sectors of a row (and shade's samples are among sigma's); K4 and K5
+    read a voxel's value from each lane row of the lane-major slab
+    (lane_rows: K4 128, K5 32), 16 voxels a sector: 8 lane rows in the
+    sigma pass, the others in shading."""
     (es, ls), (eh, lh) = sigma, shade
-    if not lanes:
+    if not lane_rows:
         return torch.unique(es * vox + ls).numel() * 256
     return (torch.unique(es * vox + ls // 16).numel() * 8 * 32
-            + torch.unique(eh * vox + lh // 16).numel() * 120 * 32)
+            + torch.unique(eh * vox + lh // 16).numel()
+            * (lane_rows - 8) * 32)
 
 
 def wl_rows(args, kw):
@@ -591,7 +595,6 @@ def measure(bf, name, calls, request, launches, reps):
     version (1e-4), its device time, wrapper time, plain time (one run of
     every call) and bound.  Returns the kernels-line entry."""
     kname, src, rows_of = SPECS[name]
-    dense = name in DENSE
     fn, plain_fn = getattr(bf, name), getattr(bf, name + "_plain")
     errs, works = [], []
     for a, k in calls:
@@ -600,8 +603,7 @@ def measure(bf, name, calls, request, launches, reps):
                                   f"{name} vs plain on a {request} call"))
         works.append(call_work(bf, a, k, got, *rows_of(a, k),
                                rgba=name == "brick_field_tiles_rgba",
-                               lanes=(name == "brick_field_tiles_t"
-                                      if dense else None)))
+                               lane_rows=LANE_ROWS.get(name, 0)))
     ms, seen = kernel_device_ms(fn, calls, reps, kname)
     call_ms = time_calls(fn, calls, reps=reps)
     ms_by = (f"profiler device time per launch ({seen} launches seen of "
@@ -612,7 +614,7 @@ def measure(bf, name, calls, request, launches, reps):
     mean = lambda key: sum(w[key] for w in works) / len(works)  # noqa: E731
     entry = dict(
         name=name, route="cuda",
-        source=f"{CSRC}/brick_field{'_dense' if dense else ''}.cu",
+        source=f"{CSRC}/brick_field_dense.cu",
         replaces=src,
         launches=launches, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
         bound_ms=mean("bound_ms"),
@@ -628,15 +630,14 @@ def measure(bf, name, calls, request, launches, reps):
           f"{entry['bound_ms']:.5f} ms by {entry['bound_by']}, per call "
           f"over {len(calls)} calls; {launches} launches; max abs err "
           f"{max(errs):.2e}", flush=True)
-    if dense:
-        entry["modelled_pool_bytes_per_call"] = mean("modelled_pool_bytes")
-        print(f"{request}: {name}: {entry['samples_per_call']:.0f} samples "
-              f"and {entry['live_slots_per_call']:.1f} live slots per call; "
-              f"bound by bytes {entry['bound_bytes_ms']:.5f} ms "
-              f"({mean('bytes'):.0f} bytes, {entry['distinct_voxels_per_call']:.0f} "
-              f"distinct voxels), by operations {entry['bound_ops_ms']:.5f} "
-              f"ms; pool bytes the design requests, modelled: "
-              f"{entry['modelled_pool_bytes_per_call']:.0f}", flush=True)
+    entry["modelled_pool_bytes_per_call"] = mean("modelled_pool_bytes")
+    print(f"{request}: {name}: {entry['samples_per_call']:.0f} samples "
+          f"and {entry['live_slots_per_call']:.1f} live slots per call; "
+          f"bound by bytes {entry['bound_bytes_ms']:.5f} ms "
+          f"({mean('bytes'):.0f} bytes, {entry['distinct_voxels_per_call']:.0f} "
+          f"distinct voxels), by operations {entry['bound_ops_ms']:.5f} "
+          f"ms; pool bytes the design requests, modelled: "
+          f"{entry['modelled_pool_bytes_per_call']:.0f}", flush=True)
     return entry
 
 
@@ -763,6 +764,9 @@ def phase8(seed, reps=50):
         r["ms"] = seen[f"k{r['k']}_kernel("][0]
         if r["ms"] is None:
             r["ms"] = r["wrapper_ms"]
+        print(f"phase 8: P5 {r['name']}: kernel {r['ms']:.5f} ms, wrapper "
+              f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}", flush=True)
     total = lambda key: sum(r[key] for r in rungs)  # noqa: E731
     entries.append(dict(
         name="ladder", id="P5", route="cuda", source=f"{CSRC}/ladder.cu",
@@ -817,7 +821,7 @@ def main():
     print(card, flush=True)            # name, power limit as nvidia-smi says
 
     t0 = time.time()
-    libs = _build.build("brick_field", "brick_field_dense", "probe",
+    libs = _build.build("brick_field_dense", "probe",
                         "ladder")                      # nvcc in parallel
     build_s = time.time() - t0
     for lib in libs:
@@ -989,7 +993,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    # P5's rungs and the modelled pool bytes of K1-K4 are in --out's JSON
+    # P5's rungs and the modelled pool bytes of K1-K5 are in --out's JSON
     # only
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k not in OFF_LINE} for e in kernels]}))

@@ -1,56 +1,64 @@
-// The brick-field tile kernels K1-K4 of the tile-raster serving renderer,
+// The brick-field tile kernels K1-K5 of the tile-raster serving renderer,
 // for Hopper (sm_90a), on one batched body.  Built with nvcc into a shared
 // library with a plain C interface and loaded through ctypes by
 // google_nerf_tpu_torch/ops/cuda/brick_field.py, which also holds the plain
-// PyTorch versions these kernels are tested against.  K5 (pre-shaded
-// slabs, no MLP) is in brick_field.cu.
+// PyTorch versions these kernels are tested against.
 //
 // What they replace (google_nerf_tpu/ops/pallas/brick_field.py)
-//   brick_field_wl <- brick_field_tiles_wl / _kernel_wl (K1: a tile-major
-//                     worklist of (tile, P-slot group) steps, init carry)
-//   brick_field_tp <- brick_field_tiles_tp / _kernel_tp (K2: tile grid with
-//                     list addressing, init carry)
-//   brick_field_n  <- brick_field_tiles / _kernel (K3: tile grid, each
-//                     listed tile from zero)
-//   brick_field_t  <- brick_field_tiles_t / _kernel_t (K4: K3 on the
-//                     transposed pool (n_blocks, 128, Bk^3))
-// K1-K3 read the row-layout pool (n_blocks, Bk^3, 128).  All four compute
-// brick_field_tiles_reference: for each 8x8 ray tile and each brick of its
-// front-to-back list, slab-test the tile's 64 rays against the brick AABB,
-// lay the lattice window of at most S samples, trilerp the brick-local
-// Bk^3 lattice, sigma*dt = min(exp(min(h0, 30))*dt, 80), rgb = sigmoid(MLP
-// 32->64->64->3 of [sh16, h16]), and composite front to back with tau
-// carried across bricks under the live gate tau < tau_max.  Output per
-// ray: [tau, r, g, b, depth*w, n_pairs, c6, c7], where c6, c7 are K1/K2's
-// init values and 0 for K3/K4.
+//   brick_field_wl   <- brick_field_tiles_wl / _kernel_wl (K1: a tile-major
+//                       worklist of (tile, P-slot group) steps, init carry)
+//   brick_field_tp   <- brick_field_tiles_tp / _kernel_tp (K2: tile grid
+//                       with list addressing, init carry)
+//   brick_field_n    <- brick_field_tiles / _kernel (K3: tile grid, each
+//                       listed tile from zero)
+//   brick_field_t    <- brick_field_tiles_t / _kernel_t (K4: K3 on the
+//                       transposed pool (n_blocks, 128, Bk^3))
+//   brick_field_rgba <- brick_field_tiles_rgba / _kernel_rgba (K5: K2's
+//                       list addressing and carry on the pre-shaded pool
+//                       (n_blocks, 32, Bk^3), no MLP)
+// Three pool layouts: ROWS, the row pool (n_blocks, Bk^3, 128) of K1-K3;
+// LANES, K4's transposed pool; RGBA, K5's pre-shaded slabs, lane = corner
+// * 4 + channel with channels [log sigma, r, g, b], so a voxel's 32 values
+// sit Bk^3 elements apart.  K1-K4 compute brick_field_tiles_reference: for
+// each 8x8 ray tile and each brick of its front-to-back list, slab-test
+// the tile's 64 rays against the brick AABB, lay the lattice window of at
+// most S samples, trilerp the brick-local Bk^3 lattice, sigma*dt =
+// min(exp(min(h0, 30))*dt, 80), rgb = sigmoid(MLP 32->64->64->3 of [sh16,
+// h16]), and composite front to back with tau carried across bricks under
+// the live gate tau < tau_max.  K5 computes brick_field_rgba_reference,
+// the same walk with rgb the trilerped channels 1-3 clipped to [0, 1].
+// Output per ray: [tau, r, g, b, depth*w, n_pairs, c6, c7], where c6, c7
+// are K1/K2/K5's init values and 0 for K3/K4.
 //
 // Rounding follows the TPU kernels: slab values are bf16; each corner's
 // w_c * v_c is rounded to bf16 before the f32 corner sum; sh, h and the two
 // hidden activations are rounded to bf16 and every product accumulates in
 // f32 (here inside mma.sync, whose order of summation differs from a plain
 // f32 dot product, so a hidden activation can round to the neighbouring
-// bf16 value).  Corner weights take each TPU kernel's form, chosen by a
+// bf16 value).  K5 has no MLP, so it computes its plain version's sums in
+// the same order.  Corner weights take each TPU kernel's form, chosen by a
 // template flag apart from the pool layout: K3's where(bit, f, 1-f); K1,
-// K2 and K4's (1-f) + bit*(2f-1).  The two differ in the last bit when f <
-// 1/2 has bits below 2^-24, i.e. in a brick's first voxel along an axis (u
-// < 1), which moves a bf16 corner product now and then.  The library is
+// K2, K4 and K5's (1-f) + bit*(2f-1).  The two differ in the last bit when
+// f < 1/2 has bits below 2^-24, i.e. in a brick's first voxel along an axis
+// (u < 1), which moves a bf16 corner product now and then.  The library is
 // built without fast math and with --fmad=false, so the slab test's window
 // bounds and sigma round exactly as in PyTorch and n_pairs and tau match
 // exactly.
 //
 // What bounds them on the H100
 //   Bytes: each distinct voxel that a live sample touches read once (its
-//   8 corners x 16 features, 256 B), plus the list rows and the rays, sh,
-//   init and output of the call's tiles.  Operations: per live sample 8x16
-//   trilerp MACs and 16x64 + 64x64 + 64x3 MLP MACs (~11 kFLOP), a few
-//   microseconds of the bf16 tensor cores for a call of the 800^2 frame.
+//   8 corners x 16 features, 256 B; K5's 8 corners x 4 channels, 64 B),
+//   plus the list rows and the rays, sh, init and output of the call's
+//   tiles.  Operations: per live sample 8x16 trilerp MACs and 16x64 +
+//   64x64 + 64x3 MLP MACs (~11 kFLOP), a few microseconds of the bf16
+//   tensor cores for a call of the 800^2 frame; K5's 8x4 trilerp MACs.
 //   Bytes bind (PERF.md has both bounds per call), and the earlier
 //   slot-serial design sat far above them, bound instead by latency: one
 //   block walked its tile's list one slot at a time with several barriers
 //   and a serial prefix sum per slot, a dead slot cost a barrier, each
 //   sample's MLP was a chain of ~5.4k dependent fmaf, every block staged
-//   the weights first (a dead tile's too), and K4 re-staged a 128 KiB slab
-//   per live (tile, slot) at one block per SM.
+//   the weights first (a dead tile's too), and K4 and K5 re-staged a
+//   whole slab (128 KiB, 32 KiB) per live (tile, slot).
 //
 // What this design does about it
 //   * Batched slots: a block of 64*G threads owns one tile and takes its
@@ -60,21 +68,21 @@
 //     sum w*rgb and sum w*t start at 0 per brick) and meets the carried
 //     state only through the gate tau < tau_max at the brick's start and
 //     T_bef = exp(-tau).  So each thread first sums sigma*dt over its pair's
-//     window from feature 0 alone (only for rays still alive at the batch
-//     start), then 64 threads resolve the gate slot by slot in list order,
-//     and only then are the other 15 features and the MLP evaluated, for
-//     the samples of live pairs only.  The sums are the same sums in the
-//     same order as the slot-serial walk.
-//   * The carry (K1, K2): the state starts from the tile's `out` rows,
+//     window from feature (channel) 0 alone (only for rays still alive at
+//     the batch start), then 64 threads resolve the gate slot by slot in
+//     list order, and only then are the other features and the MLP
+//     evaluated, for the samples of live pairs only.  The sums are the same
+//     sums in the same order as the slot-serial walk.
+//   * The carry (K1, K2, K5): the state starts from the tile's `out` rows,
 //     which hold init (the wrapper copies it there), instead of zero.  It
 //     enters each batch only through the gate and T_bef, as any earlier
 //     slot's state does, so the batched order stays exact; columns 6-7
 //     keep init's values.
-//   * Early return (K1, K2): a block reads its tile and slot count, then
-//     its 64 carried tau, and returns before it stages anything if it has
-//     no slot or no ray with tau < tau_max.  It writes nothing, so its rows
-//     keep init; the gate would have added nothing.  Dead-tile elision in
-//     a segmented frame (nslots = 0) and the drain's tiles that need no
+//   * Early return (K1, K2, K5): a block reads its tile and slot count,
+//     then its 64 carried tau, and returns before it stages anything if it
+//     has no slot or no ray with tau < tau_max.  It writes nothing, so its
+//     rows keep init; the gate would have added nothing.  Dead-tile elision
+//     in a segmented frame (nslots = 0) and the drain's tiles that need no
 //     drain launch such blocks.
 //   * K1's worklist: one block per step; a block not at a tile's first
 //     step (wf != 1) returns at once.  A wf == 1 block scans its run of
@@ -97,22 +105,30 @@
 //     registers as the next layer's A fragments.  Layer 1's sh half is
 //     computed once per ray of the tile in f32.  The weights sit once per
 //     block in shared memory as bf16 B fragments (11 KiB).
-//   * K4 stages no slab: each sample reads its voxel's values straight from
-//     the transposed pool (through L1/L2), so a call reads only the voxels
-//     of its samples: feature 0 of every window sample of a ray alive at
-//     the batch start, the rest for live pairs' samples only.  K1-K3 read a
-//     sample's 256-byte row with 16-byte loads.
+//   * K5 shades without an MLP: one thread a live sample trilerps its
+//     voxel's 4 channels (channel 0 again for the sample's sigma*dt, the
+//     same bits as the sigma pass) and clips rgb.  It stages no weights
+//     and no sh, and its blocks take only the shared memory in front of
+//     the MLP's (~40 KiB).
+//   * K4 and K5 stage no slab: each sample reads its voxel's values
+//     straight from the lane-major pool (through L1/L2), so a call reads
+//     only the voxels of its samples: channel 0 of every window sample of
+//     a ray alive at the batch start, the rest for live pairs' samples
+//     only.  A value costs a 2-byte load there (8 a sample in the sigma
+//     pass; K4 128 and K5 32 a live sample); K1-K3 read a sample's
+//     256-byte row with 16-byte loads.
 //   * G = 8 slots a batch (chosen on the card over 2 and 4: larger batches
-//     halve the serial steps of a tile's walk).  Shared memory is ~76 KiB a
-//     block, so two 512-thread blocks fit an SM; K1-K3's registers are
-//     capped so that two do.  The grid is one block per listed tile (K1:
-//     per worklist step).
+//     halve the serial steps of a tile's walk).  K1-K4's shared memory is
+//     ~76 KiB a block, so two 512-thread blocks fit an SM; K1-K3's and
+//     K5's registers are capped so that two do.  The grid is one block per
+//     listed tile (K1: per worklist step).
 //   * K3/K4 write each listed tile's `out` rows (the TPU kernels zero their
-//     block at l == 0); K1/K2 update them in place; every other tile keeps
-//     its rows.
+//     block at l == 0); K1/K2/K5 update them in place; every other tile
+//     keeps its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -120,6 +136,7 @@ namespace {
 constexpr int TPX = 64;       // rays per tile (8x8)
 constexpr int ROWW = 128;     // pool row: 8 corners x 16 features
 constexpr int FEAT = 16;
+constexpr int RCH = 4;        // K5's channels a corner: [log sigma, rgb]
 constexpr int HID = 64;       // rgb MLP width
 constexpr int A1_STRIDE = HID + 1;   // padded: rows of different rays
                                      // land in different banks
@@ -131,22 +148,23 @@ constexpr int SIGMA_ILP = 4;  // window samples whose loads a thread
                               // issues together in the sigma pass
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Layout { ROWS = 0, LANES = 1 };
+enum Layout { ROWS = 0, LANES = 1, RGBA = 2 };
 
 struct Args {
   const int32_t* pool_blk;     // (n_rows,) pool block per list row
   const float* meta;           // (n_rows, 8) [lo xyz, hi xyz, pad, pad]
   int64_t n_rows;
   const float* rays;           // (T*64, 8) [o xyz, unit d xyz, t1, t2]
-  const float* sh;             // (T*64, 16)
+  const float* sh;             // (T*64, 16); K5 none
   const __nv_bfloat16* pool;   // ROWS (n_blocks, Bk^3, 128); LANES
-                               // (n_blocks, 128, Bk^3)
+                               // (n_blocks, 128, Bk^3); RGBA (n_blocks,
+                               // 32, Bk^3)
   int64_t n_blocks;
-  const float* w1;             // (32, 64)
+  const float* w1;             // (32, 64); K5 none (w2, w3 too)
   const float* w2;             // (64, 64)
   const float* w3;             // (64, 3)
-  float* out;                  // (T*64, 8): K1/K2 carry-in, updated in
-                               // place; K3/K4 listed tiles overwritten
+  float* out;                  // (T*64, 8): K1/K2/K5 carry-in, updated
+                               // in place; K3/K4 listed tiles overwritten
   int T;
   int S;                       // window span (samples per ray per brick)
   float dt;
@@ -155,12 +173,8 @@ struct Args {
 };
 
 // Shared memory of one block; index i = g * 64 + r is the (slot g of the
-// batch, ray r) pair.
+// batch, ray r) pair.  The MLP's part comes last: K5 launches without it.
 struct Smem {
-  uint2 w1f[8 * 32];          // B fragments: layer 1's h half, 8 n-tiles
-  uint2 w2f[4 * 8 * 32];      // layer 2, (k-tile, n-tile)
-  uint2 w3f[4 * 32];          // layer 3, 3 columns padded to 8
-  float a1sh[TPX * A1_STRIDE];   // per-ray sh half of layer 1
   float ray[TPX * 8];
   float st[TPX * 8];          // carried state
   float n0[TPX * G];          // first window sample of the pair
@@ -174,8 +188,14 @@ struct Smem {
   int desc[CAP];              // a pass's samples: (j << 10) | i
   float sd[CAP];              // their sigma*dt
   float rgb[CAP * 3];         // and rgb
+  // K1-K4 only
+  uint2 w1f[8 * 32];          // B fragments: layer 1's h half, 8 n-tiles
+  uint2 w2f[4 * 8 * 32];      // layer 2, (k-tile, n-tile)
+  uint2 w3f[4 * 32];          // layer 3, 3 columns padded to 8
+  float a1sh[TPX * A1_STRIDE];   // per-ray sh half of layer 1
   alignas(16) __nv_bfloat16 atile[NW][16 * FEAT];   // per-warp A tile
 };
+constexpr size_t SMEM_RGBA = offsetof(Smem, w1f);   // K5's shared memory
 
 __device__ __forceinline__ Smem& smem() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -253,13 +273,15 @@ __device__ __forceinline__ float corner_w(int c, const float* fr) {
   return w[0] * w[1] * w[2];
 }
 
-// Address of feature f of corner c of voxel lid in pool block pb.
+// Address of feature (K5: channel) f of corner c of voxel lid in pool
+// block pb.
 template <int L>
 __device__ __forceinline__ const __nv_bfloat16* feat(const Args& a,
                                                      int64_t pb, int lid,
                                                      int c, int f) {
   const int64_t vox = (int64_t)a.Bk * a.Bk * a.Bk;
   if (L == ROWS) return a.pool + (pb * vox + lid) * ROWW + c * FEAT + f;
+  if (L == RGBA) return a.pool + (pb * 8 * RCH + c * RCH + f) * vox + lid;
   return a.pool + (pb * ROWW + c * FEAT + f) * vox + lid;
 }
 
@@ -268,7 +290,8 @@ __device__ __forceinline__ float sigma_dt(const Args& a, float h0) {
 }
 
 // sigma*dt of window sample n from feature 0 alone; the same operations
-// in the same order as feature 0 of trilerp_half, so the same bits.
+// in the same order as feature 0 of trilerp_half (K5: of rgba_pass), so
+// the same bits.
 template <int L, bool LERP>
 __device__ float sample_sigma(const Args& a, const float* ray, float n,
                               const float* box, int64_t pb) {
@@ -332,10 +355,34 @@ __device__ int block_scan(int v, Smem& s, int* total) {
   return x - v + (w > 0 ? s.wsum[w - 1] : 0);
 }
 
-// The field of the pass's m listed samples: sigma*dt and rgb into s.sd,
-// s.rgb.  Each warp takes 16 samples at a time, two lanes a sample.
+// K5's field of the pass's m listed samples into s.sd, s.rgb: one thread
+// a sample trilerps the 4 channels of its voxel, each corner product
+// rounded to bf16 and summed in corner order, and clips rgb to [0, 1].
+__device__ void rgba_pass(const Args& a, Smem& s, int m) {
+  for (int k = threadIdx.x; k < m; k += NT) {
+    const int d = s.desc[k], i = d & 1023, j = d >> 10, g = i >> 6;
+    float fr[3];
+    const int lid = locate(a, s.ray + (i & (TPX - 1)) * 8,
+                           s.n0[i] + (float)j, s.box + g * 6, fr);
+    float h[RCH] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float wc = corner_w<true>(c, fr);
+#pragma unroll
+      for (int ch = 0; ch < RCH; ++ch)
+        h[ch] += bf16r(wc * ldg_bf16(feat<RGBA>(a, s.pb[g], lid, c, ch)));
+    }
+    s.sd[k] = sigma_dt(a, h[0]);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      s.rgb[k * 3 + ch] = fminf(fmaxf(h[1 + ch], 0.f), 1.f);
+  }
+}
+
+// K1-K4's field of the pass's m listed samples: sigma*dt and rgb into
+// s.sd, s.rgb.  Each warp takes 16 samples at a time, two lanes a sample.
 template <int L, bool LERP>
-__device__ void field_pass(const Args& a, Smem& s, int m) {
+__device__ void mlp_pass(const Args& a, Smem& s, int m) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = lane & 1, gq = lane >> 2, t = lane & 3;
   __nv_bfloat16* at = s.atile[warp];
@@ -417,6 +464,14 @@ __device__ void field_pass(const Args& a, Smem& s, int m) {
       }
     }
   }
+}
+
+template <int L, bool LERP>
+__device__ void field_pass(const Args& a, Smem& s, int m) {
+  if constexpr (L == RGBA)
+    rgba_pass(a, s, m);
+  else
+    mlp_pass<L, LERP>(a, s, m);
 }
 
 // The tile's rays and its starting state: its `out` rows (CARRY: they
@@ -600,7 +655,7 @@ __device__ void tile_end(const Args& a, Smem& s, int64_t r0) {
   for (int e = threadIdx.x; e < TPX * 8; e += NT) a.out[r0 * 8 + e] = s.st[e];
 }
 
-// K2-K4: one block per entry of tid; tile tid[b] walks list rows lbase[b]
+// K2-K5: one block per entry of tid; tile tid[b] walks list rows lbase[b]
 // + l, l < min(nslots[b], Lcall), G slots at a time, from its carried
 // state (CARRY) or from zero.
 template <int L, bool CARRY, bool LERP>
@@ -615,7 +670,9 @@ __device__ void tiles_body(const Args& a, const int32_t* tid,
   if (CARRY && n <= 0) return;           // no slot: the rows keep init
   const int64_t r0 = (int64_t)tile * TPX;
   if (!tile_start<CARRY>(a, s, r0)) return;   // every carried ray dead
-  if (n > 0) stage(a, s, r0);
+  if constexpr (L != RGBA) {               // K5 has no MLP to stage
+    if (n > 0) stage(a, s, r0);
+  }
   for (int base = 0; base < n; base += G)
     if (!batch<L, LERP>(a, s, (int64_t)lbase[b] + base, min(G, n - base)))
       break;   // every ray saturated: later slots add nothing
@@ -644,6 +701,16 @@ __global__ void __launch_bounds__(NT, 2)
 brick_field_tp_kernel(Args a, const int32_t* tid, const int32_t* lbase,
                       const int32_t* nslots, int Lcall) {
   tiles_body<ROWS, true, true>(a, tid, lbase, nslots, Lcall);
+}
+
+// K5: pre-shaded pool, from the carry.  Its ~40 KiB of shared memory
+// would let four 512-thread blocks share an SM, but capped for three (40
+// registers) or four (32) it spills and runs slower on the card than at
+// two (64, no spill; PERF.md has the times).
+__global__ void __launch_bounds__(NT, 2)
+brick_field_rgba_kernel(Args a, const int32_t* tid, const int32_t* lbase,
+                        const int32_t* nslots, int Lcall) {
+  tiles_body<RGBA, true, true>(a, tid, lbase, nslots, Lcall);
 }
 
 // K1: one block per worklist step.  A block at a tile's first step (wf ==
@@ -691,21 +758,21 @@ brick_field_wl_kernel(Args a, const int32_t* wt, const int32_t* wl,
 }
 
 template <typename K>
-int set_smem(K kernel) {
+int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 int launch(void (*kernel)(Args, const int32_t*, const int32_t*,
                           const int32_t*, int),
-           const Args& a, const int32_t* tid, const int32_t* lbase,
-           const int32_t* nslots, int Tb, int Lcall, void* stream) {
-  const int err = set_smem(kernel);
+           size_t bytes, const Args& a, const int32_t* tid,
+           const int32_t* lbase, const int32_t* nslots, int Tb, int Lcall,
+           void* stream) {
+  const int err = set_smem(kernel, bytes);
   if (err) return err;
   if (Tb == 0) return 0;
-  kernel<<<Tb, NT, sizeof(Smem), (cudaStream_t)stream>>>(a, tid, lbase,
-                                                         nslots, Lcall);
+  kernel<<<Tb, NT, bytes, (cudaStream_t)stream>>>(a, tid, lbase, nslots,
+                                                  Lcall);
   return (int)cudaGetLastError();
 }
 
@@ -752,12 +819,26 @@ const char* brick_field_dense_error_string(int err) {
     const Args a = make_args(pool_blk, meta, n_rows, rays, sh, pool,         \
                              n_blocks, w1, w2, w3, out, T, S, dt, tau_max,   \
                              Bk);                                            \
-    return launch(KERNEL, a, tid, lbase, nslots, Tb, Lcall, stream);         \
+    return launch(KERNEL, sizeof(Smem), a, tid, lbase, nslots, Tb, Lcall,    \
+                  stream);                                                   \
   }
 
 DENSE_ENTRY(brick_field_tp, brick_field_tp_kernel)
 DENSE_ENTRY(brick_field_n, brick_field_n_kernel)
 DENSE_ENTRY(brick_field_t, brick_field_t_kernel)
+
+int brick_field_rgba(const int32_t* pool_blk, const float* meta,
+                     int64_t n_rows, const float* rays, const void* pool,
+                     int64_t n_blocks, float* out, int T, const int32_t* tid,
+                     const int32_t* lbase, const int32_t* nslots, int Tb,
+                     int Lcall, int S, float dt, float tau_max, int Bk,
+                     void* stream) {
+  const Args a = make_args(pool_blk, meta, n_rows, rays, nullptr, pool,
+                           n_blocks, nullptr, nullptr, nullptr, out, T, S,
+                           dt, tau_max, Bk);
+  return launch(brick_field_rgba_kernel, SMEM_RGBA, a, tid, lbase, nslots,
+                Tb, Lcall, stream);
+}
 
 int brick_field_wl(const int32_t* pool_blk, const float* meta, int64_t n_rows,
                    const float* rays, const float* sh, const void* pool,
@@ -768,7 +849,7 @@ int brick_field_wl(const int32_t* pool_blk, const float* meta, int64_t n_rows,
                    void* stream) {
   const Args a = make_args(pool_blk, meta, n_rows, rays, sh, pool, n_blocks,
                            w1, w2, w3, out, T, S, dt, tau_max, Bk);
-  const int err = set_smem(brick_field_wl_kernel);
+  const int err = set_smem(brick_field_wl_kernel, sizeof(Smem));
   if (err) return err;
   if (Ns == 0) return 0;
   brick_field_wl_kernel<<<Ns, NT, sizeof(Smem), (cudaStream_t)stream>>>(

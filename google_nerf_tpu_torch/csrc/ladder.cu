@@ -1,7 +1,7 @@
 // The construct ladder P5 for Hopper (sm_90a): 17 minimal kernels, each
-// one construct that the tile kernels of csrc/brick_field.cu use or would
-// use, each writing one (8, 64) f32 block.  Built with nvcc into a shared
-// library with a plain C interface and loaded through ctypes by
+// one construct that the tile kernels of csrc/brick_field_dense.cu use or
+// would use, each writing one (8, 64) f32 block.  Built with nvcc into a
+// shared library with a plain C interface and loaded through ctypes by
 // google_nerf_tpu_torch/ops/cuda/ladder.py, which also holds each rung's
 // plain PyTorch version; google_nerf_tpu_torch/tools/kernel_ladder.py runs
 // them.
@@ -31,14 +31,23 @@
 //
 // What bounds them on the H100: hardly anything.  The largest operand is
 // 590 KB (k7, k11, k17), the largest product 75.5 MFLOP (k8): well under
-// a microsecond of bytes or bf16 tensor-core time.  Each rung is one
-// block of 256 threads, so a short rung takes about the launch's ~1-3 us
-// of device time, and the long loops (k6, k7, k17: 295k compare-selects;
-// k8: 2,304 mma.sync a warp) run at one SM's rate, tens of us.  The
-// ladder checks constructs, not speed.
-// Sums are block reductions in a fixed order; the rungs whose sums are
-// integers below 2^24 are exact, the others agree with their plain
-// versions to f32 rounding.
+// a microsecond of bytes or bf16 tensor-core time.  A rung of one block
+// of 256 threads takes about the launch's ~2 us of device time, and the
+// short rungs are that.  The four long ones (k6, k7, k17: 295k
+// compare-selects; k8: 18,432 mma.sync) ran at one SM's rate, tens of us,
+// as one block; they now spread over the card: each block of a grid
+// reduces its share (k6, k7, k17: a contiguous run of 2,048 elements, 144
+// blocks; k8: one 16-deep step of K for all eight 16-row slices, a warp
+// a slice, against all 72 column tiles, 32 blocks) into one partial, and
+// the last block to finish, found by a ticket (__threadfence, then
+// atomicAdd on an int), sums the partials in a fixed order, fills the
+// output and resets the ticket for the next launch.  Each rung stays one launch.
+// The partials and tickets are the library's own device memory, so
+// launches of one rung must not overlap (the ladder runs on one stream).
+// The ladder checks constructs, not speed.
+// Sums are block reductions in a fixed order, and floats are never summed
+// with atomics; the rungs whose sums are integers below 2^24 are exact,
+// the others agree with their plain versions to f32 rounding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +73,37 @@ __device__ float block_sum(float v) {
 
 __device__ void fill(float* o, float v) {
   for (int i = threadIdx.x; i < OUT; i += NT) o[i] = v;
+}
+
+// The grid-wide rungs: each block's partial, and a ticket per rung.
+constexpr int SPAN = 2048;               // k6, k7, k17: elements a block
+constexpr int GRID = VOX * N / SPAN;     // 144 blocks
+constexpr int GRID8 = VOX / 16;          // k8: 32 blocks, a K step each
+constexpr int ACC = 4;                   // k8: accumulators a warp
+enum Wide { W6, W7, W8, W17, N_WIDE };
+__device__ float g_part[N_WIDE][GRID];
+__device__ unsigned int g_ticket[N_WIDE];
+
+// Block b's partial v (the same in every thread) into g_part; the last
+// block of the grid to arrive sums every partial in a fixed order (thread
+// t takes partials t, t + NT, ... in order, then block_sum), fills o and
+// resets the ticket.
+__device__ void grid_finish(float v, int rung, float* o) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    g_part[rung][blockIdx.x] = v;
+    __threadfence();                  // the partial before the ticket
+    last = atomicAdd(&g_ticket[rung], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float s = 0.0f;
+  for (int b = threadIdx.x; b < gridDim.x; b += NT)
+    s += __ldcg(&g_part[rung][b]);    // from L2: other SMs wrote them
+  s = block_sum(s);
+  fill(o, s);
+  if (threadIdx.x == 0) g_ticket[rung] = 0;
 }
 
 // k1: o = x + x[0:1], x staged in shared memory.
@@ -105,28 +145,30 @@ __global__ void k5_kernel(const float*, float* o) {
   fill(o, block_sum(v));
 }
 
-// k6: one-hot (VOX, N), row == n % VOX, selected as bf16.
+// k6: one-hot (VOX, N), row == n % VOX, selected as bf16; grid-wide.
 __global__ void k6_kernel(const float*, float* o) {
   const __nv_bfloat16 one = __float2bfloat16(1.0f);
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   float v = 0.0f;
-  for (int e = threadIdx.x; e < VOX * N; e += NT) {
+  const int e0 = blockIdx.x * SPAN;
+  for (int e = e0 + threadIdx.x; e < e0 + SPAN; e += NT) {
     const int r = e / N, n = e % N;
     v += __bfloat162float(r == n % VOX ? one : zero);
   }
-  fill(o, block_sum(v));
+  grid_finish(block_sum(v), W6, o);
 }
 
-// k7: as k6 with a precomputed int16 row operand rv (VOX, N).
+// k7: as k6 with a precomputed int16 row operand rv (VOX, N); grid-wide.
 __global__ void k7_kernel(const float*, const int16_t* rv, float* o) {
   const __nv_bfloat16 one = __float2bfloat16(1.0f);
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   float v = 0.0f;
-  for (int e = threadIdx.x; e < VOX * N; e += NT) {
+  const int e0 = blockIdx.x * SPAN;
+  for (int e = e0 + threadIdx.x; e < e0 + SPAN; e += NT) {
     const int16_t lid = (int16_t)((e % N) % VOX);
     v += __bfloat162float(rv[e] == lid ? one : zero);
   }
-  fill(o, block_sum(v));
+  grid_finish(block_sum(v), W7, o);
 }
 
 // One m16n8k16 bf16 product with f32 accumulation: d += a * b.
@@ -161,30 +203,34 @@ __device__ void load_a(uint32_t a[4], const __nv_bfloat16* m, int ld, int m0,
 }
 
 // k8: sum of slabT (ROWW, VOX) @ onehot (VOX, N) with onehot[k, n] =
-// (k == 3), on the tensor cores.  Warp w owns rows 16w..16w+15; for each
-// 16-deep slice of K = VOX it loads its A fragment once and runs it
-// against every 8-column tile of N, whose B fragment (rows k0 + 2t (+1,
-// +8, +9) of column n0 + g) is the one-hot built in registers.  Only the
-// sum of the product is kept, so every tile accumulates into one
-// fragment.
+// (k == 3), on the tensor cores, grid-wide.  Block b takes the 16-deep
+// step k0 = 16b of K = VOX; its warp w loads the A fragment of rows
+// 16w..16w+15 once and runs it against every 8-column tile of N, whose B
+// fragment (rows k0 + 2t (+1, +8, +9) of column n0 + g) is the one-hot
+// built in registers, so slabT is read once over the grid.  Only the sum
+// of the product is kept: the tiles accumulate round robin into ACC
+// fragments (shorter dependent chains), summed in a fixed order.
 __global__ void k8_kernel(const __nv_bfloat16* slabT, float* o) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < VOX; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, slabT, VOX, 16 * warp, k0);
-    for (int n0 = 0; n0 < N; n0 += 8) {
-      const int k = k0 + 2 * t, n = n0 + g;
-      auto oh = [n](int kk) {
-        return __float2bfloat16(kk == 3 && n < N ? 1.0f : 0.0f);
-      };
-      const uint32_t b[2] = {pack_bf16(oh(k), oh(k + 1)),
-                             pack_bf16(oh(k + 8), oh(k + 9))};
-      mma_bf16(d, a, b);
-    }
+  const int k0 = 16 * blockIdx.x, k = k0 + 2 * t;
+  uint32_t a[4];
+  load_a(a, slabT, VOX, 16 * warp, k0);
+  float d[ACC][4] = {};
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) {
+    const int n = 8 * nt + g;
+    auto oh = [n](int kk) {
+      return __float2bfloat16(kk == 3 && n < N ? 1.0f : 0.0f);
+    };
+    const uint32_t b[2] = {pack_bf16(oh(k), oh(k + 1)),
+                           pack_bf16(oh(k + 8), oh(k + 9))};
+    mma_bf16(d[nt % ACC], a, b);
   }
-  fill(o, block_sum((d[0] + d[1]) + (d[2] + d[3])));
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) v += (d[i][0] + d[i][1]) + (d[i][2] + d[i][3]);
+  grid_finish(block_sum(v), W8, o);
 }
 
 // k9: sh (16, 64) staged in shared memory, tiled over S samples, summed.
@@ -282,12 +328,14 @@ __global__ void k16_kernel(const float*, float* o) {
   fill(o, a + block_sum(sg));
 }
 
-// k17: count of rv == 3 over an int16 (VOX, N) operand read as int32.
+// k17: count of rv == 3 over an int16 (VOX, N) operand read as int32;
+// grid-wide.
 __global__ void k17_kernel(const int16_t* rv, float* o) {
   float v = 0.0f;
-  for (int e = threadIdx.x; e < VOX * N; e += NT)
+  const int e0 = blockIdx.x * SPAN;
+  for (int e = e0 + threadIdx.x; e < e0 + SPAN; e += NT)
     v += (int)rv[e] == 3 ? 1.0f : 0.0f;
-  fill(o, block_sum(v));
+  grid_finish(block_sum(v), W17, o);
 }
 
 }  // namespace
@@ -299,7 +347,8 @@ const char* ladder_error_string(int err) {
 }
 
 // Launch rung k (1-17) on its operands a (and b for k7) into o (8, 64)
-// f32; o must be zeroed for k12.
+// f32; o must be zeroed for k12.  k6, k7, k8 and k17 launch a grid (one
+// launch a rung all the same).
 int ladder_rung(int k, const void* a, const void* b, float* o,
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -310,9 +359,9 @@ int ladder_rung(int k, const void* a, const void* b, float* o,
     case 3: k3_kernel<<<1, NT, 0, s>>>(x, o); break;
     case 4: k4_kernel<<<1, NT, 0, s>>>(x, o); break;
     case 5: k5_kernel<<<1, NT, 0, s>>>(x, o); break;
-    case 6: k6_kernel<<<1, NT, 0, s>>>(x, o); break;
-    case 7: k7_kernel<<<1, NT, 0, s>>>(x, (const int16_t*)b, o); break;
-    case 8: k8_kernel<<<1, NT, 0, s>>>((const __nv_bfloat16*)a, o); break;
+    case 6: k6_kernel<<<GRID, NT, 0, s>>>(x, o); break;
+    case 7: k7_kernel<<<GRID, NT, 0, s>>>(x, (const int16_t*)b, o); break;
+    case 8: k8_kernel<<<GRID8, NT, 0, s>>>((const __nv_bfloat16*)a, o); break;
     case 9: k9_kernel<<<1, NT, 0, s>>>(x, o); break;
     case 10: k10_kernel<<<1, NT, 0, s>>>((const __nv_bfloat16*)a, o); break;
     case 11: k11_kernel<<<1, NT, 0, s>>>(x, o); break;
@@ -321,7 +370,7 @@ int ladder_rung(int k, const void* a, const void* b, float* o,
     case 14: k14_kernel<<<1, NT, 0, s>>>(x, o); break;
     case 15: k15_kernel<<<1, NT, 0, s>>>(x, o); break;
     case 16: k16_kernel<<<1, NT, 0, s>>>(x, o); break;
-    case 17: k17_kernel<<<1, NT, 0, s>>>((const int16_t*)a, o); break;
+    case 17: k17_kernel<<<GRID, NT, 0, s>>>((const int16_t*)a, o); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

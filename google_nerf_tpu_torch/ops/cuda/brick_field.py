@@ -18,12 +18,12 @@ TPU kernel's form: K3's where(bit, f, 1 - f); K1, K2, K4 and K5's (1 -
 f) + bit * (2f - 1), which differs in the last bit in a brick's first
 voxel along an axis.
 
-The CUDA kernels live in csrc/brick_field_dense.cu (K1-K4 on one body:
+The CUDA kernels live in csrc/brick_field_dense.cu (K1-K5 on one body:
 list slots in batches of 8, the live gate resolved before shading, the
-MLP on mma.sync; K1/K2 start from the carry and return early when it
-leaves them nothing to do) and csrc/brick_field.cu (K5), each built with
-nvcc on first use into its own library in build/kernels/ (a plain C
-interface loaded with ctypes).
+MLP on mma.sync, K5 without one; K1/K2/K5 start from the carry and return
+early when it leaves them nothing to do), built with nvcc on first use
+into a library in build/kernels/ (a plain C interface loaded with
+ctypes).
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors; there is no fallback between the two.
 
@@ -54,15 +54,14 @@ ROWW = 128        # pool row lanes (8 corners x 16 features)
 FEAT = 16
 RGBA_LANES = 32   # 8 corners x [log sigma, r, g, b]
 ROWS, LANES, RGBA = 0, 1, 2     # pool layouts
-_smem_optin = {}
 
 
 def build():
-    """Compile csrc/brick_field.cu and csrc/brick_field_dense.cu for
-    sm_90a into build/kernels/ unless libraries of the same sources and
-    flags are there.  Returns their paths; each compiler log (ptxas
-    register and spill report) sits beside its library."""
-    return _build.build("brick_field", "brick_field_dense")
+    """Compile csrc/brick_field_dense.cu for sm_90a into build/kernels/
+    unless a library of the same source and flags is there.  Returns its
+    path in a list; the compiler log (ptxas register and spill report)
+    sits beside it."""
+    return _build.build("brick_field_dense")
 
 
 _TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -71,36 +70,21 @@ _TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
 
 def _declare(lib):
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
-                                      p, i32, i32] + _TAIL)
-    for name in ("brick_field_rgba", "brick_field_smem_optin"):
-        getattr(lib, name).restype = i32
-    lib.brick_field_smem_optin.argtypes = []
-    lib.brick_field_smem_bytes.argtypes = [i32, i32]
-    lib.brick_field_smem_bytes.restype = i64
-    lib.brick_field_error_string.argtypes = [i32]
-    lib.brick_field_error_string.restype = ctypes.c_char_p
-
-
-def _declare_dense(lib):
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     head = [p, p, i64, p, p, p, i64, p, p, p, p, i32]
     lib.brick_field_wl.argtypes = head + [p, p, p, p, i32, i32] + _TAIL
     for name in ("brick_field_tp", "brick_field_n", "brick_field_t"):
         getattr(lib, name).argtypes = head + [p, p, p, i32, i32] + _TAIL
+    lib.brick_field_rgba.argtypes = ([p, p, i64, p, p, i64, p, i32, p, p,
+                                      p, i32, i32] + _TAIL)
     for name in ("brick_field_wl", "brick_field_tp", "brick_field_n",
-                 "brick_field_t"):
+                 "brick_field_t", "brick_field_rgba"):
         getattr(lib, name).restype = i32
     lib.brick_field_dense_error_string.argtypes = [i32]
     lib.brick_field_dense_error_string.restype = ctypes.c_char_p
 
 
 def _lib():
-    return _build.load("brick_field", _declare)
-
-
-def _dense_lib():
-    return _build.load("brick_field_dense", _declare_dense)
+    return _build.load("brick_field_dense", _declare)
 
 
 def window_span(max_samples: int, block: int, voxel_res: int,
@@ -446,20 +430,6 @@ def _index(name, t, device, n):
     return t
 
 
-def _check_smem(S, Bk, dev):
-    """Raise unless K5's shared memory at (S, Bk) fits the device's
-    opt-in limit for one block."""
-    lib = _lib()
-    if dev.index not in _smem_optin:
-        with torch.cuda.device(dev):
-            _smem_optin[dev.index] = lib.brick_field_smem_optin()
-    need, have = lib.brick_field_smem_bytes(S, Bk), _smem_optin[
-        dev.index]
-    if need > have:
-        raise ValueError(f"S={S}, Bk={Bk} needs {need} bytes of shared "
-                         f"memory a block; {dev} allows {have}")
-
-
 def _prepare(pool_blk, meta, rays, sh, pool3, ws, S, Bk, init, out, *,
              kind, carry):
     """Checks shared by the kernels; returns (T, pool_blk int32, out).
@@ -478,8 +448,6 @@ def _prepare(pool_blk, meta, rays, sh, pool3, ws, S, Bk, init, out, *,
         raise ValueError("the pool must be 16-byte aligned")
     if S < 1:
         raise ValueError(f"window span S={S} < 1")
-    if dev.type == "cuda" and kind == RGBA:   # K1-K4: a fixed size
-        _check_smem(S, Bk, dev)
     if rays.ndim != 2 or rays.shape[0] % TPX or rays.shape[1] != 8:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected "
                          f"(T*{TPX}, 8)")
@@ -567,16 +535,14 @@ def _ptr(t):
 
 
 def _launch(name, *cargs, dev):
-    """Call the C entry `name` (K5's in csrc/brick_field.cu, the others in
-    csrc/brick_field_dense.cu) on dev's current stream; raise on error."""
-    rgba = name == "brick_field_rgba"
+    """Call the C entry `name` of csrc/brick_field_dense.cu on dev's
+    current stream; raise on error."""
     with torch.cuda.device(dev):
-        lib = _lib() if rgba else _dense_lib()
+        lib = _lib()
         err = getattr(lib, name)(
             *cargs, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
-        msg = (lib.brick_field_error_string if rgba else
-               lib.brick_field_dense_error_string)(err).decode()
+        msg = lib.brick_field_dense_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 

@@ -5,7 +5,11 @@ Port of tools/mosaic_bisect.py (`run` :19-31, rungs k1-k17 :40-186): 17
 minimal kernels, each adding one construct of the transposed tile kernel
 and each writing an (8, 64) f32 block.  `rung(k, *operands)` launches rung
 k for CUDA tensors and takes its plain version only for CPU tensors;
-`rung.launches` counts the ladder's kernel launches.
+`rung.launches` counts the ladder's kernel launches.  The four long rungs
+(k6, k7, k8, k17) run over a grid whose last block sums the blocks'
+partials, still one launch each; the partials and the ticket that finds
+the last block are the library's own, so launches of one rung must not
+overlap (the ladder runs on one stream).
 
 The one definition that differs: k12 reads its output before writing it.
 The JAX rung's output buffer is undefined there (interpret mode fills it

@@ -1,6 +1,7 @@
 """Brick-field kernels K1 (worklist) and K2 (tile grid) of the PyTorch
 port: the plain versions against the numpy golden and the JAX entries in
-interpret mode (the card-only kernel tests are in test_torch_cuda.py).
+interpret mode (the card-only kernel tests are in test_torch_cuda.py);
+K5's corner-weight form beside K1's and K2's.
 Tolerances are those of tests/test_render_brick_mxu.py: the kernels
 round the slab, corner products and MLP operands to bf16 while the
 golden is f32/f64, so tau agrees to atol/rtol 5e-2, rgb and depth to
@@ -12,7 +13,8 @@ import torch
 
 from google_nerf_tpu.ops.pallas import brick_field as jbf
 from google_nerf_tpu_torch.ops.cuda import brick_field as tbf
-from test_torch_cuda import _assert_matches, _torch, _toy_inputs, _worklist
+from test_torch_cuda import (_assert_matches, _torch, _toy_inputs,
+                             _toy_rgba_pool, _worklist)
 
 
 def _golden(args, nslots, kw, **extra):
@@ -232,6 +234,39 @@ def test_k1_k2_take_the_tpu_corner_weights():
         S=kw["S"], dt=kw["dt"], tau_max=kw["tau_max"], Lcall=1, Bk=kw["Bk"],
         zero=True)[:, 0].numpy()
     assert abs(where[ray] - want_tp[ray]) > 1e-5 * want_tp[ray]
+
+
+def test_k5_takes_the_tpu_corner_weights():
+    """K5 takes JAX's corner weights (1 - f) + bit * (2f - 1), as
+    `_kernel_rgba` does: on the flipped-corner-product input of
+    test_k1_k2_take_the_tpu_corner_weights, its sigma value moved to the
+    pre-shaded slab's sigma lane, the plain tau equals JAX's
+    brick_field_tiles_rgba (interpret mode) to rtol 1e-6, and the where
+    form misses that ray's tau by far more."""
+    args, kw, ray = _first_voxel_flip()
+    rgba = _toy_rgba_pool(args[4])
+    nslots = np.ones(1, np.int32)
+    want = np.asarray(jbf.brick_field_tiles_rgba(
+        *[jnp.asarray(x) for x in args[:3]], jnp.asarray(rgba),
+        nslots=jnp.asarray(nslots), inv2s=1.0, V=32, interpret=True,
+        **kw))[:, 0]
+    t = _torch(args[:3]) + [torch.as_tensor(rgba)]
+    got = tbf.brick_field_tiles_rgba(*t, nslots=torch.as_tensor(nslots),
+                                     **kw)[:, 0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+    def where_field(_):
+        def field(bi, ri, blk, lid, frac):
+            rows = tbf._bf(t[3][blk, :, lid]).reshape(-1, 8, 4)
+            h4 = tbf._bf(tbf.trilerp_w8(frac)[..., None] * rows).sum(-2)
+            return h4[:, 0], torch.clamp(h4[:, 1:4], 0.0, 1.0)
+        return field
+    zero = torch.zeros(1, dtype=torch.int32)
+    where = tbf._tiles_plain(
+        t[0], t[1], t[2], zero, zero, torch.as_tensor(nslots),
+        torch.zeros(64, 8), where_field, S=kw["S"], dt=kw["dt"],
+        tau_max=kw["tau_max"], Lcall=1, Bk=kw["Bk"], zero=True)[:, 0].numpy()
+    assert abs(where[ray] - want[ray]) > 1e-5 * want[ray]
 
 
 @pytest.mark.parametrize("Bk,sub", [(8, False), (8, True), (4, False)])

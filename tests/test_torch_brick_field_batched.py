@@ -1,22 +1,23 @@
-"""The batched schedule of the tile kernels K1-K4
+"""The batched schedule of the tile kernels K1-K5
 (csrc/brick_field_dense.cu), modelled in plain PyTorch and held bit for bit
 against the slot-serial plain versions `_tiles_plain` and `_wl_plain`.
 
 The kernels take a tile's list G slots at a time: each (ray, slot) pair's
-window and its sum of sigma*dt first (from the trilerped features alone),
+window and its sum of sigma*dt first (from the trilerped feature 0 alone),
 then the live gate tau < tau_max slot by slot in list order, and only then
-the MLP, for the samples of live pairs only, composited per pair in window
-order and added to the state in list order.  That is the same sums in the
-same order as one slot at a time, because a brick's run, sum w*rgb and sum
-w*t start from zero and meet the carried state only through the gate and
-T_bef = exp(-tau).  K3/K4 start each tile from zero, K1/K2 from its init
-row (and skip a tile with no slot or no live ray, which the gate leaves
-unchanged anyway); K2-K4 batch a tile's list from lbase, K1 each worklist
-step's rows apart (a batch never straddles two steps).  The model below is
-test-only; the inputs are the seeded serving-width bricks of
-tools/brick_inputs.py (chip_smoke.py phase 2's) at toy size, with denser
-sigma so the gate closes within the first few slots.  The kernels take
-G = 8; the model is held at G 1, 3 and 8."""
+the field (K1-K4's MLP, K5's pre-shaded rgb), for the samples of live pairs
+only, composited per pair in window order and added to the state in list
+order.  That is the same sums in the same order as one slot at a time,
+because a brick's run, sum w*rgb and sum w*t start from zero and meet the
+carried state only through the gate and T_bef = exp(-tau).  K3/K4 start
+each tile from zero, K1/K2/K5 from its init row (and skip a tile with no
+slot or no live ray, which the gate leaves unchanged anyway); K2-K5 batch
+a tile's list from lbase, K1 each worklist step's rows apart (a batch
+never straddles two steps).  The model below is test-only; the inputs are
+the seeded serving-width bricks of tools/brick_inputs.py (chip_smoke.py
+phase 2's) at toy size, with denser sigma so the gate closes within the
+first few slots.  The kernels take G = 8; the model is held at G 1, 3
+and 8."""
 import pytest
 import torch
 
@@ -27,13 +28,14 @@ from test_torch_cuda import (_carry_inputs, _dense_brick_inputs,
 TPX, FEAT = tbf.TPX, tbf.FEAT
 
 
-def _trilerp(pool3, lanes, lerp):
-    """The features of M samples, as the plain field computes them."""
+def _trilerp(pool3, lanes, lerp, width=FEAT):
+    """The features (width 4: K5's channels) of M samples, as the plain
+    field computes them."""
     weights = tbf._lerp_w8 if lerp else tbf.trilerp_w8
 
     def h_of(blk, lid, frac):
         rows = pool3[blk, :, lid] if lanes else pool3[blk, lid]
-        rows = tbf._bf(rows).reshape(-1, 8, FEAT)
+        rows = tbf._bf(rows).reshape(-1, 8, width)
         return tbf._bf(weights(frac)[..., None] * rows).sum(-2)
     return h_of
 
@@ -89,19 +91,25 @@ def worklist_batches(wt, wl, wn, wf, P, G):
 
 
 def batched_model(args, tiles, batches, st, *, S, dt, tau_max, Bk, lanes,
-                  lerp):
+                  lerp, rgba=False):
     """The batched body on `tiles` from the state st (B, 64, 8), updated
     in place, taking each tile's list rows batch by batch (batches (B,
-    n, G), -1 for no row).  Returns (mlp samples, pairs whose gate closed
-    after the first slot of their batch)."""
-    pool_blk, meta, rays, sh, pool3, w1, w2, w3 = args
+    n, G), -1 for no row); rgba: K5's args and field.  Returns (shaded
+    samples, pairs whose gate closed after the first slot of their
+    batch)."""
+    pool_blk, meta, rays = args[:3]
     T = rays.shape[0] // TPX
     r = rays.view(T, TPX, 8)[tiles]
     dt_t = torch.tensor(dt, dtype=torch.float32)
-    h_of = _trilerp(pool3, lanes, lerp)
-    field = tbf._mlp_maker(sh, pool3, (w1, w2, w3), lanes=lanes,
-                           lerp=lerp)(tiles)
-    n_mlp = closed_mid_batch = 0
+    if rgba:
+        h_of = _trilerp(args[3], True, True, width=4)
+        field = tbf._rgba_field(args[3])
+    else:
+        sh, pool3, w1, w2, w3 = args[3:]
+        h_of = _trilerp(pool3, lanes, lerp)
+        field = tbf._mlp_maker(sh, pool3, (w1, w2, w3), lanes=lanes,
+                               lerp=lerp)(tiles)
+    n_shaded = closed_mid_batch = 0
     for batch in batches.unbind(1):
         # 1. every pair's window and sum of sigma*dt, for rays alive at the
         #    batch start
@@ -139,7 +147,7 @@ def batched_model(args, tiles, batches, st, *, S, dt, tau_max, Bk, lanes,
             idx, lid, frac, ts = _samples(r, sl["m"], sl["n0"], ok, S, dt_t,
                                           Bk)
             h0, rgb = field(idx[0], idx[1], sl["pb"][idx[0]], lid, frac)
-            n_mlp += len(h0)
+            n_shaded += len(h0)
             sd_d = torch.zeros(ok.shape)
             rgb_d = torch.zeros(ok.shape + (3,))
             sd_d[idx] = _sd(h0, dt_t)
@@ -154,14 +162,14 @@ def batched_model(args, tiles, batches, st, *, S, dt, tau_max, Bk, lanes,
                 run = run + sd_d[..., s]
             st[..., 1:4] += sl["T_bef"][..., None] * rgbw
             st[..., 4] += sl["T_bef"] * depw
-    return n_mlp, closed_mid_batch
+    return n_shaded, closed_mid_batch
 
 
-def _run_model(args, tiles, batches, out, kw, *, lanes, lerp):
+def _run_model(args, tiles, batches, out, kw, *, lanes, lerp, rgba=False):
     """The model on `tiles` from their rows of out (in place)."""
     st = out.view(-1, TPX, 8)[tiles].clone()
     counts = batched_model(args, tiles, batches, st, lanes=lanes, lerp=lerp,
-                           **kw)
+                           rgba=rgba, **kw)
     out.view(-1, TPX, 8)[tiles] = st
     return counts
 
@@ -243,5 +251,38 @@ def test_batched_worklist_matches_plain_bitwise(G, P):
     assert torch.equal(want[5 * TPX:], init[5 * TPX:])
     assert bool((want[TPX:2 * TPX, 5] > init[TPX:2 * TPX, 5]).any())
     assert n_mlp > 0
+    if G > 1:
+        assert closed > 0
+
+
+@pytest.mark.parametrize("G,Lcall,S", [(G, Lcall, None) for G in (1, 3, 8)
+                                       for Lcall in (5, 12, 16)]
+                         + [(3, 12, 65), (8, 12, 65)])
+def test_batched_rgba_carry_matches_plain_bitwise(G, Lcall, S):
+    """K5 from its init carry on pre-shaded slabs, bit for bit against its
+    plain version: listed tiles 0, 1, 2, 4, 5 (tile 3 unlisted), tile 2
+    with no slot, tile 5 saturated on entry; Lcall below, above and a
+    multiple of 8; S=65: windows longer than one field pass.  Some rays
+    saturate inside the call and, for G > 1, the gate closes inside a
+    batch.  Unlisted and skipped tiles keep init's rows, columns 6-7 keep
+    init's values everywhere."""
+    args, nslots, Lp, kw, init = _carry_inputs(rgba=True, S=S)
+    tid = torch.tensor([0, 1, 2, 4, 5])
+    ns = nslots[tid].clone()
+    ns[2] = 0
+    call = dict(tid=tid, lbase=tid * Lp, nslots=ns, Lcall=Lcall, **kw)
+    want = tbf.brick_field_tiles_rgba_plain(*args, init=init, **call)
+    got = init.clone()
+    n_shaded, closed = _run_model(args, tid, tile_batches(
+        tid, tid * Lp, ns, Lcall, G), got, kw, lanes=True, lerp=True,
+        rgba=True)
+    assert torch.equal(got, want)
+    assert torch.equal(want[2 * TPX:4 * TPX], init[2 * TPX:4 * TPX])
+    assert torch.equal(want[5 * TPX:], init[5 * TPX:])
+    assert torch.equal(want[:, 6:8], init[:, 6:8])
+    rendered = want[:, 5] > init[:, 5]
+    saturated = rendered & (want[:, 0] >= kw["tau_max"])
+    assert bool(saturated.any()) and not bool(saturated[rendered].all())
+    assert n_shaded > 0
     if G > 1:
         assert closed > 0

@@ -61,16 +61,24 @@ def _toy_inputs(seed=0, T=2, Lp=3, n_blocks=4, sigma_scale=1.0, Bk=8):
     return (pool_blk, meta, rays, sh, pool3, *ws), nslots, kw
 
 
-def _dense_brick_inputs(S=None, n_tiles=4, device="cpu"):
+def _dense_brick_inputs(S=None, n_tiles=4, device="cpu", rgba=False):
     """The seeded serving-width bricks and rays of chip_smoke.py phase 2
     (tools/brick_inputs.py: Bk=8 bf16 pool, 32-slot lists) at toy size,
     sigma raised so that rays saturate after a few bricks: (args, nslots,
     Lp, keywords).  S: a window span longer than one field pass of the
-    dense kernels, at a finer dt."""
+    dense kernels, at a finer dt.  rgba: args are K5's (pool_blk, meta,
+    rays, pre-shaded slabs), whose sigma lanes hold the row pool's sigma,
+    raised alike."""
     from google_nerf_tpu_torch.tools.brick_inputs import serving_width_inputs
-    args, _, nslots, Lp, kw = serving_width_inputs(n_tiles, 0, device)
-    raise_sigma = torch.tensor([2.0] + [0.0] * 15, device=device).repeat(8)
-    args[4] = (args[4].float() + raise_sigma).to(torch.bfloat16)
+    args, slabs, nslots, Lp, kw = serving_width_inputs(n_tiles, 0, device)
+    if rgba:
+        raise_sigma = torch.tensor([2.0, 0.0, 0.0, 0.0],
+                                   device=device).repeat(8)[:, None]
+        args = args[:3] + [(slabs.float() + raise_sigma).to(torch.bfloat16)]
+    else:
+        raise_sigma = torch.tensor([2.0] + [0.0] * 15,
+                                   device=device).repeat(8)
+        args[4] = (args[4].float() + raise_sigma).to(torch.bfloat16)
     if S is not None:
         kw = dict(kw, S=S, dt=float(np.sqrt(3) / 4096))
     return args, nslots, Lp, kw
@@ -143,13 +151,14 @@ def _worklist(T, Lp, nslots, P):
     return [np.asarray(x, np.int32) for x in (wt, wl, wn, wf)]
 
 
-def _carry_inputs(device="cpu"):
-    """Six dense tiles (_dense_brick_inputs) and a seeded init carry: tau
-    partly spent on most rays, at or past tau_max on some (on all of tile
-    5's, whose block returns at once), and just below it on others, whose
-    gate the first live slot of a batch closes: (args, nslots, Lp,
-    keywords, init)."""
-    args, nslots, Lp, kw = _dense_brick_inputs(n_tiles=6, device=device)
+def _carry_inputs(device="cpu", rgba=False, S=None):
+    """Six dense tiles (_dense_brick_inputs; rgba: K5's, S: long windows)
+    and a seeded init carry: tau partly spent on most rays, at or past
+    tau_max on some (on all of tile 5's, whose block returns at once), and
+    just below it on others, whose gate the first live slot of a batch
+    closes: (args, nslots, Lp, keywords, init)."""
+    args, nslots, Lp, kw = _dense_brick_inputs(S, n_tiles=6, device=device,
+                                               rgba=rgba)
     g = torch.Generator().manual_seed(11)
     tau_max, n = kw["tau_max"], 6 * 64
     init = torch.zeros(n, 8)
@@ -217,7 +226,8 @@ def _card_call(kernel, Bk, dev, S=None):
     ("wl", 4, False, None), ("tp", 8, True, None), ("wl", 8, True, None),
     ("n", 8, False, None), ("n", 4, False, None), ("t", 8, False, None),
     ("t", 4, False, None), ("rgba", 8, False, None),
-    ("rgba", 4, False, None), ("rgba", 8, True, None), ("tp", 8, True, 65),
+    ("rgba", 4, False, None), ("rgba", 8, True, None),
+    ("rgba", 4, True, None), ("tp", 8, True, 65),
     ("n", 8, False, 65), ("t", 8, False, 65), ("rgba", 8, True, 65)])
 def test_cuda_kernel_matches_plain(kernel, Bk, carry, S):
     """Each kernel against its plain version on the card; `carry` starts
@@ -260,18 +270,21 @@ def test_cuda_kernel_matches_golden(kernel, Bk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["n", "t"])
+@pytest.mark.parametrize("layout", ["n", "t", "rgba"])
 @pytest.mark.parametrize("Lcall,S", [(5, None), (12, None), (32, None),
                                      (12, 65)])
 def test_cuda_dense_batches_match_plain(layout, Lcall, S):
-    """K3 and K4, which take 8 list slots a batch, on dense bricks where
-    the gate closes inside a batch (tests/test_torch_brick_field_batched.py
-    counts it on these inputs): Lcall below, above and a multiple of 8,
-    one listed tile whose rays miss every brick, one with no slot, and an
-    unlisted tile whose `out` row is kept; S=65 composites windows over
-    several passes."""
+    """K3, K4 and K5, which take 8 list slots a batch, on dense bricks
+    where the gate closes inside a batch (tests/test_torch_brick_field
+    _batched.py counts it on these inputs): Lcall below, above and a
+    multiple of 8, one listed tile whose rays miss every brick, one with
+    no slot, and an unlisted tile whose `out` row is kept; S=65 composites
+    windows over several passes.  K5 carries: its init is the `out` rows,
+    which the tiles with no live hit keep."""
     dev = _card()
-    args, nslots, Lp, kw = _dense_brick_inputs(S, n_tiles=6, device=dev)
+    rgba = layout == "rgba"
+    args, nslots, Lp, kw = _dense_brick_inputs(S, n_tiles=6, device=dev,
+                                               rgba=rgba)
     if layout == "t":
         args[4] = args[4].transpose(1, 2).contiguous()
     args[2] = args[2].clone()
@@ -279,11 +292,15 @@ def test_cuda_dense_batches_match_plain(layout, Lcall, S):
     tid = torch.tensor([0, 1, 2, 4, 5], device=dev)        # tile 3 unlisted
     ns = nslots[tid].clone()
     ns[2] = 0                                 # tile 2 has no slot
-    fn, plain = ((tbf.brick_field_tiles_t, tbf.brick_field_tiles_t_plain)
-                 if layout == "t" else
-                 (tbf.brick_field_tiles, tbf.brick_field_tiles_plain))
+    fn, plain = {
+        "n": (tbf.brick_field_tiles, tbf.brick_field_tiles_plain),
+        "t": (tbf.brick_field_tiles_t, tbf.brick_field_tiles_t_plain),
+        "rgba": (tbf.brick_field_tiles_rgba,
+                 tbf.brick_field_tiles_rgba_plain)}[layout]
     call = dict(tid=tid, lbase=tid * Lp, nslots=ns, Lcall=Lcall, **kw)
     out = torch.full((6 * 64, 8), 0.25, device=dev)
+    if rgba:
+        call["init"] = out
     before = fn.launches
     got = fn(*args, out=out.clone(), **call)
     torch.cuda.synchronize()
@@ -291,7 +308,7 @@ def test_cuda_dense_batches_match_plain(layout, Lcall, S):
     want = plain(*args, out=out.clone(), **call)
     _assert_same(got.cpu().numpy(), want.cpu().numpy())
     assert bool((got[192:256] == 0.25).all())
-    assert bool((got[64:192] == 0).all())
+    assert bool((got[64:192] == (0.25 if rgba else 0)).all())
     tau = got[got[:, 5] > 0, 0]               # rays with a live hit
     assert bool((tau >= kw["tau_max"]).any())
     assert not bool((tau >= kw["tau_max"]).all())
@@ -300,20 +317,22 @@ def test_cuda_dense_batches_match_plain(layout, Lcall, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,P,Lcall", [
     ("tp", 8, 16), ("tp", 16, 32), ("tp", 4, 12), ("wl", 8, 0),
-    ("wl", 16, 0)])
+    ("wl", 16, 0), ("rgba", None, 12), ("rgba", None, 32)])
 def test_cuda_carry_matches_plain(kernel, P, Lcall):
-    """K2 and K1 from a carry on dense bricks (tests/test_torch_brick_field
-    _batched.py holds their batched order to the plain versions bit for
-    bit on these inputs): rays saturated on entry, a gate that a batch's
-    first slot closes, a tile with no slot (K2) or no step (K1), an
-    unlisted tile, a saturated tile whose block returns at once, K1's
-    split steps and pad steps, K2 at an Lcall that 8 does not divide.
-    Kernel against plain within 1e-4, n_pairs exact; the rows of tiles 2,
-    3 and 5 and columns 6-7 keep init bit for bit."""
+    """K2, K1 and K5 from a carry on dense bricks (tests/test_torch_brick
+    _field_batched.py holds their batched order to the plain versions bit
+    for bit on these inputs): rays saturated on entry, a gate that a
+    batch's first slot closes, a tile with no slot (K2, K5) or no step
+    (K1), an unlisted tile, a saturated tile whose block returns at once,
+    K1's split steps and pad steps, K2 and K5 at an Lcall that 8 does not
+    divide.  Kernel against plain within 1e-4, n_pairs exact; the rows of
+    tiles 2, 3 and 5 and columns 6-7 keep init bit for bit."""
     dev = _card()
-    args, nslots, Lp, kw, init = _carry_inputs(dev)
-    if kernel == "tp":
-        fn, plain = tbf.brick_field_tiles_tp, tbf.brick_field_tiles_tp_plain
+    args, nslots, Lp, kw, init = _carry_inputs(dev, rgba=kernel == "rgba")
+    if kernel in ("tp", "rgba"):
+        fn, plain = ((tbf.brick_field_tiles_tp, tbf.brick_field_tiles_tp_plain)
+                     if kernel == "tp" else (tbf.brick_field_tiles_rgba,
+                                             tbf.brick_field_tiles_rgba_plain))
         tid = torch.tensor([0, 1, 2, 4, 5], device=dev)
         ns = nslots[tid].clone()
         ns[2] = 0
@@ -321,11 +340,13 @@ def test_cuda_carry_matches_plain(kernel, P, Lcall):
     else:
         fn, plain = tbf.brick_field_tiles_wl, tbf.brick_field_tiles_wl_plain
         a, call = args + _split_worklist(nslots, Lp, P, dev), {}
+    if P is not None:
+        call["P"] = P
     before = fn.launches
-    got = fn(*a, P=P, init=init, **call, **kw)
+    got = fn(*a, init=init, **call, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    want = plain(*a, P=P, init=init, **call, **kw)
+    want = plain(*a, init=init, **call, **kw)
     _assert_same(got.cpu().numpy(), want.cpu().numpy())
     assert torch.equal(got[2 * 64:4 * 64], init[2 * 64:4 * 64])
     assert torch.equal(got[5 * 64:], init[5 * 64:])
@@ -553,6 +574,26 @@ def test_cuda_ladder_rung_matches_plain(k):
     _, why = kernel_ladder.run_rung(k, ladder.operands("cuda"))
     assert why is None, why
     assert ladder.rung.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 7, 8, 17])
+def test_cuda_grid_rungs_reset_their_ticket(k):
+    """The rungs spread over a grid (k6, k7, k8, k17), each launched twice
+    in a row on the tool's operands: both outputs equal the plain
+    version's.  The last block of a launch, found by a ticket, writes the
+    output and resets the ticket; a ticket left set would leave the second
+    output unwritten (zero)."""
+    from google_nerf_tpu_torch.ops.cuda import ladder
+    _card()
+    args = ladder.rung_operands(k, ladder.operands("cuda"))
+    want = ladder.rung_plain(k, *args)
+    before = ladder.rung.launches
+    for _ in range(2):
+        got = ladder.rung(k, *args)
+        torch.cuda.synchronize()
+        assert ladder.mismatch(k, got, want) is None
+    assert ladder.rung.launches == before + 2
 
 
 @pytest.mark.cuda
