@@ -42,7 +42,8 @@ Phases:
      `kernel_ladder` (P5, the 17 rungs of tools/mosaic_bisect.py on its
      operands), each run through its entry point with the P counters at
      0; then each kernel against its plain version, its device time
-     (torch.profiler), wrapper time (CUDA events), plain time, the time
+     (torch.profiler; for P3 the whole call, its fill and its adds, as
+     the bound counts), wrapper time (CUDA events), plain time, the time
      of each one-call PyTorch version of the same function
      (`index_select` and `tab[idx]`, `index_add_`; P1-P4; the faster is
      `library_ms`) and its bound; P5 also each rung's device time and
@@ -643,13 +644,16 @@ def measure(bf, name, calls, request, launches, reps):
 
 # ------------------------------------------------- phase 8: the tool path
 
-# probe: (its CUDA function, the TPU kernel it replaces)
+# probe: (the device ops of one wrapper call, its CUDA kernel first; the
+# TPU kernel it replaces).  P3's call is its C entry's memset of the
+# output and the kernel's adds.
 PROBE_SPECS = {
-    "gather_rows_f32": ("gather_rows_kernel", "tools/pallas_probe.py:43"),
-    "gather_rows_bf16": ("gather_rows_kernel", "tools/pallas_probe.py:78"),
-    "scatter_add_rows": ("scatter_add_rows_kernel",
+    "gather_rows_f32": (("gather_rows_kernel",), "tools/pallas_probe.py:43"),
+    "gather_rows_bf16": (("gather_rows_kernel",),
+                         "tools/pallas_probe.py:78"),
+    "scatter_add_rows": (("scatter_add_rows_kernel", "Memset (Device)"),
                          "tools/pallas_probe.py:124"),
-    "gather_rows_bulk": ("gather_rows_bulk_kernel",
+    "gather_rows_bulk": (("gather_rows_bulk_kernel",),
                          "tools/pallas_probe.py:168")}
 
 
@@ -708,13 +712,17 @@ def phase8(seed, reps=50):
     entries = []
     for pid, p in zip(("P1", "P2", "P3", "P4"),
                       kernel_probe.probes("cuda", seed)):
-        kname, src = PROBE_SPECS[p.name]
+        knames, src = PROBE_SPECS[p.name]
         ok, err = p.agrees(p.fn(*p.args), p.plain(*p.args))
         check(ok, f"phase 8: {p.name} vs plain, max abs err {err}")
         ev = device_events(lambda: [p.fn(*p.args) for _ in range(reps)])
-        ms, seen = profiled_ms(ev, [kname])[kname]
+        ops = profiled_ms(ev, knames)
         wrapper_ms = cuda_ms(lambda: p.fn(*p.args), reps)
-        ms_by = f"profiler device time per launch ({seen} of {reps} seen)"
+        # a call's device time: each of its ops' mean per launch, summed
+        ms = None if any(v is None for v, _ in ops.values()) else sum(
+            v for v, _ in ops.values())
+        ms_by = ("profiler device time per call: " + ", ".join(
+            f"{k} ({n} of {reps} seen)" for k, (_, n) in ops.items()))
         if ms is None:              # no device trace: the whole call
             ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
         # each one-call PyTorch version: CUDA events around the call, its
@@ -734,7 +742,7 @@ def phase8(seed, reps=50):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=libraries[library]["ms"], library=library,
             libraries=libraries, request="kernel_probe", ms_by=ms_by,
-            wrapper_ms=wrapper_ms,
+            wrapper_ms=wrapper_ms, kernel_ms=ops[knames[0]][0],
             # every device kernel of one call (P3's zero fill included)
             call_device_ms=per_call_ms(ev, reps), rows=p.rows))
 
@@ -782,7 +790,8 @@ def phase8(seed, reps=50):
         libs = "; ".join(f"{n} {v['ms']:.4f} ms (device {v['device_ms']} ms"
                          f" in {v['device_kernels']})"
                          for n, v in e.get("libraries", {}).items())
-        print(f"phase 8: {e['id']} {e['name']}: kernel {e['ms']:.4f} ms, "
+        print(f"phase 8: {e['id']} {e['name']}: device {e['ms']:.5f} ms "
+              f"(kernel {e.get('kernel_ms', e['ms'])} ms), "
               f"wrapper {e['wrapper_ms']:.4f} ms (device "
               f"{e.get('call_device_ms')} ms), plain {e['plain_ms']:.4f} "
               f"ms, bound {e['bound_ms']:.5f} ms by {e['bound_by']}; "

@@ -24,7 +24,7 @@ import torch
 from google_nerf_tpu_torch.ops.cuda import _build
 
 GATHER_DTYPES = (torch.float32, torch.bfloat16)
-BULK_MAX_ROW_BYTES = 512      # csrc/probe.cu: 64 rows in a 32 KiB tile
+BULK_MAX_ROW_BYTES = 512      # csrc/probe.cu: a warp's 32 rows in 16 KiB
 
 
 def _declare(lib):
@@ -153,20 +153,23 @@ def scatter_add_rows(sidx: torch.Tensor, vals: torch.Tensor,
     """P3: out = zeros(T, F); out[sidx[i]] += vals[i] for every i.
 
     sidx (NS,) int32 in [0, T), vals (NS, F) float32; returns (T, F)
-    float32.  The kernel adds with atomics, so the order of each row's
-    sums, and its last bits, vary from run to run.  On CUDA an index
-    outside [0, T) trips a device-side assert."""
+    float32.  On CUDA the C entry zeroes the output (a memset on the
+    stream) and the kernel adds into it with atomics, 16 bytes a
+    reduction where F and alignment allow, so the order of each row's
+    sums, and its last bits, vary from run to run; an index outside
+    [0, T) trips a device-side assert.  `launches` counts the kernel's
+    launches: none when vals is empty (the memset alone)."""
     _check_scatter(sidx, vals, T)
     if vals.device.type == "cpu":
         return scatter_add_rows_plain(sidx, vals, T)
     if vals.numel() >= 2 ** 31:
         raise ValueError(f"{vals.numel()} values: at most 2^31 - 1")
-    out = torch.zeros((T, vals.shape[1]), dtype=torch.float32,
+    out = torch.empty((T, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
-    if vals.numel():
+    if out.numel() or vals.numel():     # the entry zeroes out itself
         _launch("probe_scatter_add_rows", _ptr(sidx), sidx.shape[0],
                 _ptr(vals), vals.shape[1], _ptr(out), T, dev=vals.device)
-        scatter_add_rows.launches += 1
+        scatter_add_rows.launches += vals.numel() > 0
     return out
 
 
@@ -186,7 +189,8 @@ def scatter_add_rows_plain(sidx: torch.Tensor, vals: torch.Tensor,
 
 def gather_rows_bulk(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P4: out[g] = tab[idx[g]], each row brought into shared memory by
-    its own bulk copy (TMA) on an mbarrier.
+    its own bulk copy (TMA), a warp's 32 rows on one mbarrier, and the
+    warp's tile stored by one bulk copy.
 
     As gather_rows, with rows of at most 512 bytes; other rows raise
     ValueError on every device (the kernel never falls back)."""

@@ -3,7 +3,7 @@ questions on the card: a row gather from a table in device memory (f32
 and bf16), a row scatter-add with atomics, and a row gather made of one
 bulk copy (TMA) per row.
 
-    python -m google_nerf_tpu_torch.tools.kernel_probe [--seed N]
+    python -m google_nerf_tpu_torch.tools.kernel_probe [--seed N] [--profile]
 
 Sizes are the JAX tool's: a (65536, 32) table, 1M gathered rows, 131072
 scattered rows, 16384 bulk-copied rows.  Each probe prints one line in
@@ -12,8 +12,10 @@ gathers bitwise, the scatter within atol 1e-5), its ms and M rows/s,
 with the times of the one-call PyTorch versions of the same function
 beside it (`index_select` and `tab[idx]` for a gather, `index_add_` for
 the scatter).  Times are means over REPS back-to-back calls by CUDA
-events.  Runs on the card only; exits 1 without one, or if a probe does
-not work.
+events.  --profile adds each wrapper call's device time by
+torch.profiler: every device op of one call (a fill included), each
+op's mean per launch over PROFILE_REPS calls.  Runs on the card only;
+exits 1 without one, or if a probe does not work.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ N = 1 << 20                 # rows gathered (P1, P2)
 NS = 1 << 17                # rows scattered (P3)
 NC = 1 << 14                # rows bulk-copied (P4)
 REPS = 20                   # back-to-back calls per timing
+PROFILE_REPS = 50           # calls per profiled timing (the profiler can
+                            # miss a session's first launches)
 SCATTER_ATOL = 1e-5         # ~2 N(0,1) rows land on each table row: an
                             # f32 sum in another order moves by a few ulp
 
@@ -120,9 +124,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> tuple[float, dict[str, tuple[float, int]]]:
+    """(device ms of one call, {device op: (ms per launch, launches
+    seen)}) by torch.profiler over reps back-to-back calls of fn after one
+    warm-up.  The profiler can miss launches, so an op's time is its mean
+    over the launches seen, and its launches per call its count over reps
+    (rounded, at least 1)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: (e.self_device_time_total / 1e3 / e.count, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    return sum(ms * max(1, round(n / reps)) for ms, n in ops.values()), ops
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="add each call's device time by torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device; the probes run "
@@ -137,6 +165,12 @@ def main(argv=None) -> int:
         print(f"{p.label} cuda {p.what} works={ok} (max abs err {err:.1e}):"
               f" {ms:.4f} ms = {p.rows / ms / 1e3:.0f} M rows/s; {libs}",
               flush=True)
+        if args.profile:
+            call_ms, ops = device_ms(lambda: p.fn(*p.args), PROFILE_REPS)
+            each = "; ".join(f"{k[:60]} {v:.5f} ms x{n}"
+                             for k, (v, n) in ops.items())
+            print(f"{p.label} device {call_ms:.5f} ms a call: {each}",
+                  flush=True)
     return 1 if failed else 0
 
 

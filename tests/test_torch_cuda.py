@@ -502,6 +502,111 @@ def test_cuda_probes_match_plain(sizes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_bytes", [16, 128, 512])
+@pytest.mark.parametrize("nc", [1, 31, 32, 33, 77, 16384])
+def test_cuda_bulk_gather_warp_tiles(nc, row_bytes, dtype):
+    """P4 on full and ragged warp tiles (32 rows a warp) and rows of 16,
+    128 and 512 bytes in f32 and bf16: bitwise the plain version's, one
+    launch a call; through the C entry, the warps' bulk stores leave the
+    rows of a larger output past the last gathered row untouched."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    f = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device="cuda").manual_seed(nc + row_bytes)
+    tab = torch.randn(1000, f, generator=g, device="cuda").to(dtype)
+    idx = torch.randint(0, 1000, (nc,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    before = probe.gather_rows_bulk.launches
+    got = probe.gather_rows_bulk(tab, idx)
+    torch.cuda.synchronize()
+    assert probe.gather_rows_bulk.launches == before + 1
+    assert torch.equal(got, probe.gather_rows_bulk_plain(tab, idx))
+    out = torch.full((nc + 40, f), 7.0, dtype=dtype, device="cuda")
+    probe._launch("probe_gather_rows_bulk", probe._ptr(tab), tab.shape[0],
+                  row_bytes, probe._ptr(idx), nc, probe._ptr(out),
+                  dev=out.device)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:nc], got)
+    assert bool((out[nc:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "vals_4B_off"])
+@pytest.mark.parametrize("f", [1, 3, 4, 16, 32, 33])
+def test_cuda_scatter_add_vector_and_scalar_words(f, offset):
+    """P3 with rows of whole 16-byte words (F = 4, 16, 32), words cut
+    short by F (1, 3, 33), and vals a contiguous view 4 bytes off a
+    16-byte boundary (every word takes the scalar adds): within atol 1e-5
+    of the plain version (~4 N(0,1) rows a table row), one launch."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    ns, t = 4099, 1000
+    g = torch.Generator(device="cuda").manual_seed(f)
+    buf = torch.randn(ns * f + 4, generator=g, device="cuda")
+    vals = buf[offset:offset + ns * f].view(ns, f)
+    assert vals.is_contiguous()
+    assert vals.data_ptr() % 16 == 4 * offset
+    sidx = torch.randint(0, t, (ns,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    before = probe.scatter_add_rows.launches
+    got = probe.scatter_add_rows(sidx, vals, t)
+    torch.cuda.synchronize()
+    assert probe.scatter_add_rows.launches == before + 1
+    assert float((got - probe.scatter_add_rows_plain(sidx, vals, t))
+                 .abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_add_all_onto_one_row():
+    """131,072 contributions of F = 32 all onto row 0 (16,384 float4
+    reductions on each of its 8 words): kernel and plain version each
+    within 1e-6 of the column's sum of |vals| of the f64 sum (an f32 sum
+    of N(0,1) values in any order drifts by ~2^-24 of it, ~6e-8); every
+    other row stays 0."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    ns, f, t = 1 << 17, 32, 1 << 16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    vals = torch.randn(ns, f, generator=g, device="cuda")
+    sidx = torch.zeros(ns, dtype=torch.int32, device="cuda")
+    exact = vals.double().sum(0)
+    tol = 1e-6 * vals.double().abs().sum(0)
+    for fn in (probe.scatter_add_rows, probe.scatter_add_rows_plain):
+        got = fn(sidx, vals, t)
+        assert bool(((got[0].double() - exact).abs() <= tol).all()), fn
+        assert not bool(got[1:].any()), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [0, 100])
+def test_cuda_scatter_add_fills_reused_memory(ns):
+    """The wrapper allocates with torch.empty and the C entry zeroes the
+    output itself: a call right after a NaN-filled (T, F) tensor was freed
+    gets that memory back and leaves no NaN in it, with few contributions
+    (most rows only filled; one kernel launch) or none (the fill alone,
+    no kernel launch)."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    _card()
+    t, f = 1 << 16, 32
+    g = torch.Generator(device="cuda").manual_seed(ns)
+    vals = torch.randn(ns, f, generator=g, device="cuda")
+    sidx = torch.randint(0, t, (ns,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    nan = torch.full((t, f), float("nan"), device="cuda")
+    ptr = nan.data_ptr()
+    del nan
+    before = probe.scatter_add_rows.launches
+    got = probe.scatter_add_rows(sidx, vals, t)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr         # the freed block, reused
+    assert probe.scatter_add_rows.launches == before + (ns > 0)
+    assert not bool(got.isnan().any())
+    assert float((got - probe.scatter_add_rows_plain(sidx, vals, t))
+                 .abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
 def test_cuda_narrow_bf16_table_and_odd_rows():
     """A bf16 table with F=16 (32-byte rows) through both gathers; rows
     of 12 and 10 bytes, which no 16-byte word divides, raise without a

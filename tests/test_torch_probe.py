@@ -159,10 +159,17 @@ def test_bulk_gather_matches_jax_reference_and_interpret_kernel():
 @pytest.mark.parametrize("n,f,dtype", [(1000, 32, "float32"),
                                        (999, 16, "bfloat16"),
                                        (77, 3, "float32"),
-                                       (0, 32, "float32")])
+                                       (0, 32, "float32"),
+                                       (33, 1, "float32"),
+                                       (129, 33, "float32"),
+                                       (31, 4, "float32"),
+                                       (65, 128, "float32"),
+                                       (33, 256, "bfloat16")])
 def test_ragged_gathers_and_scatter_match_jax(n, f, dtype):
-    """Sizes no block divides, narrow rows and an empty index; 12-byte
-    rows scatter but no gather takes them."""
+    """Sizes no block or 32-row warp tile divides, narrow rows and an
+    empty index; rows of 4, 12 and 132 bytes (F = 1, 3, 33: the scatter's
+    cut-short words) scatter but no gather takes them; the bulk gather's
+    smallest and largest rows, 16 and 512 bytes, in f32 and bf16."""
     tab, idx, vals, sidx = _inputs(seed=1, f=f, n=n, ns=n)
     jtab = jnp.asarray(tab).astype(getattr(jnp, dtype))
     ttab = torch.as_tensor(tab).to(getattr(torch, dtype))
