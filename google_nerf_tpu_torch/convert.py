@@ -1,6 +1,6 @@
 """Carry NGP weights from the JAX package into the port.
 
-Both functions take numpy data only, so nothing here imports JAX: a JAX
+These functions take numpy data only, so nothing here imports JAX: a JAX
 pytree is passed as nested dicts/lists of numpy arrays
 (`jax.tree_util.tree_map(np.asarray, params)`), and the bench state is
 the npz file that bench.py writes.
@@ -58,3 +58,38 @@ def load_bench_state(path, cfg: NGPConfig = NGPConfig(encoder="packed"),
     tree["rgb_mlp"] = rest[1:1 + n_rgb]
     tree["sigma_mlp"] = rest[1 + n_rgb:]
     return params_from_jax(tree, device), occ
+
+
+def train_state_from_jax(tree, cfg, device="cuda"):
+    """A JAX train state's numpy leaves -> the port's train state.
+
+    tree: dict with params (as params_from_jax takes them), density_grid,
+    occ, occ_u8 (the block2 dict of blocks4 and super) and step; the
+    optax state is not carried: the port's optimizer starts with zero
+    moments, as a fresh JAX state's does.  cfg: the port's TrainConfig."""
+    from google_nerf_tpu_torch.train.system import (make_optimizer,
+                                                    param_leaves)
+    params = params_from_jax(tree["params"], device)
+    for p in param_leaves(params).values():
+        p.requires_grad_(True)
+    state = dict(params=params, opt=make_optimizer(cfg, params))
+    state["density_grid"] = _t(tree["density_grid"], device)
+    state["occ"] = torch.as_tensor(np.asarray(tree["occ"], bool),
+                                   device=device)
+    state["occ_u8"] = {k: torch.as_tensor(np.asarray(v, np.int32),
+                                          device=device)
+                       for k, v in tree["occ_u8"].items()}
+    state["step"] = int(tree["step"])
+    return state
+
+
+def train_state_to_numpy(state):
+    """The port's train state -> numpy leaves in train_state_from_jax's
+    layout (no optimizer state)."""
+    def n(t):
+        return t.detach().cpu().numpy()
+    return dict(params={k: ([n(w) for w in v] if isinstance(v, list)
+                            else n(v)) for k, v in state["params"].items()},
+                density_grid=n(state["density_grid"]), occ=n(state["occ"]),
+                occ_u8={k: n(v) for k, v in state["occ_u8"].items()},
+                step=np.asarray(state["step"], np.int32))

@@ -179,3 +179,29 @@ class SyntheticDataset:
 
     def __len__(self):
         return 1000 if self.split.startswith("train") else len(self.poses)
+
+    def sample(self, rng, batch_size=8192):
+        """A host batch from a numpy Generator: rgb (numpy), img_idxs,
+        pix_idxs."""
+        img_idxs = rng.integers(0, len(self.poses), batch_size)
+        pix_idxs = rng.integers(0, self.img_wh[0] * self.img_wh[1],
+                                batch_size)
+        return {"rgb": self.rays[img_idxs, pix_idxs],
+                "img_idxs": img_idxs, "pix_idxs": pix_idxs}
+
+    def scene(self, images_uint8: bool = False, depths=None):
+        """The scene on self.device for the fused train step: images
+        (N, HW, 3) (uint8 if asked), per-ray ground-truth alphas (N, HW)
+        for training against random backgrounds, poses (N, 3, 4) and
+        directions (HW, 3)."""
+        imgs = self.rays
+        if images_uint8:
+            imgs = np.clip(imgs * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        dev = self.device
+        s = dict(images=torch.as_tensor(imgs, device=dev),
+                 alphas=torch.as_tensor(self.alphas, device=dev),
+                 poses=torch.as_tensor(self.poses, device=dev),
+                 directions=torch.as_tensor(self.directions, device=dev))
+        if depths is not None:
+            s["depths"] = torch.as_tensor(depths, device=dev)
+        return s

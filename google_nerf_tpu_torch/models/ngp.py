@@ -12,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from google_nerf_tpu_torch.core.rays import norm3
 from google_nerf_tpu_torch.models.encoders import sh_encode_deg4
 from google_nerf_tpu_torch.models.mlp import init_mlp, mlp_apply
 from google_nerf_tpu_torch.ops.packed_hash import (PackedHashConfig,
@@ -101,7 +102,7 @@ def ngp_apply(params, cfg: NGPConfig, x, d):
     """x, d: (N, 3) positions and view directions -> sigmas (N,),
     rgbs (N, 3)."""
     sigmas, h = ngp_density(params, cfg, x, return_feat=True)
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    d = d / norm3(d, keepdim=True)
     rgb_in = torch.cat([sh_encode_deg4(d), h], dim=-1)
     logits = mlp_apply(params["rgb_mlp"], rgb_in,
                        compute_dtype=cfg.compute_dtype)

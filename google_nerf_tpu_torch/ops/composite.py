@@ -1,5 +1,7 @@
-"""Front-to-back volume compositing over padded (R, K) sample grids
-(forward of google_nerf_tpu/ops/composite.py composite_rays_train)."""
+"""Front-to-back volume compositing over padded (R, K) sample grids (port
+of composite_rays_train in google_nerf_tpu/ops/composite.py).  Its
+gradient is autograd's through the same masked expression, as JAX's is
+XLA autodiff's: the T_threshold mask is a hard boundary."""
 from __future__ import annotations
 
 import torch
