@@ -1,9 +1,13 @@
-"""Baked sparse-voxel field (port of google_nerf_tpu/models/baked.py).
+"""Baked sparse-voxel field (port of google_nerf_tpu/models/baked.py;
+`render_test_baked` is ROADMAP item 15).
 
 The trained field is evaluated once onto a sparse pool of Bk^3-voxel
 blocks.  Each pool row holds all 8 trilinear corners of one voxel
 (8 corners x 16 features, corner-major, x = LSB of the corner index),
-so a renderer reads one 256-byte bf16 row per sample.
+so a renderer reads one 256-byte bf16 row per sample.  `baked_field`
+reads the field back with two lookups a sample (the block map, then the
+voxel's row); `baked_apply` adds the live rgb MLP, so the baked field
+can stand in for the live one in the one-shot renderer.
 """
 from __future__ import annotations
 
@@ -12,8 +16,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from google_nerf_tpu_torch.core.rays import norm3
+from google_nerf_tpu_torch.models.encoders import sh_encode_deg4
+from google_nerf_tpu_torch.models.mlp import mlp_apply
 from google_nerf_tpu_torch.models.ngp import NGPConfig, ngp_density
 from google_nerf_tpu_torch.ops.packed_hash import _corner_weights
+from google_nerf_tpu_torch.ops.trunc_exp import trunc_exp
 
 
 def baked_extent(cfg: NGPConfig) -> float:
@@ -108,7 +116,8 @@ def bake(params, cfg: NGPConfig, occ, bcfg: BakedConfig = BakedConfig(),
         pool[i * Bk ** 3:(i + nb) * Bk ** 3] = \
             rows.reshape(nb * Bk ** 3, 8 * F).to(pool_dtype)
     return dict(block_map=torch.as_tensor(block_map, device=device),
-                pool=pool, rgb_mlp=params["rgb_mlp"], n_blocks=n_blocks)
+                pool=pool, rgb_mlp=[w.detach() for w in params["rgb_mlp"]],
+                n_blocks=n_blocks)
 
 
 def trilerp_w8(frac):
@@ -116,6 +125,60 @@ def trilerp_w8(frac):
     corner c's offset on axis k is bit k of c (x = LSB), the packed hash
     table's corner order."""
     return _corner_weights(frac)
+
+
+def trilerp_rows(rows, frac, compute_dtype=torch.bfloat16):
+    """h (N, F) f32 from pool rows (N, 8F) and in-voxel fractions (N, 3)
+    at JAX's rounding points: frac, the corner weights and the rows in
+    compute_dtype, the 8-corner sum accumulated in f32 and rounded to
+    compute_dtype, then widened."""
+    w = trilerp_w8(frac.to(compute_dtype)).float()            # (N, 8)
+    r = rows.to(compute_dtype).reshape(rows.shape[0], 8, -1)
+    h = w[:, 0, None] * r[:, 0].float()
+    for c in range(1, 8):
+        h = h + w[:, c, None] * r[:, c].float()
+    return h.to(compute_dtype).float()
+
+
+def _voxel_coords(x, s: float, V: int):
+    """World x (..., 3) -> (v0 int64 voxel, frac f32) on the V^3 lattice
+    over [-s, s]; x / s is a true division (see ops/grid._div)."""
+    pos = torch.clamp(x / torch.full((), s, dtype=x.dtype, device=x.device)
+                      * 0.5 + 0.5, 0.0, 1.0 - 1e-6) * V
+    v0 = torch.floor(pos)
+    return v0.long(), pos - v0
+
+
+def baked_field(baked, cfg: NGPConfig, bcfg: BakedConfig, x,
+                compute_dtype=torch.bfloat16):
+    """x: (N, 3) world -> (sigmas (N,), h (N, F)) through the block map
+    and one pool row a sample; samples in empty blocks get sigma 0."""
+    V, Bk, Gb = bcfg.voxel_res, bcfg.block, bcfg.block_res
+    v0, frac = _voxel_coords(x, baked_extent(cfg), V)
+    b = torch.div(v0, Bk, rounding_mode="floor")
+    pb = baked["block_map"][(b[:, 0] * Gb + b[:, 1]) * Gb + b[:, 2]].long()
+    local = v0 - b * Bk
+    lid = (local[:, 0] * Bk + local[:, 1]) * Bk + local[:, 2]
+    rows = baked["pool"][torch.where(pb >= 0, pb * Bk ** 3 + lid, 0)]
+    h = trilerp_rows(rows, frac, compute_dtype)
+    return torch.where(pb >= 0, trunc_exp(h[:, 0]), 0.0), h
+
+
+def baked_apply(baked, cfg: NGPConfig, bcfg: BakedConfig, x, d):
+    """The baked field with the live rgb head: (sigmas, rgbs) as
+    ngp_apply gives them."""
+    sig, h = baked_field(baked, cfg, bcfg, x)
+    d = d / norm3(d, keepdim=True)
+    logits = mlp_apply(baked["rgb_mlp"], torch.cat([sh_encode_deg4(d), h], -1),
+                       compute_dtype=torch.bfloat16)
+    return sig, torch.sigmoid(logits)
+
+
+def make_baked_apply(bcfg: BakedConfig):
+    """apply_fn(baked, cfg, x, d) for the one-shot renderer."""
+    def apply_fn(params, cfg, x, d):
+        return baked_apply(params, cfg, bcfg, x, d)
+    return apply_fn
 
 
 def save_baked(path: str, baked, bcfg: BakedConfig):

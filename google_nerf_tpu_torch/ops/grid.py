@@ -220,3 +220,44 @@ def pack_super_liveness(occ, window: int, stride: int = 8) -> torch.Tensor:
                  ((1, 1, window), (1, 1, stride))):
         x = F.max_pool3d(x, k, stride=s)
     return (x[0, 0] > 0).to(torch.int32).reshape(-1)
+
+
+def pack_occupancy_u8(occ, dilation_radius: int = 2,
+                      super_radius: int = 0) -> torch.Tensor:
+    """occ: (C, G, G, G) bool -> (C, G, G, G) int32 word grid for the
+    segment marcher (ops/march_seg.py).  Per-cell bits:
+
+      bit 0        occupied (this cell)
+      bit 1        occupied within Chebyshev radius `dilation_radius`
+      bit 2        occupied within `super_radius` (only when > 0)
+      bits 3..29   the 3x3x3 FORWARD block: bit 3 + dx*9 + dy*3 + dz =
+                   occ[cell + (dx, dy, dz)], (dx, dy, dz) in {0, 1, 2}^3,
+                   out-of-grid = 0.
+
+    The name is JAX's (the layout was uint8 before the block bits)."""
+    occ = occ.to(torch.int32)
+    G = occ.shape[1]
+
+    def dilate(r):
+        # Chebyshev dilation is separable: one OR window per axis
+        out = occ
+        for axis in (1, 2, 3):
+            pad = [0, 0] * 3
+            pad[2 * (3 - axis)] = pad[2 * (3 - axis) + 1] = r
+            p = F.pad(out, pad)
+            acc = torch.zeros_like(out)
+            for s in range(2 * r + 1):
+                acc = acc | p.narrow(axis, s, G)
+            out = acc
+        return out
+
+    out = occ | (dilate(dilation_radius) << 1)
+    if super_radius > 0:
+        out = out | (dilate(super_radius) << 2)
+    padded = F.pad(occ, (0, 2, 0, 2, 0, 2))
+    for dx in range(3):
+        for dy in range(3):
+            for dz in range(3):
+                blk = padded[:, dx:dx + G, dy:dy + G, dz:dz + G]
+                out = out | (blk << (3 + dx * 9 + dy * 3 + dz))
+    return out

@@ -1,6 +1,6 @@
 """The two-phase block marcher for training (port of block2 in
-google_nerf_tpu/ops/march_block.py; `super_any_live` and the one-phase
-`march_rays_train_block` are ROADMAP items 14 and 15).
+google_nerf_tpu/ops/march_block.py, with `super_any_live`; the one-phase
+`march_rays_train_block` is ROADMAP item 15).
 
 Candidates lie on JAX's constant-step lattice t_i = t0 + i*dt, dt =
 sqrt(3)/max_samples, computed in the same order, so sample positions
@@ -84,6 +84,24 @@ def _phase_a_lives(sup_tab, o, d, t0, t2, hit, *, scale, grid_size,
                               rounding_mode="floor"), 0, Gq - 1)
     lives = sup_tab[_raster(a, Gq).long()] > 0               # (R, qs)
     return lives & (tsa < t2[:, None]) & hit[:, None], tsa
+
+
+def super_any_live(rays_o, rays_d, hits_t, occ2, *, scale: float,
+                   grid_size: int, max_samples: int, sg: int = 8,
+                   stride: int = 4, sup_stride: int = 8):
+    """Phase A alone: (R,) True iff ANY supergroup along the ray is live,
+    a conservative superset of 'this ray has an occupied candidate'.  The
+    compact-main one-shot renderer uses it to keep background rays out
+    of fine marching and field evaluation."""
+    dt = SQRT3 / max_samples
+    gs = block2_group(max_samples, scale, grid_size, stride) * sg
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    lives, _ = _phase_a_lives(
+        occ2["super"], rays_o.detach(), rays_d.detach(),
+        torch.clamp_min(t1, 0.0), t2, t1 >= 0, scale=scale,
+        grid_size=grid_size, dt=dt, gs=gs, qs=max_samples // gs,
+        sup_stride=sup_stride)
+    return lives.any(-1)
 
 
 def march_rays_train_block2(rays_o, rays_d, hits_t, occ2, *, scale: float,

@@ -834,3 +834,76 @@ def test_cuda_train_step_matches_cpu(dtype):
             1e-3 if k.startswith(("packed_table", "sigma_mlp")) else 1e-4)
         rel = float((g1[k] - g0[k]).norm() / g0[k].norm())
         assert rel <= tol, (k, rel)
+
+
+@pytest.mark.cuda
+def test_ssim_and_lpips_on_the_card_match_the_cpu():
+    """ssim and LPIPS turn TF32 off for their own convolutions: with the
+    cuDNN default left on, the card's scores equal the CPU's to float32
+    summation order (ssim rtol 1e-5, LPIPS 1e-4)."""
+    from google_nerf_tpu_torch.eval import metrics
+    dev = _card()
+    assert torch.backends.cudnn.allow_tf32      # the default, left as it is
+    g = torch.Generator().manual_seed(0)
+    gt = torch.rand((64, 48, 3), generator=g)
+    pred = (gt + 0.1 * torch.randn(gt.shape, generator=g)).clamp(0, 1)
+    s_cpu = float(metrics.ssim(pred, gt))
+    s_card = float(metrics.ssim(pred.to(dev), gt.to(dev)))
+    assert abs(s_card - s_cpu) <= 1e-5 * abs(s_cpu), (s_cpu, s_card)
+    w, cin, li = {}, 3, 0
+    for j, widths in enumerate(metrics._VGG_BLOCKS):
+        for cout in widths:
+            w[f"conv{li}_w"] = 0.05 * torch.randn((cout, cin, 3, 3),
+                                                  generator=g)
+            w[f"conv{li}_b"] = 0.05 * torch.randn((cout,), generator=g)
+            cin, li = cout, li + 1
+        w[f"lin{j}_w"] = 0.05 * torch.randn((1, cin, 1, 1),
+                                            generator=g).abs()
+    scorer = metrics.LPIPS(device="cpu")
+    scorer.weights = w
+    l_cpu = float(scorer(pred, gt))
+    scorer.weights = {k: v.to(dev) for k, v in w.items()}
+    l_card = float(scorer(pred.to(dev), gt.to(dev)))
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu), (l_cpu, l_card)
+
+
+@pytest.mark.cuda
+def test_oneshot_frame_on_the_card_matches_the_cpu():
+    """bench.py's one-shot settings (compact main, block2, drain) at toy
+    size: the card's frame, its encoder gathering on P2, against the
+    CPU's plain gather; rgb/opacity/depth atol 2e-3 (the frame
+    tolerance), drain trips and alive rays equal."""
+    from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.data.synthetic import (SyntheticDataset,
+                                                      analytic_field)
+    from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
+    from google_nerf_tpu_torch.models.render_test_oneshot import \
+        render_test_oneshot
+    from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
+    dev = _card()
+    cfg = NGPConfig(scale=0.5, encoder="packed", grid_size=32,
+                    packed_log2_size=12, packed_levels=4)
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, "cpu")
+    params["packed_table"] *= 1e3
+    c = ((torch.arange(32, dtype=torch.float32) + 0.5) / 32 * 2 - 1) * 0.5
+    xyz = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1)
+    occ = (analytic_field(xyz.reshape(-1, 3), "textured")[0] > 1.0
+           ).reshape(1, 32, 32, 32)
+    ds = SyntheticDataset(split="test", n_images=1, img_wh=(32, 32),
+                          style="textured", device="cpu")
+    o, d = get_rays(torch.as_tensor(ds.directions),
+                    torch.as_tensor(ds.poses[0]))
+    out = {}
+    for dv in ("cpu", dev):
+        occ2 = pack_occupancy_block2(occ.to(dv), max_samples=128, scale=0.5)
+        p = {k: ([w.to(dv) for w in v] if isinstance(v, list) else v.to(dv))
+             for k, v in params.items()}
+        out[str(dv)] = render_test_oneshot(
+            p, cfg, occ2, o.to(dv), d.to(dv), T_threshold=1e-2,
+            max_samples=128, k=32, budget_div=0, straggler_div=2, drain=True,
+            march="block2", compact_main=True, chunk=256)
+    a, b = out["cpu"], out["cuda"]
+    for k in ("rgb", "opacity", "depth"):
+        assert float((b[k].cpu() - a[k]).abs().max()) <= 2e-3, k
+    assert b["drain_trips"] == a["drain_trips"] > 1
+    assert int(b["alive_after_main"]) == int(a["alive_after_main"])

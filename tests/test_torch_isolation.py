@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: no module of theirs
-imports JAX, its libraries, ml_dtypes or anything of the JAX package."""
+"""The PyTorch port, chip_smoke.py and bench_torch.py stand alone: no
+module of theirs imports JAX, its libraries, ml_dtypes or anything of
+the JAX package."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "google_nerf_tpu",
           "ml_dtypes")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imports(path):
@@ -27,4 +28,5 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_the_port_has_files_to_check():
-    assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    assert len(FILES) > 10 and all(
+        (ROOT / f).exists() for f in ("chip_smoke.py", "bench_torch.py"))
