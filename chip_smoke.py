@@ -81,7 +81,16 @@ Phases:
      ground truth and counters, and the checks in phase11's notes.  K2
      on the mxu frame's calls, K1 on the mixed frame's and P2 on the
      one-shot frame's largest gather join the kernels line (requests
-     "trained mxu", "trained mixed", "oneshot").
+     "trained mxu", "trained mixed", "oneshot");
+ 12. the CLIs as a user runs them (train_torch.main, then
+     test_torch.run, in a temporary directory): training at opt.py's
+     defaults (f32, the seg march, budget 16 x batch) on the textured
+     scene at 256^2 for 1024 steps (the only cut: depth), with P2 and
+     P3; --val_only on its full checkpoint; serving it with oneshot,
+     fast and brick_mxu (tp on a 512^3 bake) at 256^2, and with oneshot
+     over the bake and brick_mxu at 800^2; checks and kernels-line
+     entries ("cli train", "cli oneshot", "cli fast", "cli brick_mxu")
+     in phase12's notes.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -338,18 +347,30 @@ def occupancy(cfg, dev):
 
 
 class Recorder:
-    """Wraps a kernel wrapper in the renderer module: records a snapshot
-    of every call's inputs (init is cloned: the frame updates in place)."""
+    """Wraps a kernel wrapper in the module that calls it: records a
+    snapshot of the inputs (init is cloned: the frame updates in place)
+    of every call (keep "all"), of its first `first` calls, of its
+    largest (by the size of args[arg]) or of its last; with `gate`, only
+    of the calls made while gate() is true.  Every call goes through."""
 
-    def __init__(self, fn):
-        self.fn, self.calls = fn, []
+    def __init__(self, fn, keep="all", arg=1, first=8, gate=None):
+        self.fn, self.keep, self.arg, self.first = fn, keep, arg, first
+        self.gate, self.calls = gate, []
 
     def __call__(self, *args, **kw):
-        snap = dict(kw)
-        if snap.get("init") is not None:
-            snap["init"] = snap["init"].clone()
-        snap.pop("out", None)
-        self.calls.append((args, snap))
+        if self.gate is None or self.gate():
+            snap = dict(kw)
+            if snap.get("init") is not None:
+                snap["init"] = snap["init"].clone()
+            snap.pop("out", None)
+            if self.keep == "all" or (self.keep == "first"
+                                      and len(self.calls) < self.first):
+                self.calls.append((args, snap))
+            elif self.keep == "last" or (
+                    self.keep == "largest" and (
+                        not self.calls or args[self.arg].numel()
+                        > self.calls[0][0][self.arg].numel())):
+                self.calls = [(args, snap)]
         return self.fn(*args, **kw)
 
 
@@ -1269,6 +1290,272 @@ def phase11(state, tcfg, dev):
     return summary, keys, entries
 
 
+# ---------------------------------- phase 12: the CLIs, train -> serve
+
+CLI_STEPS = 1024            # opt.py's default is 30 epochs x 1000 steps
+CLI_SCENE = ["--root_dir", "x", "--dataset_name", "synthetic",
+             "--synthetic_style", "textured", "--downsample", "4"]
+VIEW_800 = ["--downsample", "12.5"]          # the test views at 800x800
+# every tile of a chunk drainable, the drain lists unfiltered
+BRICK_EXACT = ["--brick_mxu_drain", "1024", "--brick_mxu_drain_xc", "0"]
+
+
+def reset_cli_counters(bf, probe):
+    for k in KERNELS:
+        getattr(bf, k).launches = 0
+    probe.gather_rows.launches = {"float32": 0, "bfloat16": 0}
+    probe.scatter_add_rows.launches = 0
+
+
+def cli_counters(bf, probe):
+    out = {k: getattr(bf, k).launches for k in KERNELS}
+    out["gather_rows_bf16"] = probe.gather_rows.launches["bfloat16"]
+    out["scatter_add_rows"] = probe.scatter_add_rows.launches
+    return out
+
+
+def with_kept(mod, names, run):
+    """run() with mod's wrappers `names` ({name: Recorder keywords})
+    recorded; returns (run's result, {name: recorded calls})."""
+    keep = {n: Recorder(getattr(mod, n), **kw) for n, kw in names.items()}
+    for n, k in keep.items():
+        setattr(mod, n, k)
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for n, k in keep.items():
+            setattr(mod, n, k.fn)
+    return out, {n: k.calls for n, k in keep.items()}
+
+
+def phase12(seed, steps=CLI_STEPS):
+    """The CLIs as a user runs them, in a temporary directory:
+    train_torch.main at opt.py's defaults (f32, batch 8192, the packed
+    encoder of 8 levels x 2^16, grid 128, max_samples 1024, k_samples
+    256, the seg march with sup 4 and n_keep_sup 24, backfill, budget 16
+    x batch) on the textured scene at 256^2 (--downsample 4: 50 train
+    and 50 test views), cut only in depth (1 epoch of `steps`); then
+    --val_only on its full checkpoint; then test_torch.run on it with
+    the renderers oneshot and fast, oneshot on fast's 1024-sample
+    lattice, brick_mxu (512^3 bake, tp) at test.py's defaults; then, on
+    the test views at 800^2, oneshot over the 512^3 bake (--bake) and
+    brick_mxu with every tile drainable (BRICK_EXACT).  Each run has the
+    kernel counters at 0 just before it (read just after).  Checks: P2
+    and P3 launched in training; the logged loss finite at every log
+    line; the full and slim checkpoints written; validate's PSNR >= 25
+    dB; the --val_only logs within 1e-4 dB of validate's, P2 launched
+    there; P2 launched by every run of the live field, K2 by every
+    brick_mxu run; fast's PSNR within 0.5 dB of oneshot's on the same
+    lattice; the 800^2 brick_mxu frame 0 with no pair undrained and its
+    PSNR within 1.5 dB of oneshot's over the same bake (the other gaps
+    printed).  P2/P3 on the training steps' last calls, P2 on the
+    largest gather of the default oneshot and of fast, and K2 on the
+    800^2 brick_mxu run's first 160 calls join the kernels line
+    (requests "cli train", "cli oneshot", "cli fast", "cli brick_mxu").
+    Returns (summary, kernels-line entries)."""
+    import os
+    import tempfile
+
+    import google_nerf_tpu_torch.models.render_brick_mxu as rbm
+    import test_torch
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.tools.kernel_probe import Probe
+    from google_nerf_tpu_torch.train import system as tsys
+    argv = CLI_SCENE + ["--num_epochs", "1", "--steps_per_epoch", str(steps),
+                        "--seed", str(seed), "--exp_name", "cli"]
+    cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000); "
+           "widths at opt.py's defaults")
+    print(f"phase 12: {cut}", flush=True)
+    summary, entries = dict(cut=cut, steps=steps), []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # ---- train; P2 and P3 calls kept from inside the train steps
+            # (the grid updates and validate gather through P2 too)
+            in_step = [False]
+            step_fn = tsys.fused_train_step
+
+            def gated_step(*a, **k):
+                in_step[0] = True
+                try:
+                    return step_fn(*a, **k)
+                finally:
+                    in_step[0] = False
+
+            gate = dict(keep="last", gate=lambda: in_step[0])
+            reset_cli_counters(bf, probe)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            tsys.fused_train_step = gated_step
+            try:
+                logs, kept = with_kept(
+                    ph, dict(gather_rows=gate, scatter_add_rows=gate),
+                    lambda: train_torch.main(get_opts(argv)))
+            finally:
+                tsys.fused_train_step = step_fn
+            launches = cli_counters(bf, probe)
+            train_s = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            for k in ("gather_rows_bf16", "scatter_add_rows"):
+                check(launches[k] > 0, f"phase 12: {k} not launched by "
+                      "train_torch")
+            recs = [json.loads(line) for line in open(
+                "results/synthetic/cli/logs/scalars.jsonl")]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            check(len(losses) == steps // 100 and all(
+                math.isfinite(v) for v in losses),
+                f"phase 12: logged losses {losses}")
+            ckdir = "ckpts/synthetic/cli/epoch=0"
+            for d in (ckdir, ckdir + "_slim"):
+                check(os.path.isfile(os.path.join(d, "state.pt")),
+                      f"phase 12: no checkpoint {d}")
+            check(logs["psnr"] >= 25.0,
+                  f"phase 12: validate psnr {logs['psnr']} < 25 dB")
+            summary["train"] = dict(logs, launches=launches,
+                                    wall_s=train_s, peak_gib=peak,
+                                    logged_loss=losses)
+            print(f"phase 12: train_torch: {steps} steps in {train_s:.1f} s "
+                  f"(with setup and validate); {logs.get('ms_per_step')} "
+                  f"ms/step net of warm-up, {logs.get('rays_per_sec')} "
+                  f"rays/s; validate psnr {logs['psnr']:.3f}, ssim "
+                  f"{logs['ssim']:.4f}; peak {peak:.2f} GiB; launches "
+                  f"{launches}", flush=True)
+            (tab, idx), _ = kept["gather_rows"][0]
+            (sidx, vals, T), _ = kept["scatter_add_rows"][0]
+            n = idx.numel()
+            for pid, p in (
+                    ("P2", Probe("cli train", "gather_rows_bf16",
+                                 f"the encoder's row gather, {n} x 16 bf16",
+                                 probe.gather_rows, probe.gather_rows_plain,
+                                 (tab, idx), n)),
+                    ("P3", Probe("cli train", "scatter_add_rows",
+                                 f"the table gradient, {n} x 16 f32 onto "
+                                 f"{T} rows", probe.scatter_add_rows,
+                                 probe.scatter_add_rows_plain,
+                                 (sidx, vals, T), n, scatter=True))):
+                entries.append(measure_probe(p, pid, launches[p.name],
+                                             "cli train", reps=50))
+                print_probe(entries[-1], "phase 12")
+            del kept, tab, idx, sidx, vals
+
+            # ---- validate the full checkpoint again
+            reset_cli_counters(bf, probe)
+            val = train_torch.main(get_opts(argv + [
+                "--val_only", "--no_save_test", "--ckpt_path", ckdir]))
+            torch.cuda.synchronize()
+            vl = cli_counters(bf, probe)
+            check(vl["gather_rows_bf16"] > 0,
+                  "phase 12: P2 not launched by --val_only")
+            dv = {k: abs(val[k] - logs[k]) for k in ("psnr", "ssim")}
+            check(dv["psnr"] <= 1e-4, f"phase 12: --val_only psnr "
+                  f"{val['psnr']} vs validate's {logs['psnr']}")
+            summary["val_only"] = dict(val, launches=vl, diff=dv)
+            print(f"phase 12: --val_only {val}; vs validate {dv}; launches "
+                  f"{vl}", flush=True)
+
+            # ---- serve the checkpoint.  fast marches the 1024-sample
+            # lattice, oneshot test.py's 512 by default: fast is held to
+            # oneshot on its own lattice.  At 256^2 an 8x8 tile spans ~10x
+            # the solid angle of an 800^2 frame's and brick_mxu's tile
+            # lists at test.py's defaults overflow their drain (pairs
+            # undrained, printed); at 800^2 with every tile drainable
+            # (BRICK_EXACT) it leaves none, and is held to oneshot over
+            # the same bake (the 512^3 bake, not the renderer, sets its
+            # distance from the live field).
+            served = {}
+            for label, r, extra, request in (
+                    ("oneshot", "oneshot", [], "cli oneshot"),
+                    ("fast", "fast", [], "cli fast"),
+                    ("oneshot_1024", "oneshot",
+                     ["--render_max_samples", "1024"], None),
+                    ("brick_mxu_256", "brick_mxu", [], None),
+                    ("oneshot_baked_800", "oneshot", VIEW_800 + ["--bake"],
+                     None),
+                    ("brick_mxu_800", "brick_mxu", VIEW_800 + BRICK_EXACT,
+                     "cli brick_mxu")):
+                reset_cli_counters(bf, probe)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                run = lambda: test_torch.run(get_opts(  # noqa: E731
+                    argv + ["--renderer", r, "--ckpt_path", ckdir] + extra))
+                if request is None:
+                    out, kept = run(), {}
+                    torch.cuda.synchronize()
+                elif r == "brick_mxu":
+                    out, kept = with_kept(
+                        rbm, dict(brick_field_tiles_tp=dict(keep="first",
+                                                            first=160)),
+                        run)
+                else:
+                    out, kept = with_kept(
+                        ph, dict(gather_rows=dict(keep="largest")), run)
+                sl = cli_counters(bf, probe)
+                info = dict(out, launches=sl, wall_s=time.time() - t0,
+                            peak_gib=torch.cuda.max_memory_allocated()
+                            / 2 ** 30)
+                served[label] = info
+                print(f"phase 12: test_torch --renderer {r} {' '.join(extra)}"
+                      f": mean psnr {out['psnr']:.3f}, fps {out['fps']:.2f}; "
+                      f"frame 0 {out['frame0']}; launches {sl}; "
+                      f"{info['wall_s']:.1f} s", flush=True)
+                check(math.isfinite(out["psnr"]),
+                      f"phase 12: {label} psnr {out['psnr']}")
+                if r == "brick_mxu":
+                    check(sl["brick_field_tiles_tp"] > 0,
+                          f"phase 12: K2 not launched by {label}")
+                elif "--bake" not in extra:
+                    check(sl["gather_rows_bf16"] > 0,
+                          f"phase 12: P2 not launched by {label}")
+                if request is None:
+                    continue
+                if r == "brick_mxu":
+                    entries.append(measure(
+                        bf, "brick_field_tiles_tp",
+                        kept["brick_field_tiles_tp"], request,
+                        sl["brick_field_tiles_tp"], reps=3, trained=True))
+                else:
+                    (tab, idx), _ = kept["gather_rows"][0]
+                    n = idx.numel()
+                    entries.append(measure_probe(
+                        Probe(request, "gather_rows_bf16",
+                              f"the {r} renderer's largest encoder gather, "
+                              f"{n} x 16 bf16", probe.gather_rows,
+                              probe.gather_rows_plain, (tab, idx), n),
+                        "P2", sl["gather_rows_bf16"], request, reps=20))
+                    print_probe(entries[-1], "phase 12")
+                del kept
+            gap = {k: abs(served[a]["psnr"] - served[b]["psnr"])
+                   for k, a, b in (
+                       ("fast_vs_oneshot", "fast", "oneshot"),
+                       ("fast_vs_oneshot_1024", "fast", "oneshot_1024"),
+                       ("brick_mxu_vs_oneshot_256", "brick_mxu_256",
+                        "oneshot"),
+                       ("brick_mxu_vs_baked_oneshot_800", "brick_mxu_800",
+                        "oneshot_baked_800"))}
+            print(f"phase 12: psnr gaps {gap}", flush=True)
+            check(gap["fast_vs_oneshot_1024"] <= 0.5,
+                  f"phase 12: fast psnr {gap['fast_vs_oneshot_1024']} dB "
+                  "from oneshot's on its lattice")
+            check(served["brick_mxu_800"]["frame0"]["pairs_undrained"] == 0,
+                  "phase 12: brick_mxu at 800^2 left pairs undrained")
+            check(gap["brick_mxu_vs_baked_oneshot_800"] <= 1.5,
+                  "phase 12: brick_mxu psnr "
+                  f"{gap['brick_mxu_vs_baked_oneshot_800']} dB from oneshot's "
+                  "over the same bake at 800^2")
+            summary["psnr_gaps"] = gap
+            summary["serve"] = served
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return summary, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1465,6 +1752,12 @@ def main():
     # ---- 11: bench.py's serving stages on the trained state
     stages, bench_keys, stage_kernels = phase11(state, tcfg, dev)
     kernels += stage_kernels
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- 12: train_torch.py -> test_torch.py at opt.py's defaults
+    cli, cli_kernels = phase12(args.seed)
+    kernels += cli_kernels
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -1475,6 +1768,10 @@ def main():
           f"{statistics.median(served['frame_ms']):.2f} ms; " + "; ".join(
               f"{n} warm {i['warm_ms']:.1f} ms, psnr {i['psnr']:.2f}"
               for n, i in stages.items() if "psnr" in i)
+          + f"; cli train {cli['train'].get('ms_per_step')} ms/step, "
+          f"validate psnr {cli['train']['psnr']:.2f}; " + "; ".join(
+              f"cli {r} psnr {i['psnr']:.2f}, fps {i['fps']:.2f}"
+              for r, i in cli["serve"].items())
           + f"; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
@@ -1487,7 +1784,7 @@ def main():
                   requests=summary, n512_vs_t512=nt,
                   rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
                   train=train, trained_wl256=served, serving_stages=stages,
-                  bench_keys=bench_keys, kernels=kernels)
+                  bench_keys=bench_keys, cli=cli, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

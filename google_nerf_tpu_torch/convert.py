@@ -64,9 +64,11 @@ def train_state_from_jax(tree, cfg, device="cuda"):
     """A JAX train state's numpy leaves -> the port's train state.
 
     tree: dict with params (as params_from_jax takes them), density_grid,
-    occ, occ_u8 (the block2 dict of blocks4 and super) and step; the
-    optax state is not carried: the port's optimizer starts with zero
-    moments, as a fresh JAX state's does.  cfg: the port's TrainConfig."""
+    occ, occ_u8 and step; occ_u8 is block2's dict of blocks4 and super,
+    or the int32 word grid (C, G, G, G) of the seg and dense layouts.
+    The optax state is not carried: the port's optimizer starts with
+    zero moments, as a fresh JAX state's does.  cfg: the port's
+    TrainConfig."""
     from google_nerf_tpu_torch.train.system import (make_optimizer,
                                                     param_leaves)
     params = params_from_jax(tree["params"], device)
@@ -76,11 +78,15 @@ def train_state_from_jax(tree, cfg, device="cuda"):
     state["density_grid"] = _t(tree["density_grid"], device)
     state["occ"] = torch.as_tensor(np.asarray(tree["occ"], bool),
                                    device=device)
-    state["occ_u8"] = {k: torch.as_tensor(np.asarray(v, np.int32),
-                                          device=device)
-                       for k, v in tree["occ_u8"].items()}
+    state["occ_u8"] = _words(tree["occ_u8"], device)
     state["step"] = int(tree["step"])
     return state
+
+
+def _words(occ_u8, device):
+    if isinstance(occ_u8, dict):
+        return {k: _words(v, device) for k, v in occ_u8.items()}
+    return torch.tensor(np.asarray(occ_u8, np.int32), device=device)
 
 
 def train_state_to_numpy(state):
@@ -91,5 +97,7 @@ def train_state_to_numpy(state):
     return dict(params={k: ([n(w) for w in v] if isinstance(v, list)
                             else n(v)) for k, v in state["params"].items()},
                 density_grid=n(state["density_grid"]), occ=n(state["occ"]),
-                occ_u8={k: n(v) for k, v in state["occ_u8"].items()},
+                occ_u8=({k: n(v) for k, v in state["occ_u8"].items()}
+                        if isinstance(state["occ_u8"], dict)
+                        else n(state["occ_u8"])),
                 step=np.asarray(state["step"], np.int32))

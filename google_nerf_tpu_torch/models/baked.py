@@ -1,5 +1,4 @@
-"""Baked sparse-voxel field (port of google_nerf_tpu/models/baked.py;
-`render_test_baked` is ROADMAP item 15).
+"""Baked sparse-voxel field (port of google_nerf_tpu/models/baked.py).
 
 The trained field is evaluated once onto a sparse pool of Bk^3-voxel
 blocks.  Each pool row holds all 8 trilinear corners of one voxel
@@ -7,7 +6,8 @@ blocks.  Each pool row holds all 8 trilinear corners of one voxel
 so a renderer reads one 256-byte bf16 row per sample.  `baked_field`
 reads the field back with two lookups a sample (the block map, then the
 voxel's row); `baked_apply` adds the live rgb MLP, so the baked field
-can stand in for the live one in the one-shot renderer.
+can stand in for the live one in the one-shot and fast renderers
+(`render_test_baked`).
 """
 from __future__ import annotations
 
@@ -175,10 +175,19 @@ def baked_apply(baked, cfg: NGPConfig, bcfg: BakedConfig, x, d):
 
 
 def make_baked_apply(bcfg: BakedConfig):
-    """apply_fn(baked, cfg, x, d) for the one-shot renderer."""
+    """apply_fn(baked, cfg, x, d) for the one-shot and fast renderers."""
     def apply_fn(params, cfg, x, d):
         return baked_apply(params, cfg, bcfg, x, d)
     return apply_fn
+
+
+def render_test_baked(baked, cfg: NGPConfig, occ_u8, rays_o, rays_d,
+                      bcfg: BakedConfig = BakedConfig(), **kw):
+    """render_test_fast over the baked field (its keywords in kw)."""
+    from google_nerf_tpu_torch.models.render_test_fast import \
+        render_test_fast
+    return render_test_fast(baked, cfg, occ_u8, rays_o, rays_d,
+                            apply_fn=make_baked_apply(bcfg), **kw)
 
 
 def save_baked(path: str, baked, bcfg: BakedConfig):

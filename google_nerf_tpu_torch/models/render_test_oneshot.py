@@ -30,10 +30,11 @@ import torch
 from google_nerf_tpu_torch.core.rays import norm3
 from google_nerf_tpu_torch.models.ngp import NGPConfig, ngp_apply
 from google_nerf_tpu_torch.ops.compaction import pack, plan_packing
+from google_nerf_tpu_torch.ops.composite import _exclusive_cumsum
 from google_nerf_tpu_torch.ops.march_block import (block2_group,
                                                    march_rays_train_block2,
                                                    super_any_live)
-from google_nerf_tpu_torch.ops.march_seg import march_rays_train_seg
+from google_nerf_tpu_torch.ops.march_seg import _first_k, march_rays_train_seg
 from google_nerf_tpu_torch.ops.ray_aabb import clamp_near, ray_aabb_intersect
 from google_nerf_tpu_torch.ops.stream_composite import composite_stream_train
 
@@ -82,14 +83,14 @@ def _render_pass(params, cfg: NGPConfig, occ_u8, rays_o, rays_d, t_cur, t2,
                                      R, K, T_threshold)
     else:
         # dense pass: the field on every padded slot, composited row-wise
-        # (the exclusive sum in JAX's form, cumsum - sd)
+        # (the exclusive sum in JAX's form)
         sig, rgb_s = field(params, cfg, m["xyzs"].reshape(-1, 3),
                            m["dirs"].reshape(-1, 3))
         sig = sig.reshape(R, K)
         rgb_s = rgb_s.reshape(R, K, 3)
         sd = torch.clamp_max(torch.where(m["valid"], sig * m["deltas"], 0.0),
                              80.0)
-        T_before = torch.exp(-(torch.cumsum(sd, -1) - sd))
+        T_before = torch.exp(-_exclusive_cumsum(sd))
         alpha = 1.0 - torch.exp(-sd)
         include = m["valid"] & (T_before > T_threshold)
         w = torch.where(include, T_before * alpha, 0.0)
@@ -124,21 +125,12 @@ def _clip(cfg: NGPConfig, rays_o, rays_du):
     return hits, t2, t_cur
 
 
-def _alive_first(alive, sr: int):
-    """The sr alive rays of lowest index (top_k on -index), padded with
-    dead ones: (indices, is_real)."""
-    N = alive.shape[0]
-    iota = torch.arange(N, dtype=torch.int32, device=alive.device)
-    svals, ridx = torch.topk(torch.where(alive, -iota, -(N + 1)), sr)
-    return ridx, svals > -(N + 1)
-
-
 def _straggler_pass(params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth,
                     T, t_cur, alive, *, sr, budget, **kw):
     """One straggler pass: the first sr alive rays resume their march from
     t_cur and their results are written back (dead picks keep their
     rows)."""
-    ridx, is_real = _alive_first(alive, sr)
+    ridx, is_real = _first_k(alive, sr)
     q = _render_pass(params, cfg, occ_u8, ro[ridx], rdu[ridx],
                      torch.where(is_real, t_cur[ridx], math.inf),
                      torch.where(is_real, t2[ridx], 0.0),
@@ -166,7 +158,7 @@ def _drain_pool(params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth, T,
                        t_cur[:, None], alive.to(torch.float32)[:, None]], 1)
     trips = 0
     while trips < max_passes and bool((state[:, 7] > 0.5).any()):
-        ridx, is_real = _alive_first(state[:, 7] > 0.5, sr)
+        ridx, is_real = _first_k(state[:, 7] > 0.5, sr)
         cg = const.index_select(0, ridx)
         sg = state.index_select(0, ridx)
         q = _render_pass(params, cfg, occ_u8, cg[:, 0:3], cg[:, 3:6],

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from google_nerf_tpu_torch.ops.marching import _first_k_occupied as _first_k
 from google_nerf_tpu_torch.ops.marching import mip_from_dt, mip_from_pos
 
 SQRT3 = 3.0 ** 0.5
@@ -110,19 +111,6 @@ def _seg_live_block(occ_u8, rays_o, rays_d, t_first, seg: int, dt,
     m = torch.clamp_max(torch.minimum(na, nb), grid_size - 3)
     w = occ_u8.reshape(-1)[_raster(m, grid_size).long()]
     return (w >> 3) != 0
-
-
-def _first_k(mask, K: int):
-    """The first K set entries of each row of mask (..., n): their
-    indices in ascending order, and whether each pick is a set entry.
-    topk on JAX's score (-iota where set): set entries' scores are
-    unique, so they come out in index order; unset picks are masked by
-    every caller."""
-    n = mask.shape[-1]
-    iota = torch.arange(n, dtype=torch.int32, device=mask.device)
-    score = torch.where(mask, -iota, -(n + 1))
-    vals, idx = torch.topk(score, K, dim=-1)
-    return idx, vals > -(n + 1)
 
 
 def _last_end(t0, idx, valid, span: int, dt: float):

@@ -17,9 +17,10 @@ from `draws`, a dict the caller passes (img_idxs, pix_idxs, bg, noise;
 the grid update's per-cascade draws), so tests can hand in the draws
 JAX made from its key.
 
-Only the flagship recipe's march is ported: `march="block2"`, single
-cascade, constant step.  The seg and dense marchers are ROADMAP item
-14, the block marcher item 15.
+The marchers: block2 (bench.py's recipe), seg (opt.py's default, with
+super-segments when sup > 1) and the dense lattice, on one cascade with
+a constant step.  The one-phase block marcher is ROADMAP item 15; other
+cascades and the exponential step come with item 19's datasets.
 """
 from __future__ import annotations
 
@@ -33,8 +34,10 @@ from google_nerf_tpu_torch.core.rays import axisangle_to_R, get_rays
 from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp, ngp_density
 from google_nerf_tpu_torch.models.rendering import MAX_SAMPLES, render_train
 from google_nerf_tpu_torch.ops.grid import (mark_invisible_cells,
+                                            pack_occupancy_u8,
                                             update_density_grid)
 from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
+from google_nerf_tpu_torch.ops.march_seg import required_dilation_radius
 from google_nerf_tpu_torch.train.losses import NeRFLoss
 
 SQRT3 = 3.0 ** 0.5
@@ -62,13 +65,17 @@ class TrainConfig:
     T_threshold: float = 1e-4
     samples_budget: int = 0       # field evaluations per step (0 = R*K)
     random_bg: bool = False       # train against random backgrounds
-    exclude_incomplete: str = "backfill"   # "none" or "backfill"
+    exclude_incomplete: str = "backfill"   # none | hard | floor | backfill
+    incomplete_floor: float = 0.5  # "floor": keep >= this share supervised
     random_bg_per_ray: bool = True
     weight_decay: float = 0.0     # decoupled decay on the encoder table
-    march: str = "seg"            # only "block2" is ported
-    seg: int = 8                  # seg * n_keep: the block2 march's reach
-    n_keep: int = 32
-    n_keep_groups: int = 0        # live groups kept (0: from the reach)
+    march: str = "seg"            # "seg" | "block2" | "dense"
+    seg: int = 8                  # candidates per segment
+    n_keep: int = 32              # live segments kept per ray
+    sup: int = 4                  # segments per super-segment (0: none)
+    n_keep_sup: int = 24          # live super-segments kept
+    block_group: int = 0          # march="block" (ROADMAP item 15)
+    n_keep_groups: int = 0        # block2: live groups kept (0: the reach)
 
     @property
     def density_threshold(self) -> float:
@@ -79,14 +86,32 @@ class TrainConfig:
         return self.num_epochs * self.steps_per_epoch
 
 
-def _require_block2(cfg: TrainConfig):
-    if cfg.march != "block2" or cfg.model.cascades != 1 \
-            or cfg.exp_step_factor != 0.0:
+def _require_ported(cfg: TrainConfig):
+    if cfg.march == "block":
         raise NotImplementedError(
-            f"march={cfg.march!r} with {cfg.model.cascades} cascade(s), "
-            f"exp_step_factor={cfg.exp_step_factor}: only the single-cascade "
-            "constant-step block2 march is ported; the seg and dense "
-            "marchers are ROADMAP item 14, the block marcher item 15")
+            "march='block': the one-phase block marcher is ROADMAP item 15")
+    if cfg.model.cascades != 1 or cfg.exp_step_factor != 0.0:
+        raise NotImplementedError(
+            f"{cfg.model.cascades} cascade(s), exp_step_factor="
+            f"{cfg.exp_step_factor}: only single-cascade constant-step "
+            "scenes are ported; the others come with ROADMAP item 19's "
+            "datasets")
+
+
+def pack_marching_grid(occ, cfg: TrainConfig):
+    """The marcher's packed tables from the boolean grid: block2's dict,
+    or the segment marcher's dilated word grid (super-dilated too when
+    sup > 1)."""
+    m = cfg.model
+    if cfg.march == "block2":
+        return pack_occupancy_block2(occ, max_samples=cfg.max_samples,
+                                     scale=m.scale)
+    return pack_occupancy_u8(
+        occ, required_dilation_radius(cfg.seg, m.grid_size, cfg.max_samples,
+                                      m.scale),
+        super_radius=(required_dilation_radius(
+            cfg.seg * cfg.sup, m.grid_size, cfg.max_samples, m.scale)
+            if cfg.sup > 1 else 0))
 
 
 def cosine_lr(cfg: TrainConfig):
@@ -149,7 +174,7 @@ def init_train_state(cfg: TrainConfig, K, poses, img_wh, *, generator=None,
     """K: (3, 3) intrinsics; poses: (N, 3, 4) c2w; img_wh: (w, h).
     params: init_ngp's from `generator` (a CPU Generator, seed 0 if None)
     unless given."""
-    _require_block2(cfg)
+    _require_ported(cfg)
     m = cfg.model
     if params is None:
         params = init_ngp(generator or torch.Generator().manual_seed(0), m,
@@ -164,17 +189,18 @@ def init_train_state(cfg: TrainConfig, K, poses, img_wh, *, generator=None,
         K, poses, img_w=int(img_wh[0]), img_h=int(img_wh[1]),
         grid_size=m.grid_size, cascades=m.cascades, scale=m.scale,
         device=device)
-    gs4, gq = m.grid_size // 4, m.grid_size // 8
+    occ = torch.zeros((m.cascades,) + (m.grid_size,) * 3, dtype=torch.bool,
+                      device=device)
+    if cfg.march == "block2":
+        gs4, gq = m.grid_size // 4, m.grid_size // 8
+        occ_u8 = dict(
+            blocks4=torch.zeros((gs4 ** 3, 16), dtype=torch.int32,
+                                device=device),
+            super=torch.zeros((gq ** 3,), dtype=torch.int32, device=device))
+    else:
+        occ_u8 = torch.zeros(occ.shape, dtype=torch.int32, device=device)
     return dict(params=params, opt=make_optimizer(cfg, params),
-                density_grid=density_grid,
-                occ=torch.zeros((m.cascades,) + (m.grid_size,) * 3,
-                                dtype=torch.bool, device=device),
-                occ_u8=dict(
-                    blocks4=torch.zeros((gs4 ** 3, 16), dtype=torch.int32,
-                                        device=device),
-                    super=torch.zeros((gq ** 3,), dtype=torch.int32,
-                                      device=device)),
-                step=0)
+                density_grid=density_grid, occ=occ, occ_u8=occ_u8, step=0)
 
 
 def refined_poses(params, poses, img_idxs):
@@ -220,7 +246,7 @@ def loss_and_results(params, occ, scene, batch, cfg: TrainConfig, *,
     and "occ_u8"; `step` gates the backfill (on from warmup_steps).
     bg (R, 3) or (3,) and noise (R,) are drawn from `generator` unless
     given."""
-    _require_block2(cfg)
+    _require_ported(cfg)
     step_now = cfg.warmup_steps if step is None else step
     poses = refined_poses(params, scene["poses"], batch["img_idxs"])
     dirs = scene["directions"][batch["pix_idxs"]]
@@ -242,11 +268,15 @@ def loss_and_results(params, occ, scene, batch, cfg: TrainConfig, *,
         params, cfg.model, occ["occ"], rays_o, rays_d, noise=noise,
         exp_step_factor=cfg.exp_step_factor, T_threshold=cfg.T_threshold,
         k_samples=cfg.k_samples, max_samples=cfg.max_samples,
-        samples_budget=cfg.samples_budget, occ_u8=occ["occ_u8"],
-        march=cfg.march, seg=cfg.seg, n_keep=cfg.n_keep,
-        n_keep_groups=cfg.n_keep_groups, bg_color=bg_color,
+        samples_budget=cfg.samples_budget,
+        # the dense marcher reads the boolean grid; "dense" takes the
+        # render's fallback branch, as JAX's march choice does
+        occ_u8=occ["occ_u8"] if cfg.march in ("seg", "block2") else None,
+        march=cfg.march, seg=cfg.seg, n_keep=cfg.n_keep, sup=cfg.sup,
+        n_keep_sup=cfg.n_keep_sup, n_keep_groups=cfg.n_keep_groups,
+        bg_color=bg_color,
         exclude_incomplete=cfg.exclude_incomplete,
-        backfill_rgb=batch["rgb"],
+        incomplete_floor=cfg.incomplete_floor, backfill_rgb=batch["rgb"],
         backfill_enable=step_now >= cfg.warmup_steps)
     total, _ = NeRFLoss(cfg.lambda_opacity, cfg.lambda_depth).total(
         results, batch)
@@ -319,8 +349,9 @@ def fused_train_step(state, scene, cfg: TrainConfig, *, draws=None,
 def grid_update_step(state, cfg: TrainConfig, *, warmup: bool, draws=None,
                      generator=None):
     """Density-grid maintenance: update the grid, its occupancy and the
-    block2 tables in place.  draws: ops.grid.grid_draws' list."""
-    _require_block2(cfg)
+    marcher's packed tables in place.  draws: ops.grid.grid_draws'
+    list."""
+    _require_ported(cfg)
     m = cfg.model
     params = state["params"]
     new_grid, occ = update_density_grid(
@@ -330,8 +361,7 @@ def grid_update_step(state, cfg: TrainConfig, *, warmup: bool, draws=None,
         generator=generator, draws=draws)
     state["density_grid"] = new_grid
     state["occ"] = occ
-    state["occ_u8"] = pack_occupancy_block2(occ, max_samples=cfg.max_samples,
-                                            scale=m.scale)
+    state["occ_u8"] = pack_marching_grid(occ, cfg)
     return state
 
 

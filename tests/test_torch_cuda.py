@@ -767,7 +767,7 @@ def test_cuda_packed_encoder_matches_cpu():
     torch.testing.assert_close(x1, x0, rtol=1e-5, atol=1e-5)
 
 
-def _tiny_train(dtype):
+def _tiny_train(dtype, march="block2"):
     from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     from google_nerf_tpu_torch.models.ngp import NGPConfig
     from google_nerf_tpu_torch.train import system as tsys
@@ -777,15 +777,32 @@ def _tiny_train(dtype):
                         compute_dtype=getattr(torch, dtype)),
         batch_size=256, k_samples=256, max_samples=256,
         samples_budget=7 * 256, grid_sample_div=16, random_bg=True,
-        exclude_incomplete="backfill", march="block2")
+        exclude_incomplete="backfill", march=march)
     ds = SyntheticDataset(split="train", n_images=4, img_wh=(24, 24),
                           style="textured", device="cpu")
     return tsys, cfg, ds
 
 
+def _to(v, d):
+    if isinstance(v, dict):
+        return {k: w.to(d) for k, w in v.items()}
+    return v.to(d)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_train_step_matches_cpu(dtype):
+    _train_step_card_vs_cpu(dtype, "block2")
+
+
+@pytest.mark.cuda
+def test_cuda_seg_train_step_matches_cpu():
+    """As test_cuda_train_step_matches_cpu, at opt.py's march: the seg
+    marcher with super-segments (sup 4), f32."""
+    _train_step_card_vs_cpu("float32", "seg")
+
+
+def _train_step_card_vs_cpu(dtype, march):
     """One step from the same state (the port's init after a warmup and a
     sampled grid update on the CPU), batch and draws, on the card and on
     the CPU: loss rtol 1e-4; gradients, as the norm of the
@@ -800,7 +817,7 @@ def test_cuda_train_step_matches_cpu(dtype):
     normalisation (torch.linalg.norm reduces in another order) move the
     table gradient past the f32 bound."""
     dev = _card()
-    tsys, cfg, ds = _tiny_train(dtype)
+    tsys, cfg, ds = _tiny_train(dtype, march)
     st = tsys.init_train_state(cfg, ds.K, ds.poses, ds.img_wh,
                                generator=torch.Generator().manual_seed(0),
                                device="cpu")
@@ -819,8 +836,7 @@ def test_cuda_train_step_matches_cpu(dtype):
                                   for w in v] if isinstance(v, list) else
                                  v.detach().to(d).requires_grad_())
                              for k, v in st["params"].items()},
-                 occ=st["occ"].to(d),
-                 occ_u8={k: v.to(d) for k, v in st["occ_u8"].items()})
+                 occ=st["occ"].to(d), occ_u8=_to(st["occ_u8"], d))
         sc = {k: v.to(d) for k, v in scene.items()}
         dr = {k: v.to(d) for k, v in draws.items()}
         b = tsys.sample_batch(sc, 256, img_idxs=dr["img_idxs"],
@@ -907,3 +923,49 @@ def test_oneshot_frame_on_the_card_matches_the_cpu():
         assert float((b[k].cpu() - a[k]).abs().max()) <= 2e-3, k
     assert b["drain_trips"] == a["drain_trips"] > 1
     assert int(b["alive_after_main"]) == int(a["alive_after_main"])
+
+
+@pytest.mark.cuda
+def test_render_test_fast_on_the_card_matches_the_cpu():
+    """render_test_fast (validate's renderer) at toy size: the card's
+    frame, its encoder gathering on P2, against the CPU's plain gather;
+    rgb/opacity/depth atol 2e-3 (the frame tolerance); P2 launched."""
+    from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.data.synthetic import (SyntheticDataset,
+                                                      analytic_field)
+    from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp
+    from google_nerf_tpu_torch.models.render_test_fast import \
+        render_test_fast
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.ops.grid import pack_occupancy_u8
+    from google_nerf_tpu_torch.ops.march_seg import required_dilation_radius
+    dev = _card()
+    cfg = NGPConfig(scale=0.5, encoder="packed", grid_size=32,
+                    packed_log2_size=12, packed_levels=4)
+    params = init_ngp(torch.Generator().manual_seed(0), cfg, "cpu")
+    params["packed_table"] *= 1e3
+    c = ((torch.arange(32, dtype=torch.float32) + 0.5) / 32 * 2 - 1) * 0.5
+    xyz = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1)
+    occ = (analytic_field(xyz.reshape(-1, 3), "textured")[0] > 1.0
+           ).reshape(1, 32, 32, 32)
+    words = pack_occupancy_u8(
+        occ, required_dilation_radius(8, 32, 256, 0.5),
+        super_radius=required_dilation_radius(32, 32, 256, 0.5))
+    ds = SyntheticDataset(split="test", n_images=1, img_wh=(32, 32),
+                          style="textured", device="cpu")
+    o, d = get_rays(torch.as_tensor(ds.directions),
+                    torch.as_tensor(ds.poses[0]))
+    out = {}
+    for dv in ("cpu", dev):
+        p = {k: ([w.to(dv) for w in v] if isinstance(v, list) else v.to(dv))
+             for k, v in params.items()}
+        before = probe.gather_rows.launches["bfloat16"]
+        out[str(dv)] = render_test_fast(
+            p, cfg, words.to(dv), o.to(dv), d.to(dv), T_threshold=1e-2,
+            bucket=256, k=16, n_segs=8, n_keep=4, max_samples=256)
+        if dv != "cpu":
+            assert probe.gather_rows.launches["bfloat16"] > before
+    a, b = out["cpu"], out["cuda"]
+    assert float(a["opacity"].mean()) > 0.02        # the frame holds content
+    for k in ("rgb", "opacity", "depth"):
+        assert float((b[k].cpu() - a[k]).abs().max()) <= 2e-3, k

@@ -1,6 +1,8 @@
-"""The PyTorch port, chip_smoke.py and bench_torch.py stand alone: no
-module of theirs imports JAX, its libraries, ml_dtypes or anything of
-the JAX package."""
+"""The PyTorch port, its entry points (chip_smoke.py, bench_torch.py,
+train_torch.py, test_torch.py) stand alone: no module of theirs imports
+JAX, its libraries, ml_dtypes, anything of the JAX package, or the
+JAX-free root scripts opt.py, train.py, test.py and bench.py (the port
+keeps its own copies)."""
 import ast
 from pathlib import Path
 
@@ -8,9 +10,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "google_nerf_tpu",
-          "ml_dtypes")
+          "ml_dtypes", "opt", "train", "test", "bench")
+ENTRY_POINTS = ("chip_smoke.py", "bench_torch.py", "train_torch.py",
+                "test_torch.py")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    ROOT / f for f in ENTRY_POINTS]
 
 
 def _imports(path):
@@ -28,5 +32,4 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_the_port_has_files_to_check():
-    assert len(FILES) > 10 and all(
-        (ROOT / f).exists() for f in ("chip_smoke.py", "bench_torch.py"))
+    assert len(FILES) > 10 and all((ROOT / f).exists() for f in ENTRY_POINTS)

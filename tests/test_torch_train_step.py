@@ -17,6 +17,8 @@ own op-by-op run on this fixture, so JAX is run op by op.  The Adam update from 
 same gradients rtol 1e-4 at steps 1 and 10.  One grid update: the grid
 rtol 1e-4, occ equal except at cells within 1e-5 relative of the
 threshold, and the block2 words equal to JAX's packing of that occ."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,12 +159,58 @@ def _grads_with_f64_composite(st, sc, tb, cfg, draws):
         rendering.composite_stream_train = orig
 
 
-@pytest.mark.parametrize("dtype,step", [("bfloat16", 300), ("float32", 0)])
-def test_one_fused_train_step_matches_jax(world, dtype, step):
-    """One step at the recipe (random bg, backfill on past warmup at step
-    300, off at step 0): loss, metrics and every gradient."""
+def seg_words(occ, cfg):
+    """JAX's packing of occ for the seg and dense layouts (the word grid,
+    super-dilated when sup > 1), as its grid_update_step packs it."""
+    from google_nerf_tpu.ops.grid import pack_occupancy_u8
+    from google_nerf_tpu.ops.march_seg import required_dilation_radius
+    m = cfg.model
+    return np.asarray(pack_occupancy_u8(
+        jnp.asarray(occ), required_dilation_radius(
+            cfg.seg, m.grid_size, cfg.max_samples, m.scale),
+        super_radius=(required_dilation_radius(
+            cfg.seg * cfg.sup, m.grid_size, cfg.max_samples, m.scale)
+            if cfg.sup > 1 else 0)))
+
+
+def tree_for(tree, cfg):
+    """The state tree with occ_u8 in the layout cfg's march keeps."""
+    if cfg.march == "block2":
+        return tree
+    return dict(tree, occ_u8=seg_words(tree["occ"], cfg))
+
+
+# each case: (compute dtype, step, TrainConfig changes, render_train
+# keywords); backfill is on past warmup (step 300), off at step 0
+STEP_CASES = [
+    pytest.param("bfloat16", 300, {}, {}, id="bfloat16-300"),
+    pytest.param("float32", 0, {}, {}, id="float32-0"),
+    pytest.param("float32", 300, dict(march="seg", sup=4), {}, id="seg"),
+    pytest.param("float32", 300, dict(march="dense"), {}, id="dense"),
+    pytest.param("float32", 300, dict(exclude_incomplete="hard"), {},
+                 id="hard"),
+    pytest.param("float32", 300, dict(exclude_incomplete="floor",
+                                      incomplete_floor=0.3), {}, id="floor"),
+    pytest.param("float32", 300, dict(march="seg", sup=4),
+                 dict(stream=False), id="seg-padded"),
+]
+
+
+@pytest.mark.parametrize("dtype,step,over,render_kw", STEP_CASES)
+def test_one_fused_train_step_matches_jax(world, monkeypatch, dtype, step,
+                                          over, render_kw):
+    """One step from the same state and draws (random bg, the block2
+    march at bench.py's recipe unless a case changes it: the seg march
+    with super-segments, the dense lattice, the "hard" and "floor"
+    exclusion of incomplete rays, the padded composite after unpack):
+    loss, metrics and every gradient."""
     ds, tree, scene = world
-    jcfg, cfg = configs(dtype)
+    jcfg, cfg = configs(dtype, **over)
+    tree = tree_for(tree, cfg)
+    if render_kw:
+        for mod in (jsys, tsys):
+            monkeypatch.setattr(mod, "render_train", functools.partial(
+                mod.render_train, **render_kw))
     key = jax.random.PRNGKey(7)
     k2, draws = jax_step_draws(key, scene, cfg.batch_size)
     jst = jax_state(tree, jcfg, step)
@@ -196,7 +244,7 @@ def test_one_fused_train_step_matches_jax(world, dtype, step):
         tol = 2e-2 if dtype == "bfloat16" else (
             1e-3 if k.startswith(("packed_table", "sigma_mlp")) else 1e-4)
         assert _rel(grads[k], jg) <= tol, (k, _rel(grads[k], jg))
-    if dtype == "float32":
+    if dtype == "float32" and not render_kw:
         _, _, g64 = _grads_with_f64_composite(port_state(tree, cfg, step),
                                               sc, tb, cfg, draws)
         for k, g in grads.items():
@@ -283,6 +331,43 @@ def test_grid_update_step_matches_jax(world):
             np.testing.assert_array_equal(st["occ_u8"][k].numpy(),
                                           np.asarray(jst["occ_u8"][k]))
     assert 0 < occ.mean() < 1
+
+
+def test_grid_update_step_seg_words_match_jax(world):
+    """One sampled grid update with march="seg" (sup 4) on JAX's draws:
+    the word grid equals JAX's packing of the same occupancy word for
+    word, and JAX's own update where no cell sits at the threshold."""
+    _, tree, _ = world
+    jcfg, cfg = configs("float32", march="seg", sup=4)
+    tree = tree_for(tree, cfg)
+    key = jax.random.PRNGKey(5)
+    jst = jsys.grid_update_step(jax_state(tree, jcfg), key, cfg=jcfg,
+                                warmup=False)
+    st = tsys.grid_update_step(
+        port_state(tree, cfg), cfg, warmup=False,
+        draws=jax_grid_draws(key, 32, False, cfg.grid_sample_div))
+    words = st["occ_u8"].numpy()
+    assert words.dtype == np.int32 and words.shape == (1, 32, 32, 32)
+    np.testing.assert_array_equal(words, seg_words(st["occ"].numpy(), cfg))
+    if np.array_equal(st["occ"].numpy(), np.asarray(jst["occ"])):
+        np.testing.assert_array_equal(words, np.asarray(jst["occ_u8"]))
+    assert (words >> 1 & 1).sum() >= (words & 1).sum() > 0
+
+
+def test_seg_train_state_round_trip(world):
+    """A seg-layout JAX state (its occ_u8 the int32 word grid) through
+    the port and back: every leaf exact, the words too."""
+    _, tree, _ = world
+    _, cfg = configs(march="seg", sup=4)
+    tree = tree_for(tree, cfg)
+    st = port_state(tree, cfg)
+    assert st["occ_u8"].dtype == torch.int32
+    back = train_state_to_numpy(st)
+    flat = lambda t: jax.tree_util.tree_leaves(t)  # noqa: E731
+    assert len(flat(back)) == len(flat(tree))
+    for a, b in zip(flat(back), flat(tree)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, b)
 
 
 def test_train_state_round_trip(world):
