@@ -90,7 +90,17 @@ Phases:
      fast and brick_mxu (tp on a 512^3 bake) at 256^2, and with oneshot
      over the bake and brick_mxu at 800^2; checks and kernels-line
      entries ("cli train", "cli oneshot", "cli fast", "cli brick_mxu")
-     in phase12's notes.
+     in phase12's notes;
+ 13. datasets on disk through the CLIs (phase13's notes): an NSVF
+     Synthetic-layout scene of 800x800 RGBA PNGs trained by
+     train_torch.py at opt.py's defaults and served by test_torch.py; a
+     ScanNet-layout scene (1296x968 JPEGs from the port's encoder, a
+     metric frame, the mesh AABB, 16-bit PNG depth priors in mm) trained
+     by train_scannet_torch.py at 640x480 with and without the priors,
+     the supervised checkpoint served; decode, training and serving
+     checks; P2/P3 of the NSVF and supervised ScanNet training steps on
+     the kernels line (requests "nsvf", "scannet").  The image codec
+     (csrc/image_codec.c) builds in phase 1 with the host C compiler.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -137,6 +147,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 import bench_torch
@@ -1329,6 +1340,51 @@ def with_kept(mod, names, run):
     return out, {n: k.calls for n, k in keep.items()}
 
 
+def kept_training(tsys, ph, run):
+    """run() with the P2/P3 calls made inside fused_train_step recorded
+    (the last of each); returns (run's result, kept calls)."""
+    in_step = [False]
+    step_fn = tsys.fused_train_step
+
+    def gated_step(*a, **k):
+        in_step[0] = True
+        try:
+            return step_fn(*a, **k)
+        finally:
+            in_step[0] = False
+
+    gate = dict(keep="last", gate=lambda: in_step[0])
+    tsys.fused_train_step = gated_step
+    try:
+        return with_kept(ph, dict(gather_rows=gate, scatter_add_rows=gate),
+                         run)
+    finally:
+        tsys.fused_train_step = step_fn
+
+
+def train_probe_entries(probe, kept, launches, request, tag):
+    """P2 and P3 on the last training step's encoder calls, measured as
+    phase 8 measures the probes and printed under `tag`."""
+    from google_nerf_tpu_torch.tools.kernel_probe import Probe
+    (tab, idx), _ = kept["gather_rows"][0]
+    (sidx, vals, T), _ = kept["scatter_add_rows"][0]
+    n = idx.numel()
+    out = []
+    for pid, p in (
+            ("P2", Probe(request, "gather_rows_bf16",
+                         f"the encoder's row gather, {n} x 16 bf16",
+                         probe.gather_rows, probe.gather_rows_plain,
+                         (tab, idx), n)),
+            ("P3", Probe(request, "scatter_add_rows",
+                         f"the table gradient, {n} x 16 f32 onto {T} rows",
+                         probe.scatter_add_rows, probe.scatter_add_rows_plain,
+                         (sidx, vals, T), n, scatter=True))):
+        out.append(measure_probe(p, pid, launches[p.name], request,
+                                 reps=50))
+        print_probe(out[-1], tag)
+    return out
+
+
 def phase12(seed, steps=CLI_STEPS):
     """The CLIs as a user runs them, in a temporary directory:
     train_torch.main at opt.py's defaults (f32, batch 8192, the packed
@@ -1378,27 +1434,11 @@ def phase12(seed, steps=CLI_STEPS):
         try:
             # ---- train; P2 and P3 calls kept from inside the train steps
             # (the grid updates and validate gather through P2 too)
-            in_step = [False]
-            step_fn = tsys.fused_train_step
-
-            def gated_step(*a, **k):
-                in_step[0] = True
-                try:
-                    return step_fn(*a, **k)
-                finally:
-                    in_step[0] = False
-
-            gate = dict(keep="last", gate=lambda: in_step[0])
             reset_cli_counters(bf, probe)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
-            tsys.fused_train_step = gated_step
-            try:
-                logs, kept = with_kept(
-                    ph, dict(gather_rows=gate, scatter_add_rows=gate),
-                    lambda: train_torch.main(get_opts(argv)))
-            finally:
-                tsys.fused_train_step = step_fn
+            logs, kept = kept_training(
+                tsys, ph, lambda: train_torch.main(get_opts(argv)))
             launches = cli_counters(bf, probe)
             train_s = time.time() - t0
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1426,23 +1466,9 @@ def phase12(seed, steps=CLI_STEPS):
                   f"rays/s; validate psnr {logs['psnr']:.3f}, ssim "
                   f"{logs['ssim']:.4f}; peak {peak:.2f} GiB; launches "
                   f"{launches}", flush=True)
-            (tab, idx), _ = kept["gather_rows"][0]
-            (sidx, vals, T), _ = kept["scatter_add_rows"][0]
-            n = idx.numel()
-            for pid, p in (
-                    ("P2", Probe("cli train", "gather_rows_bf16",
-                                 f"the encoder's row gather, {n} x 16 bf16",
-                                 probe.gather_rows, probe.gather_rows_plain,
-                                 (tab, idx), n)),
-                    ("P3", Probe("cli train", "scatter_add_rows",
-                                 f"the table gradient, {n} x 16 f32 onto "
-                                 f"{T} rows", probe.scatter_add_rows,
-                                 probe.scatter_add_rows_plain,
-                                 (sidx, vals, T), n, scatter=True))):
-                entries.append(measure_probe(p, pid, launches[p.name],
-                                             "cli train", reps=50))
-                print_probe(entries[-1], "phase 12")
-            del kept, tab, idx, sidx, vals
+            entries += train_probe_entries(probe, kept, launches,
+                                           "cli train", "phase 12")
+            del kept
 
             # ---- validate the full checkpoint again
             reset_cli_counters(bf, probe)
@@ -1556,6 +1582,372 @@ def phase12(seed, steps=CLI_STEPS):
     return summary, entries
 
 
+# ------------------------------ phase 13: datasets on disk, train -> serve
+
+NSVF_VIEWS = (24, 4)         # 800^2 train, test views (Synthetic-NeRF: 100, 200)
+SCANNET_FRAMES = (24, 4)     # train, test frames (a ScanNet scan: hundreds)
+SCANNET_K = ((577.87, 0.0, 319.5), (0.0, 577.87, 239.5), (0.0, 0.0, 1.0))
+SCANNET_COLOR_WH = (1296, 968)
+SCANNET_SHIFT = (2.0, 1.5, 1.0)   # metres: the scan's AABB centre
+SCANNET_SCALE = 2.0               # metres: the loader's scale (AABB/2 x 1.05)
+JPEG_QUALITY = 95
+JPEG_MIN_PSNR = 40.0              # tests/test_torch_image.py's round trip
+
+
+def _homog(c2w):
+    return np.concatenate([c2w, [[0.0, 0.0, 0.0, 1.0]]], 0)
+
+
+def write_nsvf_scene(root, seed, dev):
+    """A Synthetic_NeRF-layout scene of the textured procedural scene:
+    800x800 RGBA PNGs (straight colour, alpha = the integrator's opacity)
+    of 0_* train and 2_* test views, pose/*.txt, intrinsics.txt (focal
+    800) and bbox.txt (the loader's AABB x 1.05 is [-0.5, 0.5]^3, so
+    the files' poses are the scene's).  Returns the decode checks."""
+    import os
+
+    from google_nerf_tpu_torch.data.base import directions_of
+    from google_nerf_tpu_torch.data.synthetic import (_fibonacci_poses,
+                                                      render_views)
+    from google_nerf_tpu_torch.utils.image import read_image, write_png
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "pose"))
+    r = 0.5 / 1.05
+    with open(os.path.join(root, "bbox.txt"), "w") as f:
+        f.write(f"{-r} {-r} {-r} {r} {r} {r} 0.01\n")
+    with open(os.path.join(root, "intrinsics.txt"), "w") as f:
+        f.write("800.0 400.0 400.0 0.\n0. 0. 0.\n0.\n1.\n800 800\n")
+    K = np.float32([[800, 0, 400], [0, 800, 400], [0, 0, 1]])
+    dirs = directions_of(800, 800, K)
+    worst, decode_s, n = 0, 0.0, 0
+    for prefix, count, s in (("0_", NSVF_VIEWS[0], seed),
+                             ("2_", NSVF_VIEWS[1], seed + 1000)):
+        poses = _fibonacci_poses(count, 1.2, s)
+        rgba = render_views(dirs, poses, style="textured", device=dev)
+        for i in range(count):
+            a = np.clip(rgba[i, :, 3], 0.0, 1.0)
+            rgb = np.where(a[:, None] > 1 / 510, rgba[i, :, :3]
+                           / np.maximum(a[:, None], 1e-6), 0.0)
+            img = np.concatenate([rgb, a[:, None]], -1).reshape(800, 800, 4)
+            img = (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
+            path = os.path.join(root, "rgb", f"{prefix}{i:04d}.png")
+            write_png(path, img)
+            np.savetxt(os.path.join(root, "pose", f"{prefix}{i:04d}.txt"),
+                       _homog(poses[i]))
+            t0 = time.time()
+            back = read_image(path)
+            decode_s += time.time() - t0
+            n += 1
+            worst = max(worst, int(np.abs(back.astype(int) - img).max()))
+    return dict(png_max_abs_err=worst, png_decode_s=decode_s / n, views=n)
+
+
+def write_scannet_scene(root, seed, dev):
+    """A ScanNet-layout scene of the textured procedural scene in a
+    metric frame (the unit cube scaled by 2 x SCANNET_SCALE m and moved
+    to SCANNET_SHIFT): 1296x968 JPEGs (the port's encoder, quality 95)
+    with K scaled from the 640x480 intrinsic_depth.txt, pose/*.txt,
+    <raw>/<scene>/<scene>_vh_clean_2.ply whose AABB x 1.05 maps the
+    cube onto [-0.5, 0.5]^3, test_step_10/{train,test}.txt, and depth
+    priors: 16-bit PNGs in mm of the integrator's expected z-depth at
+    640x480 (0 where its opacity is under 0.5).  Returns (scene dir, raw
+    root, priors dir, the decode checks, the test views' analytic ray
+    depth (N, 640*480) in metres and its mask)."""
+    import os
+
+    from google_nerf_tpu_torch.data.base import directions_of
+    from google_nerf_tpu_torch.data.ply import save_point_cloud
+    from google_nerf_tpu_torch.data.synthetic import (_fibonacci_poses,
+                                                      render_views)
+    from google_nerf_tpu_torch.utils.image import (read_image, write_jpeg,
+                                                   write_png)
+    name = "scene0000_00"
+    scene = os.path.join(root, "scans_processed", name)
+    raw = os.path.join(root, "scans")
+    priors = os.path.join(root, "priors", name)
+    for d in (os.path.join(scene, "rgb"), os.path.join(scene, "pose"),
+              os.path.join(scene, "test_step_10"), os.path.join(raw, name),
+              priors):
+        os.makedirs(d)
+    shift = np.asarray(SCANNET_SHIFT)
+    half = SCANNET_SCALE / 1.05
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                        for z in (-1, 1)], np.float32) * half + shift
+    save_point_cloud(os.path.join(raw, name, f"{name}_vh_clean_2.ply"),
+                     corners.astype(np.float32))
+    Kd = np.float32(SCANNET_K)
+    np.savetxt(os.path.join(scene, "intrinsic_depth.txt"),
+               _homog(np.concatenate([Kd, np.zeros((3, 1))], 1)))
+    cw, ch = SCANNET_COLOR_WH
+    Kc = Kd.copy()
+    Kc[0] *= cw / 640
+    Kc[1] *= ch / 480
+    n_train, n_test = SCANNET_FRAMES
+    n = n_train + n_test
+    poses = _fibonacci_poses(n, 1.2, seed)
+    test_ids = [i for i in range(n) if i % 5 == 4][:n_test]
+    with open(os.path.join(scene, "test_step_10", "train.txt"), "w") as f:
+        f.write("".join(f"{i}\n" for i in range(n) if i not in test_ids))
+    with open(os.path.join(scene, "test_step_10", "test.txt"), "w") as f:
+        f.write("".join(f"{i}\n" for i in test_ids))
+    dirs_c = directions_of(ch, cw, Kc)
+    dirs_d = directions_of(480, 640, Kd)
+    inv_norm = 1.0 / np.linalg.norm(dirs_d, axis=-1)        # z / ray
+    worst_psnr, decode_s, depth_err, png_err = np.inf, 0.0, 0.0, 0
+    test_depth, test_mask = [], []
+    for i in range(n):
+        c2w = poses[i].astype(np.float64).copy()
+        c2w[:, 3] = c2w[:, 3] * 2 * SCANNET_SCALE + shift
+        np.savetxt(os.path.join(scene, "pose", f"{i}.txt"), _homog(c2w))
+        rgba = render_views(dirs_c, poses[i:i + 1], style="textured",
+                            device=dev)[0]
+        rgb = np.clip(rgba[:, :3] + (1 - rgba[:, 3:4]), 0, 1)
+        img = (rgb.reshape(ch, cw, 3) * 255 + 0.5).astype(np.uint8)
+        path = os.path.join(scene, "rgb", f"{i}.jpg")
+        write_jpeg(path, img, quality=JPEG_QUALITY)
+        t0 = time.time()
+        back = read_image(path)
+        decode_s += time.time() - t0
+        mse = np.mean((back.astype(np.float64) - img) ** 2)
+        worst_psnr = min(worst_psnr, 10 * np.log10(255.0 ** 2 / mse))
+        dep = render_views(dirs_d, poses[i:i + 1], style="textured",
+                           with_depth=True, device=dev)[0]
+        mask = dep[:, 3] > 0.5
+        ray_m = np.where(mask, dep[:, 4] / np.maximum(dep[:, 3], 1e-6),
+                         0.0) * 2 * SCANNET_SCALE
+        mm = ray_m * inv_norm * 1000.0
+        path = os.path.join(priors, f"{i}.png")
+        mm16 = np.round(mm).astype(np.uint16).reshape(480, 640)
+        write_png(path, mm16)
+        back = read_image(path)
+        png_err = max(png_err, int(np.abs(back.astype(np.int64)
+                                          - mm16).max()))
+        depth_err = max(depth_err, float(np.abs(
+            back.reshape(-1).astype(np.float64) - mm).max()))
+        if i in test_ids:
+            test_depth.append(ray_m)
+            test_mask.append(mask)
+    checks = dict(jpeg_min_psnr=worst_psnr, jpeg_decode_s=decode_s / n,
+                  prior_png_max_abs_err=png_err, prior_max_err_mm=depth_err,
+                  frames=n)
+    return scene, raw, priors, checks, np.stack(test_depth), \
+        np.stack(test_mask)
+
+
+def test_view_depth_mae(argv, ckpt, gt_depth, gt_mask):
+    """Mean |rendered - analytic| ray depth in metres over the test views'
+    pixels of opacity > 0.5 (render_test_fast, as validate renders)."""
+    import train_torch
+    from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.models.render_test_fast import \
+        render_test_fast
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.train.system import init_train_state
+    from google_nerf_tpu_torch.utils.ckpt import load_ckpt
+    hp = get_opts(argv)
+    dev = train_torch.device_of(hp)
+    ds = train_torch.make_dataset(hp, "test", dev)
+    cfg = train_torch.build_configs(hp)
+    state = init_train_state(cfg, ds.K, ds.poses, ds.img_wh, device=dev)
+    state = load_ckpt(ckpt, target=state)
+    occ_u8 = train_torch.serving_words(state, cfg)
+    dirs = torch.as_tensor(ds.directions, device=dev)
+    errs = []
+    with torch.no_grad():
+        for i, pose in enumerate(torch.as_tensor(ds.poses, device=dev)):
+            o, d = get_rays(dirs, pose)
+            out = render_test_fast(state["params"], cfg.model, occ_u8, o, d,
+                                   max_samples=cfg.max_samples)
+            dep = out["depth"].cpu().numpy() * 2 * SCANNET_SCALE
+            errs.append(np.abs(dep - gt_depth[i])[gt_mask[i]])
+    return float(np.concatenate(errs).mean())
+
+
+def phase13(seed, steps=CLI_STEPS):
+    """Datasets on disk through the CLIs, in a temporary directory:
+
+      * NSVF: write_nsvf_scene, then train_torch.main at opt.py's
+        defaults (--dataset_name nsvf, 800x800, full width) for `steps`
+        steps, then test_torch.run's default renderer on the slim
+        checkpoint;
+      * ScanNet: write_scannet_scene, then train_scannet_torch.run at
+        opt.py's defaults (640x480) twice from one seed, with the depth
+        priors (--depth_dir, --depth_loss_w 0.1) and without
+        (--depth_loss_w 0), then test_torch.run on the supervised slim
+        checkpoint.
+
+    Cut in depth only (NSVF_VIEWS, SCANNET_FRAMES, `steps`).  Each run has
+    the kernel counters at 0 just before it (read just after).  Checks:
+    every PNG decodes to the array written, every JPEG within the CPU
+    test's 40 dB of its input, every prior within 1 mm; logged losses
+    finite; the supervised run logs a nonzero depth term; the two
+    ScanNet tables differ; validate PSNR >= 25 dB in the three runs; P2
+    and P3 launched in each training run; test_torch's PSNR within 1 dB
+    of validate's on the same checkpoint.  P2/P3 on the NSVF and the
+    supervised ScanNet training steps join the kernels line (requests
+    "nsvf" and "scannet").  Returns (summary, kernels-line entries)."""
+    import os
+    import tempfile
+
+    import test_torch
+    import train_scannet_torch
+    import train_torch
+    from google_nerf_tpu_torch.data import dataset_dict
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    from google_nerf_tpu_torch.utils.ckpt import load_ckpt
+    dev = torch.device("cuda")
+    depth = ["--num_epochs", "1", "--steps_per_epoch", str(steps), "--seed",
+             str(seed)]
+    cut = (f"depth cut: {NSVF_VIEWS[0]} + {NSVF_VIEWS[1]} NSVF views "
+           f"(Synthetic-NeRF: 100 + 200), {SCANNET_FRAMES[0]} + "
+           f"{SCANNET_FRAMES[1]} ScanNet frames (a scan: hundreds), 1 "
+           f"epoch of {steps} steps (opt.py: 30 x 1000); widths at opt.py's "
+           "defaults")
+    print(f"phase 13: {cut}", flush=True)
+    summary, entries = dict(cut=cut), []
+    cwd = os.getcwd()
+
+    def train_run(label, run, logs_path):
+        reset_cli_counters(bf, probe)
+        t0 = time.time()
+        logs, kept = kept_training(tsys, ph, run)
+        launches = cli_counters(bf, probe)
+        wall = time.time() - t0
+        for k in ("gather_rows_bf16", "scatter_add_rows"):
+            check(launches[k] > 0, f"phase 13: {k} not launched by {label}")
+        recs = [json.loads(line) for line in open(logs_path)]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(len(losses) == steps // 100 and all(
+            math.isfinite(v) for v in losses),
+            f"phase 13: {label} logged losses {losses}")
+        check(logs["psnr"] >= 25.0,
+              f"phase 13: {label} validate psnr {logs['psnr']} < 25 dB")
+        print(f"phase 13: {label}: {steps} steps in {wall:.1f} s (with "
+              f"load and validate); {logs.get('ms_per_step')} ms/step net "
+              f"of warm-up, {logs.get('rays_per_sec')} rays/s; validate "
+              f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; launches "
+              f"{launches}", flush=True)
+        return logs, kept, launches, dict(logs, launches=launches,
+                                          wall_s=wall, records=recs)
+
+    def serve(label, argv, ckpt, validate_psnr):
+        reset_cli_counters(bf, probe)
+        out = test_torch.run(get_opts(argv + ["--ckpt_path", ckpt]))
+        torch.cuda.synchronize()
+        sl = cli_counters(bf, probe)
+        check(sl["gather_rows_bf16"] > 0,
+              f"phase 13: P2 not launched by test_torch on {label}")
+        gap = abs(out["psnr"] - validate_psnr)
+        check(gap <= 1.0, f"phase 13: test_torch psnr {out['psnr']} on "
+              f"{label}, {gap} dB from validate's")
+        print(f"phase 13: test_torch on {label}: mean psnr "
+              f"{out['psnr']:.3f} ({gap:.3f} dB from validate), fps "
+              f"{out['fps']:.2f}; launches {sl}", flush=True)
+        return dict(out, launches=sl, gap_db=gap)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # ---- NSVF
+            root = os.path.join(tmp, "data", "Synthetic_NeRF", "Procedural")
+            t0 = time.time()
+            wrote = write_nsvf_scene(root, seed, dev)
+            wrote["write_s"] = time.time() - t0
+            check(wrote["png_max_abs_err"] == 0,
+                  f"phase 13: a PNG decoded {wrote['png_max_abs_err']} "
+                  "from the array written")
+            t0 = time.time()
+            dataset_dict["nsvf"](root, split="train", device="cpu")
+            load_s = time.time() - t0
+            print(f"phase 13: nsvf scene: {wrote}; train split loaded in "
+                  f"{load_s:.2f} s", flush=True)
+            argv = ["--root_dir", root, "--dataset_name", "nsvf",
+                    "--exp_name", "nsvf"] + depth
+            logs, kept, launches, info = train_run(
+                "nsvf", lambda: train_torch.main(get_opts(argv)),
+                "results/nsvf/nsvf/logs/scalars.jsonl")
+            entries += train_probe_entries(probe, kept, launches, "nsvf",
+                                           "phase 13")
+            del kept
+            served = serve("nsvf", argv, "ckpts/nsvf/nsvf/epoch=0_slim",
+                           logs["psnr"])
+            summary["nsvf"] = dict(scene=dict(wrote, load_s=load_s),
+                                   train=info, serve=served)
+            torch.cuda.empty_cache()
+
+            # ---- ScanNet
+            t0 = time.time()
+            scene, raw, priors, wrote, gt_depth, gt_mask = \
+                write_scannet_scene(os.path.join(tmp, "data"), seed, dev)
+            wrote["write_s"] = time.time() - t0
+            check(wrote["jpeg_min_psnr"] >= JPEG_MIN_PSNR,
+                  f"phase 13: a JPEG decoded at {wrote['jpeg_min_psnr']} dB "
+                  "of its input")
+            check(wrote["prior_png_max_abs_err"] == 0,
+                  f"phase 13: a depth-prior PNG decoded "
+                  f"{wrote['prior_png_max_abs_err']} from the array written")
+            check(wrote["prior_max_err_mm"] <= 1.0,
+                  f"phase 13: a depth prior read back "
+                  f"{wrote['prior_max_err_mm']} mm off")
+            t0 = time.time()
+            dataset_dict["scannet"](scene, split="train", device="cpu",
+                                    raw_scan_rootdir=raw, depth_dir=priors)
+            load_s = time.time() - t0
+            print(f"phase 13: scannet scene: {wrote}; train split with "
+                  f"priors loaded in {load_s:.2f} s", flush=True)
+            base = ["--root_dir", scene, "--dataset_name", "scannet",
+                    "--raw_scan_rootdir", raw] + depth
+            runs = {}
+            for label, extra in (
+                    ("sup", ["--depth_dir", priors, "--depth_loss_w",
+                             "0.1"]),
+                    ("nosup", ["--depth_loss_w", "0"])):
+                argv = base + extra + ["--exp_name", label]
+                logs, kept, launches, info = train_run(
+                    f"scannet {label}",
+                    lambda: train_scannet_torch.run(argv),
+                    f"results/scannet/{label}/logs/scalars.jsonl")
+                if label == "sup":
+                    entries += train_probe_entries(probe, kept, launches,
+                                                   "scannet", "phase 13")
+                del kept
+                dterm = [r["depth_loss"] for r in info["records"]
+                         if "depth_loss" in r]
+                info["depth_loss"] = dterm
+                if label == "sup":
+                    check(len(dterm) > 0 and all(
+                        math.isfinite(v) and v > 0 for v in dterm),
+                        f"phase 13: supervised depth term {dterm}")
+                ckpt = f"ckpts/scannet/{label}/epoch=0"
+                info["depth_mae_m"] = test_view_depth_mae(
+                    argv, ckpt, gt_depth, gt_mask)
+                print(f"phase 13: scannet {label}: logged depth term "
+                      f"{dterm}; test-view depth MAE "
+                      f"{info['depth_mae_m']:.4f} m (printed, not checked)",
+                      flush=True)
+                runs[label] = dict(info, argv=argv)
+            tabs = [load_ckpt(f"ckpts/scannet/{k}/epoch=0")["params"][
+                "packed_table"] for k in ("sup", "nosup")]
+            check(not torch.equal(tabs[0].cpu(), tabs[1].cpu()),
+                  "phase 13: the supervised and unsupervised ScanNet "
+                  "tables are equal")
+            served = serve("scannet sup", runs["sup"]["argv"],
+                           "ckpts/scannet/sup/epoch=0_slim",
+                           runs["sup"]["psnr"])
+            for r in runs.values():
+                r.pop("argv")
+            summary["scannet"] = dict(scene=dict(wrote, load_s=load_s),
+                                      train=runs, serve=served)
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return summary, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1586,8 +1978,8 @@ def main():
     print(card, flush=True)            # name, power limit as nvidia-smi says
 
     t0 = time.time()
-    libs = _build.build("brick_field_dense", "probe",
-                        "ladder")                      # nvcc in parallel
+    libs = _build.build("brick_field_dense", "probe", "ladder",
+                        "image_codec")           # nvcc and cc in parallel
     build_s = time.time() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text()
@@ -1758,6 +2150,12 @@ def main():
     # ---- 12: train_torch.py -> test_torch.py at opt.py's defaults
     cli, cli_kernels = phase12(args.seed)
     kernels += cli_kernels
+
+    # ---- 13: datasets on disk: NSVF and ScanNet through the CLIs
+    t13 = time.time()
+    data, data_kernels = phase13(args.seed)
+    data["seconds"] = time.time() - t13
+    kernels += data_kernels
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -1772,7 +2170,12 @@ def main():
           f"validate psnr {cli['train']['psnr']:.2f}; " + "; ".join(
               f"cli {r} psnr {i['psnr']:.2f}, fps {i['fps']:.2f}"
               for r, i in cli["serve"].items())
-          + f"; total "
+          + f"; nsvf validate psnr {data['nsvf']['train']['psnr']:.2f}, "
+          f"served {data['nsvf']['serve']['psnr']:.2f}; scannet validate "
+          f"psnr sup {data['scannet']['train']['sup']['psnr']:.2f}, nosup "
+          f"{data['scannet']['train']['nosup']['psnr']:.2f}, served "
+          f"{data['scannet']['serve']['psnr']:.2f}; phase 13 "
+          f"{data['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -1784,7 +2187,8 @@ def main():
                   requests=summary, n512_vs_t512=nt,
                   rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
                   train=train, trained_wl256=served, serving_stages=stages,
-                  bench_keys=bench_keys, cli=cli, kernels=kernels)
+                  bench_keys=bench_keys, cli=cli, datasets=data,
+                  kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -32,17 +32,25 @@ def pixel_grid(H: int, W: int, device="cuda") -> torch.Tensor:
     return torch.stack([uu, vv], dim=-1)
 
 
-def get_ray_directions(H, W, K, *, convention: str = "rdf", flatten=True,
-                       return_uv=False, device="cuda"):
-    """Per-pixel camera-space ray directions through pixel centers.
+def get_ray_directions(H, W, K, *, convention: str = "rdf", random=False,
+                       generator=None, flatten=True, return_uv=False,
+                       device="cuda"):
+    """Per-pixel camera-space ray directions through pixel centers, or
+    with `random` through a uniform point of each pixel (drawn from
+    `generator`, u's jitter first, then v's).
 
     convention 'rdf' = [right down front], 'rub' = [right up back]."""
     K = torch.as_tensor(K, dtype=torch.float32, device=device)
     grid = pixel_grid(H, W, device)
     u, v = grid[..., 0], grid[..., 1]
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    x = (u - cx + 0.5) / fx
-    y = (v - cy + 0.5) / fy
+    if random:
+        ju = torch.rand(u.shape, generator=generator, device=device)
+        jv = torch.rand(v.shape, generator=generator, device=device)
+    else:
+        ju = jv = 0.5
+    x = (u - cx + ju) / fx
+    y = (v - cy + jv) / fy
     z = torch.ones_like(u)
     if convention == "rdf":
         directions = torch.stack([x, y, z], -1)
@@ -56,6 +64,15 @@ def get_ray_directions(H, W, K, *, convention: str = "rdf", flatten=True,
     if return_uv:
         return directions, grid
     return directions
+
+
+# ScanNet aliases: the fork's conventions (no axis flips; v2 is OpenGL's)
+def get_ray_directions_scannet(H, W, K, **kw):
+    return get_ray_directions(H, W, K, convention="rdf", **kw)
+
+
+def get_ray_directions_scannet_v2(H, W, K, **kw):
+    return get_ray_directions(H, W, K, convention="rub", **kw)
 
 
 def get_rays(directions: torch.Tensor, c2w: torch.Tensor):

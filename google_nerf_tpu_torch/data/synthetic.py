@@ -102,8 +102,9 @@ def _fibonacci_poses(n: int, radius: float, seed: int = 0) -> np.ndarray:
 
 @torch.no_grad()
 def _integrate_gt(rays_o, rays_d, n_steps: int = 512, scale: float = 0.5,
-                  style: str = "solid"):
-    """Premultiplied rgb + alpha (R, 4) of the analytic field."""
+                  style: str = "solid", with_depth: bool = False):
+    """Premultiplied rgb + alpha (R, 4) of the analytic field; with_depth
+    appends the expected distance along the ray, sum w*t (R, 5)."""
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     hits = clamp_near(
         ray_aabb_intersect(rays_o, d, torch.zeros(3),
@@ -118,7 +119,28 @@ def _integrate_gt(rays_o, rays_d, n_steps: int = 512, scale: float = 0.5,
     sigma, rgb = analytic_field(xyz, style)
     valid = torch.broadcast_to((hits[:, 0] >= 0)[:, None], ts.shape)
     out = composite_rays_train(sigma, rgb, deltas, ts, valid)
-    return torch.cat([out["rgb"], out["opacity"][:, None]], -1)
+    cols = [out["rgb"], out["opacity"][:, None]]
+    if with_depth:
+        cols.append(out["depth"][:, None])
+    return torch.cat(cols, -1)
+
+
+def render_views(directions, poses, *, scale: float = 0.5,
+                 style: str = "solid", with_depth: bool = False,
+                 device="cuda") -> np.ndarray:
+    """The analytic field's ground truth of each pose: (N, HW, 4)
+    premultiplied rgb + alpha, or (N, HW, 5) with the expected ray
+    distance, as numpy."""
+    dirs = torch.as_tensor(directions, device=device)
+    chunk = 1 << 15      # (chunk, 512, 4-object) intermediates ~1 GB
+    parts = []
+    for p in torch.as_tensor(poses, device=device):
+        o, d = get_rays(dirs, p)
+        for i in range(0, o.shape[0], chunk):
+            parts.append(_integrate_gt(
+                o[i:i + chunk], d[i:i + chunk], scale=scale, style=style,
+                with_depth=with_depth).cpu())
+    return torch.cat(parts).numpy().reshape(len(poses), dirs.shape[0], -1)
 
 
 @dataclasses.dataclass
@@ -165,17 +187,8 @@ class SyntheticDataset:
                             0.0, 1.0).astype(np.float32)
 
     def _render_gt(self, w: int, h: int) -> np.ndarray:
-        dirs = torch.as_tensor(self.directions, device=self.device)
-        poses = torch.as_tensor(self.poses, device=self.device)
-        chunk = 1 << 15      # (chunk, 512, 4-object) intermediates ~1 GB
-        parts = []
-        for p in poses:
-            o, d = get_rays(dirs, p)
-            for i in range(0, o.shape[0], chunk):
-                parts.append(_integrate_gt(
-                    o[i:i + chunk], d[i:i + chunk], scale=self.scale,
-                    style=self.style).cpu())
-        return torch.cat(parts).numpy().reshape(self.n_images, w * h, 4)
+        return render_views(self.directions, self.poses, scale=self.scale,
+                            style=self.style, device=self.device)
 
     def __len__(self):
         return 1000 if self.split.startswith("train") else len(self.poses)

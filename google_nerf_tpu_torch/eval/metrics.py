@@ -51,7 +51,9 @@ def _filter2d(img, kernel):
 def ssim(pred, gt, data_range: float = 1.0):
     """Structural similarity with torchmetrics defaults.
 
-    pred/gt: (H, W, C) or (N, C, H, W); returns the mean SSIM (0-d)."""
+    pred/gt: (H, W, C) or (N, C, H, W); returns the mean SSIM (0-d).  An
+    image smaller than the 11x11 window has no valid window: NaN, the
+    mean over none, as JAX's valid convolution gives."""
     if pred.ndim == 3:  # HWC -> NCHW
         pred = pred.permute(2, 0, 1)[None]
         gt = gt.permute(2, 0, 1)[None]
@@ -59,6 +61,8 @@ def ssim(pred, gt, data_range: float = 1.0):
     gt = gt.float()
     c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
     kern = _gaussian_kernel(device=pred.device)
+    if min(pred.shape[-2:]) < kern.shape[0]:
+        return torch.full((), float("nan"), device=pred.device)
     mu_x = _filter2d(pred, kern)
     mu_y = _filter2d(gt, kern)
     mu_xx, mu_yy, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y

@@ -195,10 +195,12 @@ def render_test(params, cfg: NGPConfig, occ_grid, rays_o, rays_d, *,
     """Full test-time render in chunks of rays.  Each round consumes at
     least k_samples candidates of a live ray (n_cand of an empty
     window), so max_rounds = max_samples // k_samples + max_samples //
-    n_cand + 4 bounds the reference's 1024-step march.  Pad rays start at
-    the origin with direction (1, 1, 1), as JAX pads them."""
+    n_cand + 4 bounds the reference's 1024-step march.  A chunk holds at
+    most the ray count; pad rays start at the origin with direction (1,
+    1, 1), as JAX pads them, and each ray's result is its own."""
     R = rays_o.shape[0]
     dev = rays_o.device
+    chunk = min(chunk, max(R, 1))
     max_rounds = max_samples // k_samples + max_samples // n_cand + 4
     pad = (-R) % chunk
     ro = (torch.cat([rays_o, torch.zeros((pad, 3), device=dev)])

@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each csrc/<name>.cu compiles with nvcc for sm_90a into its own library,
 build/kernels/lib<name>_<key>.so, where <key> hashes the source and the
 flags; the compiler's log (ptxas register and spill report) sits beside
-it as lib<name>_<key>.log.  A library of the same key is reused.  The
-sources have a plain C interface, loaded with ctypes.
+it as lib<name>_<key>.log.  The host C sources (csrc/<name>.c, the image
+codec) compile the same way with the host C compiler (`cc`, or $CC).  A
+library of the same key is reused; each build writes a temporary file
+and renames it, so processes that race to build one library are safe.
+The sources have a plain C interface, loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -20,7 +24,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+CC_FLAGS = ("-O2", "-std=c99", "-shared", "-fPIC")
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()    # threads of one process build once
 
 
 def _nvcc() -> str:
@@ -31,19 +37,34 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _cc() -> str:
+    cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
+    if not cc:
+        raise RuntimeError("no host C compiler (cc): the port's image "
+                           "codec builds from csrc/image_codec.c with it")
+    return cc
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.c"
+
+
 def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu's library of the current source and flags
-    lives (built or not)."""
-    src = CSRC / f"{name}.cu"
+    """Where csrc/<name>.cu's (or .c's) library of the current source and
+    flags lives (built or not)."""
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                         + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
 def build(*names: str) -> list[Path]:
-    """Compile csrc/<name>.cu for each name not built yet, all nvcc runs
-    started together; returns the libraries' paths in the order given.
-    Raises with the compiler's errors if any build fails."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.c (cc) for each name
+    not built yet, all compilers started together; returns the libraries'
+    paths in the order given.  Raises with the compiler's errors if any
+    build fails."""
     libs = [library_path(n) for n in names]
     runs = []
     for name, lib in zip(names, libs):
@@ -51,9 +72,11 @@ def build(*names: str) -> list[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        src = CSRC / f"{name}.cu"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(src)], stdout=subprocess.PIPE,
+        src = _source(name)
+        cmd = ([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+               if src.suffix == ".cu"
+               else [_cc(), *CC_FLAGS, "-o", str(tmp), str(src), "-lm"])
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         runs.append((src, lib, tmp, proc))
     failed = []
@@ -61,7 +84,7 @@ def build(*names: str) -> list[Path]:
         log = proc.communicate()[0]
         lib.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src}:\n{log}")
+            failed.append(f"{proc.args[0]} failed on {src}:\n{log}")
         else:
             os.replace(tmp, lib)
     if failed:
@@ -70,10 +93,11 @@ def build(*names: str) -> list[Path]:
 
 
 def load(name: str, declare) -> ctypes.CDLL:
-    """csrc/<name>.cu's library, built if needed and loaded once per
+    """csrc/<name>'s library, built if needed and loaded once per
     process; declare(lib) sets its functions' argtypes and restypes."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)[0]))
-        declare(lib)
-        _loaded[name] = lib
+    with _load_lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(build(name)[0]))
+            declare(lib)
+            _loaded[name] = lib
     return _loaded[name]

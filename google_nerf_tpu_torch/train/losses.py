@@ -43,11 +43,13 @@ class NeRFLoss:
 
     def total(self, results, batch):
         """Mean over rays; rays whose render the sample budget truncated
-        (results["ray_mask"] False) are left out."""
+        (results["ray_mask"] False) are left out.  Returns the total and
+        each term's mean ({rgb, opacity[, depth]})."""
         d = self(results, batch)
         mask = results.get("ray_mask")
         if mask is None:
-            return sum(v.mean() for v in d.values()), d
+            means = {k: v.mean() for k, v in d.items()}
+            return sum(means.values()), means
         denom = torch.clamp_min(mask.sum(), 1)
 
         def ray_mean(v):
@@ -55,4 +57,5 @@ class NeRFLoss:
             return torch.where(m, v, 0.0).sum() / (
                 denom * (v[0].numel() if v.ndim > 1 else 1))
 
-        return sum(ray_mean(v) for v in d.values()), d
+        means = {k: ray_mean(v) for k, v in d.items()}
+        return sum(means.values()), means

@@ -17,10 +17,14 @@ from `draws`, a dict the caller passes (img_idxs, pix_idxs, bg, noise;
 the grid update's per-cascade draws), so tests can hand in the draws
 JAX made from its key.
 
-The marchers: block2 (bench.py's recipe), seg (opt.py's default, with
-super-segments when sup > 1) and the dense lattice, on one cascade with
-a constant step.  The one-phase block marcher is ROADMAP item 15; other
-cascades and the exponential step come with item 19's datasets.
+The marchers: block2 (bench.py's recipe; one cascade only, so a
+multi-cascade model takes seg, as JAX's does), seg (opt.py's default,
+with super-segments when sup > 1) and the dense lattice, which also
+takes every scene with an exponential step (exp_step_factor > 0:
+colmap and nerfpp).  Any number of cascades (scale > 0.5), and the
+grid's erosion (colmap), run.  The one-phase block marcher is ROADMAP
+item 15.  With depth priors (lambda_depth > 0) the step's metrics
+carry the depth term as depth_loss.
 """
 from __future__ import annotations
 
@@ -90,12 +94,11 @@ def _require_ported(cfg: TrainConfig):
     if cfg.march == "block":
         raise NotImplementedError(
             "march='block': the one-phase block marcher is ROADMAP item 15")
-    if cfg.model.cascades != 1 or cfg.exp_step_factor != 0.0:
-        raise NotImplementedError(
-            f"{cfg.model.cascades} cascade(s), exp_step_factor="
-            f"{cfg.exp_step_factor}: only single-cascade constant-step "
-            "scenes are ported; the others come with ROADMAP item 19's "
-            "datasets")
+
+
+def _block2(cfg: TrainConfig) -> bool:
+    """block2 runs on single-cascade models; others march seg."""
+    return cfg.march == "block2" and cfg.model.cascades == 1
 
 
 def pack_marching_grid(occ, cfg: TrainConfig):
@@ -103,7 +106,7 @@ def pack_marching_grid(occ, cfg: TrainConfig):
     or the segment marcher's dilated word grid (super-dilated too when
     sup > 1)."""
     m = cfg.model
-    if cfg.march == "block2":
+    if _block2(cfg):
         return pack_occupancy_block2(occ, max_samples=cfg.max_samples,
                                      scale=m.scale)
     return pack_occupancy_u8(
@@ -191,7 +194,7 @@ def init_train_state(cfg: TrainConfig, K, poses, img_wh, *, generator=None,
         device=device)
     occ = torch.zeros((m.cascades,) + (m.grid_size,) * 3, dtype=torch.bool,
                       device=device)
-    if cfg.march == "block2":
+    if _block2(cfg):
         gs4, gq = m.grid_size // 4, m.grid_size // 8
         occ_u8 = dict(
             blocks4=torch.zeros((gs4 ** 3, 16), dtype=torch.int32,
@@ -269,18 +272,22 @@ def loss_and_results(params, occ, scene, batch, cfg: TrainConfig, *,
         exp_step_factor=cfg.exp_step_factor, T_threshold=cfg.T_threshold,
         k_samples=cfg.k_samples, max_samples=cfg.max_samples,
         samples_budget=cfg.samples_budget,
-        # the dense marcher reads the boolean grid; "dense" takes the
-        # render's fallback branch, as JAX's march choice does
-        occ_u8=occ["occ_u8"] if cfg.march in ("seg", "block2") else None,
-        march=cfg.march, seg=cfg.seg, n_keep=cfg.n_keep, sup=cfg.sup,
+        # the dense marcher reads the boolean grid; "dense" and the
+        # exponential step take the render's fallback branch, as JAX's
+        # march choice does
+        occ_u8=(occ["occ_u8"] if cfg.march in ("seg", "block2")
+                and cfg.exp_step_factor == 0.0 else None),
+        march="block2" if _block2(cfg) else "seg", seg=cfg.seg, n_keep=cfg.n_keep, sup=cfg.sup,
         n_keep_sup=cfg.n_keep_sup, n_keep_groups=cfg.n_keep_groups,
         bg_color=bg_color,
         exclude_incomplete=cfg.exclude_incomplete,
         incomplete_floor=cfg.incomplete_floor, backfill_rgb=batch["rgb"],
         backfill_enable=step_now >= cfg.warmup_steps)
-    total, _ = NeRFLoss(cfg.lambda_opacity, cfg.lambda_depth).total(
+    total, terms = NeRFLoss(cfg.lambda_opacity, cfg.lambda_depth).total(
         results, batch)
     results["rgb_target"] = batch["rgb"]
+    if "depth" in terms:
+        results["depth_loss"] = terms["depth"].detach()
     return total, results
 
 
@@ -309,10 +316,13 @@ def _metrics(loss, results, batch_size: int, lr: float):
     rmw = rm[:, None].expand(results["rgb"].shape)
     err = (results["rgb"].detach() - results["rgb_target"]) ** 2
     mse = torch.where(rmw, err, 0.0).sum() / torch.clamp_min(rmw.sum(), 1)
-    return dict(loss=loss.detach(),
-                psnr=-10.0 * torch.log10(torch.clamp_min(mse, 1e-10)),
-                s_per_ray=results["total_samples"] / batch_size,
-                mask_frac=rm.float().mean(), lr=lr)
+    out = dict(loss=loss.detach(),
+               psnr=-10.0 * torch.log10(torch.clamp_min(mse, 1e-10)),
+               s_per_ray=results["total_samples"] / batch_size,
+               mask_frac=rm.float().mean(), lr=lr)
+    if "depth_loss" in results:
+        out["depth_loss"] = results["depth_loss"]
+    return out
 
 
 def train_step(state, scene, batch, cfg: TrainConfig, *, draws=None,

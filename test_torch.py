@@ -1,5 +1,7 @@
 """Test CLI of the PyTorch port (the port's test.py): load a full or slim
-checkpoint, render the test split, report mean PSNR and FPS.
+checkpoint, render the test split of any dataset of train_torch.py's
+(train_torch.make_dataset, with the same dataset flags), report mean
+PSNR and FPS.
 
     python test_torch.py --root_dir x --dataset_name synthetic \\
         --synthetic_style textured --downsample 4 \\

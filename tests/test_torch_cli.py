@@ -7,8 +7,9 @@ finite; --val_only on the full checkpoint gives the training run's
 validation logs exactly (one state, one deterministic renderer);
 test_torch.run serves the slim checkpoint; the PNGs and the JSONL
 scalars land where train.py puts them; the CLIs refuse what the port
-does not run (no card without --platform cpu, other datasets, several
-cards)."""
+does not run (no card without --platform cpu, several cards, the block
+marcher) and what JAX's loaders refuse (an NSVF root without bbox.txt),
+and an RTMV scene of OpenEXR frames names its ROADMAP item."""
 import glob
 import json
 
@@ -98,9 +99,24 @@ def test_clis_refuse_what_the_port_does_not_run(monkeypatch, tmp_path):
         train_torch.main(get_opts(TINY + SYN))
     with pytest.raises(RuntimeError, match="--platform cpu"):
         test_torch.run(get_opts(TINY + SYN + ["--ckpt_path", "x"]))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        train_torch.main(get_opts(TINY + ["--root_dir", "x", "--dataset_name",
-                                          "nsvf", "--platform", "cpu"]))
+    nsvf = tmp_path / "Synthetic_NeRF" / "Lego"       # no bbox.txt
+    (nsvf / "rgb").mkdir(parents=True)
+    with pytest.raises(OSError, match="bbox.txt"):
+        train_torch.main(get_opts(TINY + ["--root_dir", str(nsvf),
+                                          "--dataset_name", "nsvf",
+                                          "--platform", "cpu"]))
+    rtmv = tmp_path / "rtmv_scene"
+    (rtmv / "images").mkdir(parents=True)
+    (rtmv / "images" / "00000.exr").write_bytes(b"\x76\x2f\x31\x01" + bytes(60))
+    (rtmv / "00000.json").write_text(json.dumps({"camera_data": {
+        "cam2world": np.eye(4).tolist(), "width": 8, "height": 8,
+        "intrinsics": {"fx": 10.0, "fy": 10.0, "cx": 4.0, "cy": 4.0},
+        "scene_center_3d_box": [0, 0, 0], "scene_min_3d_box": [-1, -1, -1],
+        "scene_max_3d_box": [1, 1, 1]}}))
+    with pytest.raises(NotImplementedError, match="item 28"):
+        train_torch.main(get_opts(TINY + ["--root_dir", str(rtmv),
+                                          "--dataset_name", "rtmv",
+                                          "--platform", "cpu"]))
     with pytest.raises(NotImplementedError, match="item 21"):
         train_torch.main(get_opts(CPU + ["--num_gpus", "2"]))
     with pytest.raises(NotImplementedError, match="item 21"):

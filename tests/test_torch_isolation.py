@@ -1,8 +1,10 @@
 """The PyTorch port, its entry points (chip_smoke.py, bench_torch.py,
-train_torch.py, test_torch.py) stand alone: no module of theirs imports
-JAX, its libraries, ml_dtypes, anything of the JAX package, or the
-JAX-free root scripts opt.py, train.py, test.py and bench.py (the port
-keeps its own copies)."""
+train_torch.py, test_torch.py, train_scannet_torch.py,
+train_debug_torch.py) stand alone: no module of theirs imports JAX, its
+libraries, ml_dtypes, anything of the JAX package, or the JAX-free root
+scripts opt.py, train.py, test.py and bench.py (the port keeps its own
+copies); nor an image library (cv2, imageio, PIL): the port decodes and
+writes its images itself."""
 import ast
 from pathlib import Path
 
@@ -11,8 +13,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "google_nerf_tpu",
           "ml_dtypes", "opt", "train", "test", "bench")
+IMAGE_LIBRARIES = ("cv2", "imageio", "PIL")
 ENTRY_POINTS = ("chip_smoke.py", "bench_torch.py", "train_torch.py",
-                "test_torch.py")
+                "test_torch.py", "train_scannet_torch.py",
+                "train_debug_torch.py")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
     ROOT / f for f in ENTRY_POINTS]
 
@@ -27,7 +31,8 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]
+    bad = [m for m in _imports(path) if m.split(".")[0] in BANNED
+           or m.split(".")[0] in IMAGE_LIBRARIES]
     assert not bad, f"{path.name} imports {bad}"
 
 

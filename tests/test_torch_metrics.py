@@ -89,3 +89,13 @@ def test_lpips_weights_load_from_npz(tmp_path):
     assert scorer.available
     img = torch.rand(32, 32, 3, generator=torch.Generator().manual_seed(0))
     assert float(scorer(img, img)) == pytest.approx(0.0, abs=1e-6)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (10, 40)])
+def test_ssim_of_an_image_under_its_window_is_nan_as_jax(hw):
+    """An image smaller than the 11x11 window has no valid window: JAX's
+    mean over none is NaN, and so is the port's (it raised before)."""
+    rng = np.random.RandomState(0)
+    a, b = (rng.rand(*hw, 3).astype(np.float32) for _ in range(2))
+    assert np.isnan(float(jm.ssim(jnp.asarray(a), jnp.asarray(b))))
+    assert np.isnan(float(tm.ssim(torch.as_tensor(a), torch.as_tensor(b))))

@@ -1,16 +1,24 @@
 """Training CLI of the PyTorch port (the port's train.py).
 
-Pipeline: the procedural synthetic scene -> the scene on the device ->
-fused train steps with the density-grid cadence -> full and slim
-checkpoints -> validation renders (render_test_fast; render_test where
-the step is not constant) with PSNR/SSIM(/LPIPS) and PNGs.
+Pipeline: a dataset (nsvf, colmap, nerfpp, rtmv, scannet or the
+procedural synthetic scene, through the port's loaders) -> the scene on
+the device -> fused train steps with the density-grid cadence -> full
+and slim checkpoints -> validation renders (render_test_fast;
+render_test where the step is not constant) with PSNR/SSIM(/LPIPS) and
+PNGs.
 
+    python train_torch.py --root_dir data/Synthetic_NeRF/Lego \\
+        --exp_name lego
+    python train_torch.py --root_dir data/360_v2/garden \\
+        --dataset_name colmap --scale 4.0 --downsample 0.25
     python train_torch.py --root_dir x --dataset_name synthetic \\
         --synthetic_style textured --downsample 4 --exp_name my_exp
 
-Runs on the CUDA card unless given --platform cpu.  The other datasets
-(ROADMAP item 19) and data-parallel training over several cards (item
-21) raise; video export comes with the NSVF dataset.
+Runs on the CUDA card unless given --platform cpu.  Data-parallel
+training over several cards (ROADMAP item 21) raises.  The test video
+of a Synthetic NSVF scene is not encoded (no mp4 encoder in the port):
+its PNG frames stay, with the warning train.py prints when imageio or
+ffmpeg is missing.
 """
 from __future__ import annotations
 
@@ -43,18 +51,32 @@ def device_of(hparams) -> torch.device:
 
 
 def dataset_kwargs(hparams):
-    if hparams.dataset_name != "synthetic":
-        raise NotImplementedError(
-            f"--dataset_name {hparams.dataset_name}: only the procedural "
-            "synthetic scene is ported; the others are ROADMAP item 19")
-    return dict(style=hparams.synthetic_style)
+    kwargs = {}
+    if hparams.dataset_name == 'synthetic':
+        kwargs.update(style=hparams.synthetic_style)
+    if hparams.dataset_name == 'scannet':
+        kwargs.update(test_skip=hparams.test_skip,
+                      rot_transpose=hparams.rot_transpose,
+                      scale_flip=hparams.scale_flip,
+                      raw_scan_rootdir=hparams.raw_scan_rootdir,
+                      depth_dir=hparams.depth_dir)
+    return kwargs
 
 
 def make_dataset(hparams, split: str, device):
-    from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
-    return SyntheticDataset(hparams.root_dir, split=split,
-                            downsample=hparams.downsample, device=str(device),
-                            **dataset_kwargs(hparams))
+    from google_nerf_tpu_torch.data import dataset_dict
+    return dataset_dict[hparams.dataset_name](
+        hparams.root_dir, split=split, downsample=hparams.downsample,
+        device=str(device), **dataset_kwargs(hparams))
+
+
+def save_videos(val_dir, fps=30):
+    """train.py's video export: it writes rgb.mp4 and depth.mp4 through
+    imageio and ffmpeg, and prints a warning and keeps the PNG frames
+    where they are missing.  The port has no mp4 encoder, so it always
+    takes that branch."""
+    print(f'[warn] video export skipped: no mp4 encoder in the port '
+          f'({fps} fps asked); the PNG frames stay in {val_dir}')
 
 
 def build_configs(hparams, scene_scale=None):
@@ -279,6 +301,9 @@ def main(hparams, video_fps=30):
     print('test:', logs)
     logger.log(total_steps, {f'test/{k}': v for k, v in logs.items()})
     logger.close()
+    if val_dir and hparams.dataset_name == 'nsvf' and \
+            'Synthetic' in hparams.root_dir:
+        save_videos(val_dir, fps=video_fps)
     return logs
 
 
