@@ -100,7 +100,15 @@ Phases:
      the supervised checkpoint served; decode, training and serving
      checks; P2/P3 of the NSVF and supervised ScanNet training steps on
      the kernels line (requests "nsvf", "scannet").  The image codec
-     (csrc/image_codec.c) builds in phase 1 with the host C compiler.
+     (csrc/image_codec.c) builds in phase 1 with the host C compiler;
+ 14. the other encoders and the block marcher through the CLIs (phase14's
+     notes): phase 12's training run with --xyz_encoder hash, freq or
+     packed2, or --march block, then test_torch.py's oneshot on each
+     checkpoint (block serving on the block rows); validate >= 25 dB
+     (freq: above its train psnr at step 64); the kernel step against
+     the plain step for hash and packed2; P3 (hash) and P2/P3 (packed2,
+     P2 on the bf16 table padded to 72 columns) on the kernels line
+     (requests "hash", "packed2").
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -121,10 +129,11 @@ rtol 1e-5 (k13, k15, k16: f32 sums in another order, exp and sigmoid).
 Phase 9's kernel step against the plain step: the loss within rtol 1e-6
 and every gradient but the table's within rtol 1e-6 (the forward gather
 copies bytes, so both runs compute the same values); the kernel step's
-table gradient within 1e-6 x the sum of |payload| of each (row, column)
-of the float64 sum of the same payloads, the P3 card test's check of
-atomic f32 sums (the plain step's table gradient is an atomic f32 sum
-too, in its own order: held against it, two roundings add up).  Phase
+table gradient within P3_SUM_C sqrt(n) 2^-24 x the sum of |payload| of
+each (row, column) of the float64 sum of the same payloads, for a row of
+n payloads (the plain step's table gradient is an atomic f32 sum too, in
+its own order: held against it, two roundings add up).  Phase 14's
+kernel steps (hash, packed2) are held to the same bounds.  Phase
 10's frame against its plain frame: opacity 1e-4 per pixel and the
 counters equal; rgb 1e-4 per pixel on all but 0.01% of the pixels,
 which may differ by up to 2e-3
@@ -362,13 +371,15 @@ class Recorder:
     snapshot of the inputs (init is cloned: the frame updates in place)
     of every call (keep "all"), of its first `first` calls, of its
     largest (by the size of args[arg]) or of its last; with `gate`, only
-    of the calls made while gate() is true.  Every call goes through."""
+    of the calls made while gate() is true.  Every call goes through; `n`
+    counts them."""
 
     def __init__(self, fn, keep="all", arg=1, first=8, gate=None):
         self.fn, self.keep, self.arg, self.first = fn, keep, arg, first
-        self.gate, self.calls = gate, []
+        self.gate, self.calls, self.n = gate, [], 0
 
     def __call__(self, *args, **kw):
+        self.n += 1
         if self.gate is None or self.gate():
             snap = dict(kw)
             if snap.get("init") is not None:
@@ -920,18 +931,33 @@ def draws_of(gen, scene, cfg, dev):
         noise=torch.rand((B,), generator=gen, device=dev))
 
 
-def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws):
-    """One step's loss and gradients with P2/P3 and then with their plain
+# P3 against the float64 sum: the f32 sum of a row of n payloads, in
+# whatever order the atomics land, within P3_SUM_C sqrt(n) 2^-24 x the sum
+# of their |values| (rounding errors of a long sum add up as a random walk,
+# sqrt(n); its worst case, (n - 1) 2^-24, is no check on rows of thousands:
+# one lost payload among 4,314 is 2.3e-4 of the row's sum).  P3_SUM_C is
+# set from the card's readings (PERF.md section 6).
+P3_SUM_C = 4.0
+
+
+def P3_SUM_BOUND(n):
+    return P3_SUM_C * n.sqrt() * 2.0 ** -24
+
+
+def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
+                         names=("gather_rows", "scatter_add_rows"),
+                         table="packed_table", tag="phase 9"):
+    """One step's loss and gradients with the encoder's kernels (`names`
+    of module ph: P2 and P3, or P3 alone) and then with their plain
     versions, from one state, batch and set of draws: loss within rtol
     1e-6, every gradient but the table's within rtol 1e-6, the kernel
-    step's table gradient within 1e-6 x the sum of |payload| of its (row,
-    column) of the float64 sum of its payloads.  Returns (errors, the
-    recorded P2 and P3 calls)."""
+    step's table gradient within P3_SUM_BOUND(n) x the sum of |payload|
+    of its (row, column) of the float64 sum of its payloads, for a row
+    that takes n payloads.  Returns (errors, the recorded calls)."""
     batch = tsys.sample_batch(scene, cfg.batch_size,
                               img_idxs=draws["img_idxs"],
                               pix_idxs=draws["pix_idxs"])
-    rec = {n: Recorder(getattr(ph, n)) for n in ("gather_rows",
-                                                  "scatter_add_rows")}
+    rec = {n: Recorder(getattr(ph, n)) for n in names}
     for n, r in rec.items():
         setattr(ph, n, r)
     try:
@@ -949,33 +975,41 @@ def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws):
         for n, r in rec.items():
             setattr(ph, n, r.fn)
     torch.cuda.synchronize()
-    check(len(rec["gather_rows"].calls) == 1
-          and len(rec["scatter_add_rows"].calls) == 1,
-          "phase 9: the step did not make one P2 and one P3 call")
+    check(all(len(r.calls) == 1 for r in rec.values()),
+          f"{tag}: the step did not make one call of each of {names}")
     loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
-    check(loss_err <= 1e-6, f"phase 9: kernel step loss {float(lk)} vs "
+    check(loss_err <= 1e-6, f"{tag}: kernel step loss {float(lk)} vs "
           f"plain {float(lp)}")
     errs = dict(loss_rel=loss_err)
     for k in gp:
-        if k == "packed_table":
+        if k == table:
             continue
         ok = bool(((gk[k] - gp[k]).abs() <= 1e-6 * gp[k].abs()).all())
         errs[k] = float((gk[k] - gp[k]).abs().max())
-        check(ok, f"phase 9: gradient {k} kernel vs plain beyond rtol 1e-6"
+        check(ok, f"{tag}: gradient {k} kernel vs plain beyond rtol 1e-6"
               f" (max abs {errs[k]})")
     sidx, vals, T = rec["scatter_add_rows"].calls[0][0]
 
     def sum64(v):
         return torch.zeros((T, v.shape[1]), dtype=torch.float64,
                            device=v.device).index_add_(
-            0, sidx.long(), v.double()).view(gp["packed_table"].shape)
-    d = (gk["packed_table"].double() - sum64(vals)).abs()
-    check(bool((d <= 1e-6 * sum64(vals.abs())).all()), "phase 9: table "
-          "gradient kernel vs the float64 sum beyond 1e-6 x sum|payload| "
-          f"(max abs {float(d.max())})")
-    errs["packed_table"] = float(d.max())
-    errs["packed_table_vs_plain"] = float(
-        (gk["packed_table"] - gp["packed_table"]).abs().max())
+            0, sidx.long(), v.double()).view(gp[table].shape)
+    d = (gk[table].double() - sum64(vals)).abs()
+    mag = sum64(vals.abs())
+    n = torch.bincount(sidx.long(), minlength=T).double()
+    n = n[:, None].expand(T, vals.shape[1]).reshape(gp[table].shape)
+    over = d / (mag * P3_SUM_BOUND(n)).clamp_min(1e-300)
+    check(bool((over <= 1.0).all()), f"{tag}: table gradient kernel vs the "
+          f"float64 sum beyond {P3_SUM_C} sqrt(n) 2^-24 x sum|payload| (max "
+          f"abs {float(d.max())}, {float(over.max()):.3f} of the bound)")
+    at = int(over.argmax())
+    errs[table] = float(d.max())
+    errs[table + "_err_over_sum_abs"] = float((d / mag.clamp_min(
+        1e-300)).max())
+    errs[table + "_share_of_bound"] = float(over.max())
+    errs[table + "_terms_there"] = int(n.reshape(-1)[at])
+    errs["max_terms_a_row"] = int(n.max())
+    errs[table + "_vs_plain"] = float((gk[table] - gp[table]).abs().max())
     return errs, rec
 
 
@@ -1340,9 +1374,10 @@ def with_kept(mod, names, run):
     return out, {n: k.calls for n, k in keep.items()}
 
 
-def kept_training(tsys, ph, run):
-    """run() with the P2/P3 calls made inside fused_train_step recorded
-    (the last of each); returns (run's result, kept calls)."""
+def kept_training(tsys, ph, run, names=("gather_rows", "scatter_add_rows")):
+    """run() with the P2/P3 calls (`names` of module ph) made inside
+    fused_train_step recorded (the last of each); returns (run's result,
+    kept calls)."""
     in_step = [False]
     step_fn = tsys.fused_train_step
 
@@ -1356,32 +1391,36 @@ def kept_training(tsys, ph, run):
     gate = dict(keep="last", gate=lambda: in_step[0])
     tsys.fused_train_step = gated_step
     try:
-        return with_kept(ph, dict(gather_rows=gate, scatter_add_rows=gate),
-                         run)
+        return with_kept(ph, {n: gate for n in names}, run)
     finally:
         tsys.fused_train_step = step_fn
 
 
 def train_probe_entries(probe, kept, launches, request, tag):
-    """P2 and P3 on the last training step's encoder calls, measured as
-    phase 8 measures the probes and printed under `tag`."""
+    """P2 (the encoder's forward gather, where it was kept) and P3 (the
+    table gradient) on the last training step's calls, measured as phase
+    8 measures the probes and printed under `tag`."""
     from google_nerf_tpu_torch.tools.kernel_probe import Probe
-    (tab, idx), _ = kept["gather_rows"][0]
-    (sidx, vals, T), _ = kept["scatter_add_rows"][0]
-    n = idx.numel()
     out = []
-    for pid, p in (
-            ("P2", Probe(request, "gather_rows_bf16",
-                         f"the encoder's row gather, {n} x 16 bf16",
-                         probe.gather_rows, probe.gather_rows_plain,
-                         (tab, idx), n)),
-            ("P3", Probe(request, "scatter_add_rows",
-                         f"the table gradient, {n} x 16 f32 onto {T} rows",
-                         probe.scatter_add_rows, probe.scatter_add_rows_plain,
-                         (sidx, vals, T), n, scatter=True))):
-        out.append(measure_probe(p, pid, launches[p.name], request,
-                                 reps=50))
+    if "gather_rows" in kept:
+        (tab, idx), _ = kept["gather_rows"][0]
+        n = idx.numel()
+        out.append(measure_probe(Probe(
+            request, "gather_rows_bf16",
+            f"the encoder's row gather, {n} x {tab.shape[1]} bf16 from "
+            f"{tab.shape[0]} rows", probe.gather_rows,
+            probe.gather_rows_plain, (tab, idx), n), "P2",
+            launches["gather_rows_bf16"], request, reps=50))
         print_probe(out[-1], tag)
+    (sidx, vals, T), _ = kept["scatter_add_rows"][0]
+    n = sidx.numel()
+    out.append(measure_probe(Probe(
+        request, "scatter_add_rows",
+        f"the table gradient, {n} x {vals.shape[1]} f32 onto {T} rows",
+        probe.scatter_add_rows, probe.scatter_add_rows_plain,
+        (sidx, vals, T), n, scatter=True), "P3",
+        launches["scatter_add_rows"], request, reps=50))
+    print_probe(out[-1], tag)
     return out
 
 
@@ -1948,6 +1987,194 @@ def phase13(seed, steps=CLI_STEPS):
     return summary, entries
 
 
+# ------------------- phase 14: the other encoders and the block marcher
+
+# (label, flags beyond opt.py's defaults, the module that calls the
+# encoder's kernels, the wrappers it calls, the table's param key)
+ENCODER_RUNS = (
+    ("hash", ["--xyz_encoder", "hash"], "table_gather",
+     ("scatter_add_rows",), "hash_table"),
+    ("freq", ["--xyz_encoder", "freq"], None, (), None),
+    ("packed2", ["--xyz_encoder", "packed2"], "packed_pair",
+     ("gather_rows", "scatter_add_rows"), "pair_table"),
+    ("block", ["--march", "block"], "packed_hash",
+     ("gather_rows", "scatter_add_rows"), "packed_table"))
+EARLY_STEP = 64             # the freq run's train psnr is compared here
+
+
+def steps_metrics(tsys, at, run):
+    """run() with the train psnr read at fused step `at` (one host read);
+    returns (run's result, that psnr)."""
+    step_fn, seen = tsys.fused_train_step, [0, None]
+
+    def step(*a, **k):
+        out = step_fn(*a, **k)
+        seen[0] += 1
+        if seen[0] == at:
+            seen[1] = float(out[1]["psnr"])
+        return out
+
+    tsys.fused_train_step = step
+    try:
+        return run(), seen[1]
+    finally:
+        tsys.fused_train_step = step_fn
+
+
+def restored_state(argv, ckpt, dev):
+    """The train state of a checkpoint written by train_torch.main(argv),
+    its marching tables repacked, and the run's scene and config."""
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.train import system as tsys
+    from google_nerf_tpu_torch.utils.ckpt import load_ckpt
+    hp = get_opts(argv)
+    cfg = train_torch.build_configs(hp)
+    ds = train_torch.make_dataset(hp, hp.split, dev)
+    state = tsys.init_train_state(cfg, ds.K, ds.poses, ds.img_wh,
+                                  generator=torch.Generator().manual_seed(0),
+                                  device=dev)
+    state = load_ckpt(ckpt, target=state)
+    state["occ_u8"] = tsys.pack_marching_grid(state["occ"], cfg)
+    return state, ds.scene(), cfg
+
+
+def phase14(seed, steps=CLI_STEPS):
+    """The other xyz encoders and the one-phase block marcher through the
+    CLIs, in a temporary directory, each as phase 12's training run
+    (train_torch.main at opt.py's defaults on the textured scene at 256^2,
+    1 epoch of `steps`) with one flag changed: --xyz_encoder hash (16
+    levels of 2^19 x 2, P3 for the table gradient; its forward gather is
+    index_select, as JAX's is XLA's), freq (12 bands, no table, no
+    kernel), packed2 (4 pair tables of 2^16 x 70, P2 on a copy padded to
+    72 columns, P3) and --march block (the packed encoder, P2 and P3);
+    then test_torch.run's default renderer (oneshot) on each slim
+    checkpoint, with --march block serving on the block rows.  The kernel
+    counters are at 0 just before each run (read just after).
+
+    Checks: P2/P3 launched in training where the encoder calls them;
+    validate PSNR >= 25 dB for hash, packed2 and block; the freq run's
+    validate PSNR finite and above its train PSNR at step 64; every
+    served PSNR finite; the block serve marched with the block marcher
+    and never the segment marcher.  For hash and packed2 one step from
+    the trained state with the kernels against one with their plain
+    versions (phase 9's bounds), and P2/P3 on the last training step's
+    calls on the kernels line (requests "hash", "packed2").  Returns
+    (summary, kernels-line entries)."""
+    import importlib
+    import os
+    import tempfile
+
+    import google_nerf_tpu_torch.models.render_test_oneshot as ros
+    import test_torch
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    dev = torch.device("cuda")
+    cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000); "
+           "widths at opt.py's defaults")
+    print(f"phase 14: {cut}", flush=True)
+    summary, entries = dict(cut=cut, steps=steps), []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for label, flags, modname, names, table in ENCODER_RUNS:
+                argv = CLI_SCENE + flags + [
+                    "--num_epochs", "1", "--steps_per_epoch", str(steps),
+                    "--seed", str(seed), "--exp_name", label,
+                    "--no_save_test"]
+                mod = (importlib.import_module(
+                    f"google_nerf_tpu_torch.ops.{modname}") if modname
+                    else None)
+                reset_cli_counters(bf, probe)
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                (logs, early), kept = kept_training(
+                    tsys, mod, lambda: steps_metrics(
+                        tsys, EARLY_STEP,
+                        lambda: train_torch.main(get_opts(argv))), names)
+                launches = cli_counters(bf, probe)
+                wall = time.time() - t0
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                for n in names:
+                    k = "gather_rows_bf16" if n == "gather_rows" else n
+                    check(launches[k] > 0, f"phase 14: {k} not launched by "
+                          f"the {label} training")
+                check(math.isfinite(logs["psnr"]),
+                      f"phase 14: {label} validate psnr {logs['psnr']}")
+                if label == "freq":
+                    check(logs["psnr"] > early, f"phase 14: freq validate "
+                          f"psnr {logs['psnr']} not above the train psnr "
+                          f"{early} at step {EARLY_STEP}")
+                else:
+                    check(logs["psnr"] >= 25.0, f"phase 14: {label} "
+                          f"validate psnr {logs['psnr']} < 25 dB")
+                print(f"phase 14: {label}: {steps} steps in {wall:.1f} s "
+                      f"(with setup and validate); {logs.get('ms_per_step')}"
+                      f" ms/step net of warm-up, {logs.get('rays_per_sec')} "
+                      f"rays/s; train psnr at step {EARLY_STEP} {early:.3f};"
+                      f" validate psnr {logs['psnr']:.3f}, ssim "
+                      f"{logs['ssim']:.4f}; peak {peak:.2f} GiB; launches "
+                      f"{launches}", flush=True)
+                info = dict(logs, launches=launches, wall_s=wall,
+                            peak_gib=peak, train_psnr_early=early)
+                ckdir = f"ckpts/synthetic/{label}/epoch=0"
+                if label in ("hash", "packed2"):
+                    entries += train_probe_entries(probe, kept, launches,
+                                                   label, "phase 14")
+                    del kept
+                    state, scene, cfg = restored_state(argv, ckdir, dev)
+                    draws = draws_of(torch.Generator(device=dev).manual_seed(
+                        seed + 14), scene, cfg, dev)
+                    info["kernel_vs_plain_step"], _ = kernel_vs_plain_step(
+                        tsys, mod, probe, state, scene, cfg, draws,
+                        names=names, table=table, tag="phase 14 " + label)
+                    print(f"phase 14: {label} kernel step vs plain step "
+                          f"{info['kernel_vs_plain_step']}", flush=True)
+                    del state, scene
+                else:
+                    del kept
+
+                # ---- serve the slim checkpoint (oneshot)
+                marches = {n: Recorder(getattr(ros, n), keep="first",
+                                       first=0)
+                           for n in ("march_rays_train_block",
+                                     "march_rays_train_seg")}
+                for n, r in marches.items():
+                    setattr(ros, n, r)
+                reset_cli_counters(bf, probe)
+                t0 = time.time()
+                try:
+                    out = test_torch.run(get_opts(
+                        argv + ["--ckpt_path", ckdir + "_slim"]))
+                    torch.cuda.synchronize()
+                finally:
+                    for n, r in marches.items():
+                        setattr(ros, n, r.fn)
+                calls = {n: r.n for n, r in marches.items()}
+                sl = cli_counters(bf, probe)
+                check(math.isfinite(out["psnr"]),
+                      f"phase 14: {label} served psnr {out['psnr']}")
+                if label == "block":
+                    check(calls["march_rays_train_block"] > 0
+                          and calls["march_rays_train_seg"] == 0,
+                          f"phase 14: --march block served with {calls}")
+                print(f"phase 14: test_torch oneshot on {label}: mean psnr "
+                      f"{out['psnr']:.3f}, fps {out['fps']:.2f}; marches "
+                      f"{calls}; launches {sl}; {time.time() - t0:.1f} s",
+                      flush=True)
+                info["serve"] = dict(out, launches=sl, marches=calls)
+                summary[label] = info
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return summary, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2156,6 +2383,12 @@ def main():
     data, data_kernels = phase13(args.seed)
     data["seconds"] = time.time() - t13
     kernels += data_kernels
+
+    # ---- 14: the other encoders and the block marcher through the CLIs
+    t14 = time.time()
+    encoders, encoder_kernels = phase14(args.seed)
+    encoders["seconds"] = time.time() - t14
+    kernels += encoder_kernels
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -2175,7 +2408,12 @@ def main():
           f"psnr sup {data['scannet']['train']['sup']['psnr']:.2f}, nosup "
           f"{data['scannet']['train']['nosup']['psnr']:.2f}, served "
           f"{data['scannet']['serve']['psnr']:.2f}; phase 13 "
-          f"{data['seconds']:.0f} s; total "
+          f"{data['seconds']:.0f} s; " + "; ".join(
+              f"{r} {encoders[r].get('ms_per_step')} ms/step, validate "
+              f"psnr {encoders[r]['psnr']:.2f}, served "
+              f"{encoders[r]['serve']['psnr']:.2f}"
+              for r, *_ in ENCODER_RUNS)
+          + f"; phase 14 {encoders['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -2188,7 +2426,7 @@ def main():
                   rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
                   train=train, trained_wl256=served, serving_stages=stages,
                   bench_keys=bench_keys, cli=cli, datasets=data,
-                  kernels=kernels)
+                  encoders=encoders, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

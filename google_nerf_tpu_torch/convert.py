@@ -20,12 +20,14 @@ def _t(a, device):
 def params_from_jax(tree, device="cuda"):
     """init_ngp / init_train_state params (numpy leaves) -> port params.
 
-    Keys are kept: packed_table (L, T, 8F), sigma_mlp and rgb_mlp (lists
-    of (din, dout) weights), and the optional pose refinement dR/dT."""
-    if "packed_table" not in tree:
-        raise NotImplementedError(
-            "only the packed encoder is ported (ROADMAP item 17 brings the "
-            f"other tables); got keys {sorted(tree)}")
+    Keys are kept: the encoder's table (hash_table (L, T, F),
+    packed_table (L, T, 8F) or pair_table (P, T, 35F); none for the
+    frequency encoder), sigma_mlp and rgb_mlp (lists of (din, dout)
+    weights), and the optional pose refinement dR/dT."""
+    known = {"hash_table", "packed_table", "pair_table", "sigma_mlp",
+             "rgb_mlp", "dR", "dT"}
+    if not {"sigma_mlp", "rgb_mlp"} <= set(tree) or set(tree) - known:
+        raise ValueError(f"not an NGP params tree: keys {sorted(tree)}")
     return {k: ([_t(w, device) for w in v] if isinstance(v, (list, tuple))
                 else _t(v, device)) for k, v in tree.items()}
 
@@ -38,8 +40,8 @@ def load_bench_state(path, cfg: NGPConfig = NGPConfig(encoder="packed"),
     jax.tree_util leaf order, i.e. dict keys sorted by name and list
     items in order:
         [dR, dT,]  packed_table,  rgb_mlp[0..rgb_layers],  sigma_mlp[0..1]
-    (dR/dT exist only when the run refined poses).  `cfg` gives the
-    number of rgb layers."""
+    (dR/dT exist only when the run refined poses): bench.py trains the
+    packed encoder.  `cfg` gives the number of rgb layers."""
     with np.load(path) as z:
         n = len([k for k in z.files if k.startswith("p")
                  and k[1:].isdigit()])
@@ -65,7 +67,8 @@ def train_state_from_jax(tree, cfg, device="cuda"):
 
     tree: dict with params (as params_from_jax takes them), density_grid,
     occ, occ_u8 and step; occ_u8 is block2's dict of blocks4 and super,
-    or the int32 word grid (C, G, G, G) of the seg and dense layouts.
+    the block marcher's rows (G^3, 16), or the int32 word grid (C, G, G,
+    G) of the seg and dense layouts.
     The optax state is not carried: the port's optimizer starts with
     zero moments, as a fresh JAX state's does.  cfg: the port's
     TrainConfig."""

@@ -3,11 +3,11 @@ google_nerf_tpu/models/render_test_oneshot.py): march every ray ONCE,
 composite with a transmittance carry, then re-pass only the straggler
 rays that had more content than one pass's capacity.
 
-  main pass: every ray, k samples (segment or block2 march, then a dense
-             row-wise or budget-packed field and composite); with
-             `compact_main` there is no main pass: one phase-A super scan
-             marks the rays that may hold content and only those enter
-             the drain;
+  main pass: every ray, k samples (segment, block or block2 march,
+             then a dense row-wise or budget-packed field and
+             composite); with `compact_main` there is no main pass: one
+             phase-A super scan marks the rays that may hold content and
+             only those enter the drain;
   stragglers: the alive rays of the whole image, at most chunk /
              straggler_div a pass, resumed where their march stopped:
              a fixed number of passes, or with `drain` until none is
@@ -31,7 +31,8 @@ from google_nerf_tpu_torch.core.rays import norm3
 from google_nerf_tpu_torch.models.ngp import NGPConfig, ngp_apply
 from google_nerf_tpu_torch.ops.compaction import pack, plan_packing
 from google_nerf_tpu_torch.ops.composite import _exclusive_cumsum
-from google_nerf_tpu_torch.ops.march_block import (block2_group,
+from google_nerf_tpu_torch.ops.march_block import (block2_group, block_group,
+                                                   march_rays_train_block,
                                                    march_rays_train_block2,
                                                    super_any_live)
 from google_nerf_tpu_torch.ops.march_seg import _first_k, march_rays_train_seg
@@ -53,6 +54,13 @@ def _march(cfg: NGPConfig, occ_u8, rays_o, rays_d, hits, *, k, n_keep, sup,
             rays_o, rays_d, hits, occ_u8, scale=cfg.scale,
             grid_size=cfg.grid_size, max_samples=max_samples, k_samples=k,
             noise=noise, n_keep_super=nks, n_keep_groups=nkg)
+    if march == "block":
+        # the window budget is the seg path's reach, n_keep segments of 8
+        g = block_group(max_samples, cfg.scale, cfg.grid_size)
+        return march_rays_train_block(
+            rays_o, rays_d, hits, occ_u8, scale=cfg.scale,
+            grid_size=cfg.grid_size, max_samples=max_samples, k_samples=k,
+            noise=noise, n_keep_groups=max(1, (n_keep * 8) // g))
     return march_rays_train_seg(
         rays_o, rays_d, hits, occ_u8, cascades=cfg.cascades, scale=cfg.scale,
         grid_size=cfg.grid_size, max_samples=max_samples, k_samples=k,
@@ -223,8 +231,9 @@ def render_test_oneshot(params, cfg: NGPConfig, occ_u8, rays_o, rays_d, *,
                         drain_budget_div: int = 0):
     """Full-image one-shot renderer (bounded scenes), JAX's arguments.
 
-    occ_u8: pack_occupancy_u8's word grid (march "seg") or
-    pack_occupancy_block2's dict ("block2").  apply_fn(params, cfg, x, d)
+    occ_u8: pack_occupancy_u8's word grid (march "seg"),
+    pack_occupancy_blocks' rows ("block") or pack_occupancy_block2's dict
+    ("block2").  apply_fn(params, cfg, x, d)
     -> (sigmas, rgbs) replaces the live field (e.g. make_baked_apply).
     pooled_stragglers: one main pass per chunk, then the alive rays of the
     whole image share the straggler passes; drain: those passes continue
@@ -235,9 +244,6 @@ def render_test_oneshot(params, cfg: NGPConfig, occ_u8, rays_o, rays_d, *,
     if drain and not pooled_stragglers:
         raise ValueError("drain=True requires pooled_stragglers=True "
                          "(the drain runs on the image-wide pool)")
-    if march == "block":
-        raise NotImplementedError(
-            "march='block': the one-phase block marcher is ROADMAP item 15")
     dev = rays_o.device
     R = rays_o.shape[0]
     chunk = min(chunk, max(R, 1))

@@ -1,8 +1,8 @@
 """Ray rendering (port of google_nerf_tpu/models/rendering.py): the
 training forward pass and the round-based test renderer.
 
-  * render_train: ray/AABB clip, the march (block2, seg or the dense
-    lattice), budget packing, the field on the packed samples, the
+  * render_train: ray/AABB clip, the march (block, block2, seg or the
+    dense lattice), budget packing, the field on the packed samples, the
     stream or padded composite, the incomplete-ray modes and the
     background;
   * render_test: rounds of (march_rays_test_round, the field,
@@ -10,8 +10,6 @@ training forward pass and the round-based test renderer.
     max_rounds ran.  Where JAX runs the rounds as a lax.while_loop with
     its condition on the device, the port reads "any ray alive" on the
     host once a round.
-
-The one-phase block marcher (`march="block"`) is ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -22,6 +20,9 @@ from google_nerf_tpu_torch.ops.compaction import pack, plan_packing, unpack
 from google_nerf_tpu_torch.ops.composite import (composite_rays_test_round,
                                                  composite_rays_train)
 from google_nerf_tpu_torch.ops.march_block import (block2_group,
+                                                   block_group as
+                                                   auto_block_group,
+                                                   march_rays_train_block,
                                                    march_rays_train_block2)
 from google_nerf_tpu_torch.ops.march_seg import march_rays_train_seg
 from google_nerf_tpu_torch.ops.marching import (march_rays_test_round,
@@ -53,7 +54,7 @@ def render_train(params, cfg: NGPConfig, occ_grid, rays_o, rays_d, *,
                  max_samples: int = MAX_SAMPLES, samples_budget: int = 0,
                  occ_u8=None, march: str = "seg", seg: int = 8,
                  n_keep: int = 32, sup: int = 0, n_keep_sup: int = 12,
-                 n_keep_groups: int = 0,
+                 block_group: int = 0, n_keep_groups: int = 0,
                  bg_color=None, exclude_incomplete: str = "none",
                  incomplete_floor: float = 0.5, backfill_rgb=None,
                  backfill_enable: bool = True, stream: bool = True):
@@ -61,16 +62,16 @@ def render_train(params, cfg: NGPConfig, occ_grid, rays_o, rays_d, *,
     [0, 1): the march's start jitter (JAX draws it from its key).
 
     The march: block2 with occ_u8 (pack_occupancy_block2's dict) and
-    march="block2"; the segment marcher with occ_u8 (pack_occupancy_u8's
-    word grid) otherwise; the dense lattice on occ_grid where occ_u8 is
+    march="block2"; the one-phase block marcher with occ_u8
+    (pack_occupancy_blocks' rows) and march="block", in groups of
+    block_group candidates (0: the largest that one block row covers);
+    the segment marcher with occ_u8 (pack_occupancy_u8's word grid)
+    otherwise; the dense lattice on occ_grid where occ_u8 is
     None or the step is not constant.
 
     Returns dict: rgb (R, 3), opacity, depth, depth_sq (R,),
     total_samples, valid (R, K) and ray_mask (R,)."""
     constant = exp_step_factor == 0.0
-    if occ_u8 is not None and constant and march == "block":
-        raise NotImplementedError(
-            "march='block': the one-phase block marcher is ROADMAP item 15")
     if exclude_incomplete not in ("none", "hard", "floor", "backfill"):
         raise ValueError(f"exclude_incomplete={exclude_incomplete!r}")
     R = rays_o.shape[0]
@@ -84,6 +85,18 @@ def render_train(params, cfg: NGPConfig, occ_grid, rays_o, rays_d, *,
             grid_size=cfg.grid_size, max_samples=max_samples,
             k_samples=k_samples, noise=noise,
             n_keep_super=max(1, max_samples // (g * 8)),
+            n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
+    elif occ_u8 is not None and constant and march == "block":
+        # the default window budget is the seg marcher's reach (n_keep
+        # segments of seg candidates), not k_samples // g: a smaller one
+        # truncates content rays so often that training collapses (JAX's
+        # record: mask_frac 0.6)
+        g = block_group or auto_block_group(max_samples, cfg.scale,
+                                            cfg.grid_size)
+        m = march_rays_train_block(
+            rays_o, rays_du, hits, occ_u8, scale=cfg.scale,
+            grid_size=cfg.grid_size, max_samples=max_samples,
+            k_samples=k_samples, noise=noise, group=g,
             n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
     elif occ_u8 is not None and constant:
         m = march_rays_train_seg(

@@ -3,7 +3,8 @@ single device: no `axis_name`).
 
 The density grid is raster (C, G, G, G) float32, index [c, x, y, z];
 negative cells are permanently invisible.  Occupancy is `grid >
-threshold` as a bool array, and the block2 marcher reads it packed into
+threshold` as a bool array; the block marcher reads it packed into
+per-cell 8^3 block rows (pack_occupancy_blocks), the block2 marcher into
 two int32 tables (pack_occupancy_blocks4, pack_super_liveness).  Cell
 centers follow the reference mapping
 
@@ -177,6 +178,33 @@ def update_density_grid(density_grid, density_fn, *, scale: float,
         pos.sum(), 1).to(new.dtype)
     occ = new > torch.clamp_max(mean_density, density_threshold)
     return new, occ
+
+
+def pack_occupancy_blocks(occ, block: int = 8) -> torch.Tensor:
+    """occ: (1, G, G, G) bool -> (G^3, 16) int32 exact-occupancy block
+    rows for the one-phase block marcher.  Row m (the raster index of the
+    anchor cell) holds the forward 8^3 block: bit o = dx*64 + dy*8 + dz of
+    word o // 32 is occ[anchor + (dx, dy, dz)], (dx, dy, dz) in {0..7}^3
+    (out-of-grid = 0).  Built from 8 z-shifted ORs (the byte of 8 z bits)
+    and 64 xy-shifted ORs."""
+    assert occ.shape[0] == 1, "block rows are single-cascade only"
+    assert block == 8, "only 8^3 (512-bit, 16-word) blocks are implemented"
+    G = occ.shape[1]
+    padded = F.pad(occ[0].to(torch.int32), (0, 7, 0, 7, 0, 7))
+    # zb[x, y, z] = bits dz of occ[x, y, z + dz], dz in {0..7}
+    zb = padded[:, :, 0:G]
+    for dz in range(1, 8):
+        zb = zb | (padded[:, :, dz:dz + G] << dz)
+    words = []
+    for w in range(16):
+        dx = w // 2
+        acc = None
+        for sub in range(4):
+            dy = (w % 2) * 4 + sub
+            t = zb[dx:dx + G, dy:dy + G, :] << (8 * sub)
+            acc = t if acc is None else acc | t
+        words.append(acc)
+    return torch.stack(words, -1).reshape(G * G * G, 16)
 
 
 def pack_occupancy_blocks4(occ, stride: int = 4) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Ray/AABB slab test (port of google_nerf_tpu/ops/ray_aabb.py)."""
+"""Ray/AABB slab test and ray/sphere intersection (port of
+google_nerf_tpu/ops/ray_aabb.py)."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +27,25 @@ def ray_aabb_intersect(rays_o, rays_d, center, half_size):
     t2 = torch.maximum(t_lo, t_hi).amin(-1)
     t1 = torch.clamp_min(t1, 0.0)
     hit = t2 > t1
+    return torch.where(hit[:, None], torch.stack([t1, t2], -1),
+                       torch.full_like(rays_o[:, :2], -1.0))
+
+
+def ray_sphere_intersect(rays_o, rays_d, center, radius: float):
+    """Analytic ray/sphere test.  rays_o, rays_d: (N, 3); center: (3,).
+
+    Returns hits_t (N, 2) = [max(t1, 0), t2], both -1 where the ray misses."""
+    center = torch.as_tensor(center, dtype=torch.float32,
+                             device=rays_o.device).reshape(1, 3)
+    oc = rays_o - center
+    a = (rays_d * rays_d).sum(-1)
+    b = 2.0 * (oc * rays_d).sum(-1)
+    c = (oc * oc).sum(-1) - radius ** 2
+    disc = b * b - 4 * a * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = torch.clamp_min((-b - sq) / (2 * a), 0.0)
+    t2 = (-b + sq) / (2 * a)
+    hit = (disc > 0) & (t2 > t1)
     return torch.where(hit[:, None], torch.stack([t1, t2], -1),
                        torch.full_like(rays_o[:, :2], -1.0))
 

@@ -17,14 +17,15 @@ from `draws`, a dict the caller passes (img_idxs, pix_idxs, bg, noise;
 the grid update's per-cascade draws), so tests can hand in the draws
 JAX made from its key.
 
-The marchers: block2 (bench.py's recipe; one cascade only, so a
-multi-cascade model takes seg, as JAX's does), seg (opt.py's default,
-with super-segments when sup > 1) and the dense lattice, which also
-takes every scene with an exponential step (exp_step_factor > 0:
-colmap and nerfpp).  Any number of cascades (scale > 0.5), and the
-grid's erosion (colmap), run.  The one-phase block marcher is ROADMAP
-item 15.  With depth priors (lambda_depth > 0) the step's metrics
-carry the depth term as depth_loss.
+The marchers: block2 (bench.py's recipe) and the one-phase block
+marcher (one cascade only, so a multi-cascade model takes seg, as JAX's
+does), seg (opt.py's default, with super-segments when sup > 1) and the
+dense lattice, which also takes every scene with an exponential step
+(exp_step_factor > 0: colmap and nerfpp).  Any number of cascades
+(scale > 0.5), and the grid's erosion (colmap), run.  Every xyz encoder
+of NGPConfig trains (hash, freq, packed, packed2).  With depth priors
+(lambda_depth > 0) the step's metrics carry the depth term as
+depth_loss.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from google_nerf_tpu_torch.core.rays import axisangle_to_R, get_rays
 from google_nerf_tpu_torch.models.ngp import NGPConfig, init_ngp, ngp_density
 from google_nerf_tpu_torch.models.rendering import MAX_SAMPLES, render_train
 from google_nerf_tpu_torch.ops.grid import (mark_invisible_cells,
+                                            pack_occupancy_blocks,
                                             pack_occupancy_u8,
                                             update_density_grid)
 from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
@@ -73,13 +75,14 @@ class TrainConfig:
     incomplete_floor: float = 0.5  # "floor": keep >= this share supervised
     random_bg_per_ray: bool = True
     weight_decay: float = 0.0     # decoupled decay on the encoder table
-    march: str = "seg"            # "seg" | "block2" | "dense"
+    march: str = "seg"            # "seg" | "block" | "block2" | "dense"
     seg: int = 8                  # candidates per segment
     n_keep: int = 32              # live segments kept per ray
     sup: int = 4                  # segments per super-segment (0: none)
     n_keep_sup: int = 24          # live super-segments kept
-    block_group: int = 0          # march="block" (ROADMAP item 15)
-    n_keep_groups: int = 0        # block2: live groups kept (0: the reach)
+    block_group: int = 0          # block: candidates a group (0: auto)
+    n_keep_groups: int = 0        # block, block2: live groups kept (0:
+                                  # the seg marcher's reach)
 
     @property
     def density_threshold(self) -> float:
@@ -90,25 +93,25 @@ class TrainConfig:
         return self.num_epochs * self.steps_per_epoch
 
 
-def _require_ported(cfg: TrainConfig):
-    if cfg.march == "block":
-        raise NotImplementedError(
-            "march='block': the one-phase block marcher is ROADMAP item 15")
-
-
-def _block2(cfg: TrainConfig) -> bool:
-    """block2 runs on single-cascade models; others march seg."""
-    return cfg.march == "block2" and cfg.model.cascades == 1
+def block_march(cfg: TrainConfig) -> str:
+    """The block marchers run on single-cascade models: "block" or
+    "block2" there, else "seg" (as JAX's march choice)."""
+    if cfg.march in ("block", "block2") and cfg.model.cascades == 1:
+        return cfg.march
+    return "seg"
 
 
 def pack_marching_grid(occ, cfg: TrainConfig):
     """The marcher's packed tables from the boolean grid: block2's dict,
-    or the segment marcher's dilated word grid (super-dilated too when
-    sup > 1)."""
+    the block marcher's rows, or the segment marcher's dilated word grid
+    (super-dilated too when sup > 1)."""
     m = cfg.model
-    if _block2(cfg):
+    march = block_march(cfg)
+    if march == "block2":
         return pack_occupancy_block2(occ, max_samples=cfg.max_samples,
                                      scale=m.scale)
+    if march == "block":
+        return pack_occupancy_blocks(occ)
     return pack_occupancy_u8(
         occ, required_dilation_radius(cfg.seg, m.grid_size, cfg.max_samples,
                                       m.scale),
@@ -150,10 +153,13 @@ def make_optimizer(cfg: TrainConfig, params):
            if k not in _POSE_KEYS]
     kw = dict(lr=cosine_lr(cfg)(0), eps=1e-15, weight_decay=0.0)
     if cfg.weight_decay > 0:
-        groups = [dict(params=[p for k, p in net if k in _TABLE_KEYS],
-                       weight_decay=cfg.weight_decay, tag="net"),
-                  dict(params=[p for k, p in net if k not in _TABLE_KEYS],
-                       tag="net")]
+        # decay on the encoder's table only (the frequency encoder has
+        # none, so nothing decays)
+        groups = [g for g in (
+            dict(params=[p for k, p in net if k in _TABLE_KEYS],
+                 weight_decay=cfg.weight_decay, tag="net"),
+            dict(params=[p for k, p in net if k not in _TABLE_KEYS],
+                 tag="net")) if g["params"]]
         cls = torch.optim.AdamW
     else:
         groups = [dict(params=[p for _, p in net], tag="net")]
@@ -177,7 +183,6 @@ def init_train_state(cfg: TrainConfig, K, poses, img_wh, *, generator=None,
     """K: (3, 3) intrinsics; poses: (N, 3, 4) c2w; img_wh: (w, h).
     params: init_ngp's from `generator` (a CPU Generator, seed 0 if None)
     unless given."""
-    _require_ported(cfg)
     m = cfg.model
     if params is None:
         params = init_ngp(generator or torch.Generator().manual_seed(0), m,
@@ -194,12 +199,16 @@ def init_train_state(cfg: TrainConfig, K, poses, img_wh, *, generator=None,
         device=device)
     occ = torch.zeros((m.cascades,) + (m.grid_size,) * 3, dtype=torch.bool,
                       device=device)
-    if _block2(cfg):
+    march = block_march(cfg)
+    if march == "block2":
         gs4, gq = m.grid_size // 4, m.grid_size // 8
         occ_u8 = dict(
             blocks4=torch.zeros((gs4 ** 3, 16), dtype=torch.int32,
                                 device=device),
             super=torch.zeros((gq ** 3,), dtype=torch.int32, device=device))
+    elif march == "block":
+        occ_u8 = torch.zeros((m.grid_size ** 3, 16), dtype=torch.int32,
+                             device=device)
     else:
         occ_u8 = torch.zeros(occ.shape, dtype=torch.int32, device=device)
     return dict(params=params, opt=make_optimizer(cfg, params),
@@ -249,7 +258,6 @@ def loss_and_results(params, occ, scene, batch, cfg: TrainConfig, *,
     and "occ_u8"; `step` gates the backfill (on from warmup_steps).
     bg (R, 3) or (3,) and noise (R,) are drawn from `generator` unless
     given."""
-    _require_ported(cfg)
     step_now = cfg.warmup_steps if step is None else step
     poses = refined_poses(params, scene["poses"], batch["img_idxs"])
     dirs = scene["directions"][batch["pix_idxs"]]
@@ -275,10 +283,11 @@ def loss_and_results(params, occ, scene, batch, cfg: TrainConfig, *,
         # the dense marcher reads the boolean grid; "dense" and the
         # exponential step take the render's fallback branch, as JAX's
         # march choice does
-        occ_u8=(occ["occ_u8"] if cfg.march in ("seg", "block2")
+        occ_u8=(occ["occ_u8"] if cfg.march in ("seg", "block", "block2")
                 and cfg.exp_step_factor == 0.0 else None),
-        march="block2" if _block2(cfg) else "seg", seg=cfg.seg, n_keep=cfg.n_keep, sup=cfg.sup,
-        n_keep_sup=cfg.n_keep_sup, n_keep_groups=cfg.n_keep_groups,
+        march=block_march(cfg), seg=cfg.seg, n_keep=cfg.n_keep,
+        sup=cfg.sup, n_keep_sup=cfg.n_keep_sup, block_group=cfg.block_group,
+        n_keep_groups=cfg.n_keep_groups,
         bg_color=bg_color,
         exclude_incomplete=cfg.exclude_incomplete,
         incomplete_floor=cfg.incomplete_floor, backfill_rgb=batch["rgb"],
@@ -361,7 +370,6 @@ def grid_update_step(state, cfg: TrainConfig, *, warmup: bool, draws=None,
     """Density-grid maintenance: update the grid, its occupancy and the
     marcher's packed tables in place.  draws: ops.grid.grid_draws'
     list."""
-    _require_ported(cfg)
     m = cfg.model
     params = state["params"]
     new_grid, occ = update_density_grid(

@@ -8,8 +8,8 @@ PSNR and FPS.
         --ckpt_path ckpts/synthetic/my_exp/epoch=29 [--renderer fast]
 
 Renderers: oneshot (the default; the segment marcher unless --march
-block2), fast (render_test_fast, or render_test_baked with --bake),
-brick (the pair renderer over a bake) and brick_mxu (the tile kernels
+block or block2 on a single-cascade scene), fast (render_test_fast, or
+render_test_baked with --bake), brick (the pair renderer over a bake) and brick_mxu (the tile kernels
 over a bake); --save_bake/--load_bake write and read the bake.  Every
 timed frame ends with torch.cuda.synchronize() on the card; FPS is the
 mean over the frames after the first.  Runs on the CUDA card unless
@@ -39,10 +39,12 @@ def run(hparams):
     from google_nerf_tpu_torch.models.render_test_oneshot import \
         render_test_oneshot
     from google_nerf_tpu_torch.models.rendering import render_test
-    from google_nerf_tpu_torch.ops.grid import pack_occupancy_u8
+    from google_nerf_tpu_torch.ops.grid import (pack_occupancy_blocks,
+                                                pack_occupancy_u8)
     from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
     from google_nerf_tpu_torch.ops.march_seg import required_dilation_radius
-    from google_nerf_tpu_torch.train.system import init_train_state
+    from google_nerf_tpu_torch.train.system import (block_march,
+                                                    init_train_state)
     from google_nerf_tpu_torch.utils.ckpt import load_ckpt_filtered
 
     dev = device_of(hparams)
@@ -69,11 +71,16 @@ def run(hparams):
                                                m.scale),
         super_radius=required_dilation_radius(32, m.grid_size, ms_pack,
                                               m.scale))
-    serve_march = ("block2" if hparams.march == "block2"
-                   and m.cascades == 1 else "seg")
-    occ_oneshot = (pack_occupancy_block2(state["occ"], max_samples=rms,
-                                         scale=m.scale)
-                   if serve_march == "block2" else occ_u8)
+    # the block marchers serve single-cascade scenes: exact-occupancy
+    # block rows, no dilation
+    serve_march = block_march(cfg)
+    if serve_march == "block2":
+        occ_oneshot = pack_occupancy_block2(state["occ"], max_samples=rms,
+                                            scale=m.scale)
+    elif serve_march == "block":
+        occ_oneshot = pack_occupancy_blocks(state["occ"])
+    else:
+        occ_oneshot = occ_u8
     baked = bcfg = None
     if renderer in ("brick", "brick_mxu"):
         if cfg.exp_step_factor != 0.0:

@@ -6,10 +6,12 @@ Checks: the full and slim checkpoints exist and the validation PSNR is
 finite; --val_only on the full checkpoint gives the training run's
 validation logs exactly (one state, one deterministic renderer);
 test_torch.run serves the slim checkpoint; the PNGs and the JSONL
-scalars land where train.py puts them; the CLIs refuse what the port
-does not run (no card without --platform cpu, several cards, the block
-marcher) and what JAX's loaders refuse (an NSVF root without bbox.txt),
-and an RTMV scene of OpenEXR frames names its ROADMAP item."""
+scalars land where train.py puts them; every other --xyz_encoder (hash,
+freq, packed2) and --march block train, checkpoint (the encoder's param
+keys round-trip) and serve; the CLIs refuse what the port does not run
+(no card without --platform cpu, several cards) and what JAX's loaders
+refuse (an NSVF root without bbox.txt), and an RTMV scene of OpenEXR
+frames names its ROADMAP item."""
 import glob
 import json
 
@@ -92,6 +94,38 @@ def test_test_cli_serves_the_slim_checkpoint(trained, monkeypatch,
         assert out["psnr"] == pytest.approx(logs["psnr"], abs=1e-4)
 
 
+@pytest.mark.parametrize("flags,table", [
+    (["--xyz_encoder", "hash", "--num_levels", "4", "--log2_hashmap_size",
+      "10"], "hash_table"),
+    (["--xyz_encoder", "freq"], None),
+    (["--xyz_encoder", "packed2"], "pair_table"),
+    (["--march", "block"], "packed_table"),
+], ids=["hash", "freq", "packed2", "block"])
+def test_every_encoder_and_march_trains_and_serves(monkeypatch, tmp_path,
+                                                   flags, table):
+    """train_torch.py then test_torch.py (oneshot; with --march block its
+    block rows) for each encoder and the block marcher: finite PSNR, the
+    slim checkpoint holds the encoder's params, and --val_only on the
+    full checkpoint gives the run's logs."""
+    from google_nerf_tpu_torch.utils.ckpt import load_ckpt
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("GNT_TORCH_GT_CACHE", str(tmp_path / "gt"))
+    monkeypatch.setattr(tlog, "USE_TENSORBOARD", False)
+    argv = CPU + flags + ["--exp_name", "enc", "--no_save_test"]
+    logs = train_torch.main(get_opts(argv))
+    assert np.isfinite(logs["psnr"])
+    ck = tmp_path / "ckpts/synthetic/enc/epoch=0"
+    params = load_ckpt(str(ck) + "_slim")["params"]
+    assert sorted(params) == sorted(k for k in (table, "rgb_mlp",
+                                                "sigma_mlp") if k)
+    val = train_torch.main(get_opts(argv + ["--val_only", "--ckpt_path",
+                                            str(ck)]))
+    assert val == {k: logs[k] for k in ("psnr", "ssim")}
+    out = test_torch.run(get_opts(argv + ["--renderer", "oneshot",
+                                          "--ckpt_path", str(ck) + "_slim"]))
+    assert np.isfinite(out["psnr"]) and out["fps"] > 0
+
+
 def test_clis_refuse_what_the_port_does_not_run(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -122,7 +156,5 @@ def test_clis_refuse_what_the_port_does_not_run(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="item 21"):
         test_torch.run(get_opts(CPU + ["--num_gpus", "2", "--ckpt_path",
                                        "x"]))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_torch.main(get_opts(CPU + ["--march", "block"]))
     with pytest.raises(ValueError, match="ckpt_path"):
         train_torch.main(get_opts(CPU + ["--val_only"]))

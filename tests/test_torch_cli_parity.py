@@ -4,7 +4,9 @@ JAX's test.py serves it, and the port's test_torch.py serves the same
 state carried across (JAX load_ckpt -> convert.train_state_from_jax ->
 the port's save_ckpt).  Each renderer's mean PSNR over the 50 test views
 agrees with JAX's within 0.05 dB.  This file: the one-shot renderer
-(test.py's default) and the fast renderer;
+(test.py's default) and the fast renderer on the packed encoder, and the
+one-shot renderer on a checkpoint of the hash grid (`--xyz_encoder hash`,
+4 levels of 2^10 rows);
 tests/test_torch_cli_parity_bake.py: the baked renderers."""
 import os
 
@@ -42,42 +44,47 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def train_and_carry(root):
+HASH = ["--xyz_encoder", "hash", "--num_levels", "4",
+        "--log2_hashmap_size", "10"]
+
+
+def train_and_carry(root, flags=()):
     """JAX's train.py in root -> (JAX's full checkpoint, the port's copy
     of the same state)."""
-    jax_train.main(jax_get_opts(TINY), video_fps=1)
+    argv = TINY + list(flags)
+    jax_train.main(jax_get_opts(argv), video_fps=1)
     jpath = os.path.abspath("ckpts/synthetic/parity/epoch=0")
     tree = jax.tree_util.tree_map(np.asarray, load_ckpt(jpath))
     st = train_state_from_jax({k: tree[k] for k in (
         "params", "density_grid", "occ", "occ_u8", "step")},
-        build_configs(get_opts(TINY)), "cpu")
+        build_configs(get_opts(argv)), "cpu")
     tpath = str(root / "port_epoch=0")
     save_ckpt(tpath, st)
     return jpath, tpath
 
 
-def carried_world(tmp_path_factory):
+def carried_world(tmp_path_factory, flags=()):
     root = tmp_path_factory.mktemp("parity")
     mp = pytest.MonkeyPatch()
     mp.chdir(root)
     mp.setenv("GNT_GT_CACHE", str(root / "gt_jax"))
     mp.setenv("GNT_TORCH_GT_CACHE", str(root / "gt_torch"))
     try:
-        jpath, tpath = train_and_carry(root)
+        jpath, tpath = train_and_carry(root, flags)
     finally:
         mp.undo()
     return root, jpath, tpath
 
 
-def serve_both(world, monkeypatch, renderer):
+def serve_both(world, monkeypatch, renderer, flags=()):
     """Mean PSNR of JAX's test.run and of the port's test_torch.run."""
     root, jpath, tpath = world
     monkeypatch.chdir(root)
     monkeypatch.setenv("GNT_GT_CACHE", str(root / "gt_jax"))
     monkeypatch.setenv("GNT_TORCH_GT_CACHE", str(root / "gt_torch"))
-    want = jax_test.run(jax_get_opts(TINY + renderer + ["--ckpt_path",
-                                                        jpath]))
-    got = test_torch.run(get_opts(TINY + renderer + ["--ckpt_path", tpath]))
+    argv = TINY + list(flags) + renderer
+    want = jax_test.run(jax_get_opts(argv + ["--ckpt_path", jpath]))
+    got = test_torch.run(get_opts(argv + ["--ckpt_path", tpath]))
     return got["psnr"], want["psnr"]
 
 
@@ -91,5 +98,19 @@ def world(tmp_path_factory):
                          ids=["oneshot", "fast"])
 def test_cli_psnr_matches_jax(world, monkeypatch, renderer):
     got, want = serve_both(world, monkeypatch, renderer)
+    assert np.isfinite(want)
+    assert abs(got - want) <= 0.05, (got, want)
+
+
+@pytest.fixture(scope="module")
+def hash_world(tmp_path_factory):
+    return carried_world(tmp_path_factory, HASH)
+
+
+def test_cli_psnr_matches_jax_hash(hash_world, monkeypatch):
+    """The hash grid: JAX's train.py checkpoint carried across (its
+    hash_table) and served by both CLIs' one-shot renderer."""
+    got, want = serve_both(hash_world, monkeypatch, ["--renderer",
+                                                     "oneshot"], HASH)
     assert np.isfinite(want)
     assert abs(got - want) <= 0.05, (got, want)

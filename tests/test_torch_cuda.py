@@ -767,6 +767,59 @@ def test_cuda_packed_encoder_matches_cpu():
     torch.testing.assert_close(x1, x0, rtol=1e-5, atol=1e-5)
 
 
+def _pair_hash_inputs(encoder, device, n=5000, seed=0):
+    """(encode function, cfg, table, x, cotangent) for the packed2 or the
+    hash encoder at small widths with O(0.1) table values."""
+    from google_nerf_tpu_torch.models import encoders as enc
+    from google_nerf_tpu_torch.ops import packed_pair as pp
+    g = torch.Generator().manual_seed(seed)
+    if encoder == "packed2":
+        cfg = pp.packed_pair_config_for_scale(0.5, n_pairs=3,
+                                              log2_table_size=12)
+        fn, shape = pp.packed_pair_encode, (3, 4096, cfg.row_width)
+    else:
+        cfg = enc.hashgrid_config_for_scale(0.5, num_levels=6,
+                                            log2_hashmap_size=13)
+        fn, shape = enc.hash_encode, (6, 8192, 2)
+    table = (torch.rand(shape, generator=g) - 0.5) * 0.2
+    x = torch.rand((n, 3), generator=g) * 0.98 + 0.01
+    gy = torch.randn((n, cfg.out_dim), generator=g)
+    return fn, cfg, table.to(device), x.to(device), gy.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["packed2", "hash"])
+def test_cuda_pair_and_hash_encoders_match_cpu(encoder):
+    """packed2 (P2 on its bf16 table padded to 72 columns, P3) and the hash
+    grid (index_select forward, P3 for the table gradient) on the card
+    against their CPU runs (the plain versions): forward within 1e-6,
+    dtable within 1e-5 x its largest entry (f32 atomic sums in another
+    order), dx within 1e-5; P2 launched once for packed2, P3 once for
+    each."""
+    from google_nerf_tpu_torch.ops.cuda import probe
+    dev = _card()
+    outs = {}
+    for d in ("cpu", dev):
+        fn, cfg, table, x, gy = _pair_hash_inputs(encoder, d)
+        table.requires_grad_(True)
+        x.requires_grad_(True)
+        before = (probe.gather_rows.launches["bfloat16"],
+                  probe.scatter_add_rows.launches)
+        y = fn(table, x, cfg)
+        (y * gy).sum().backward()
+        after = (probe.gather_rows.launches["bfloat16"],
+                 probe.scatter_add_rows.launches)
+        outs[str(d)] = (y.detach().cpu(), table.grad.cpu(), x.grad.cpu())
+        if d != "cpu":
+            assert after == (before[0] + (encoder == "packed2"),
+                             before[1] + 1)
+    (y0, t0, x0), (y1, t1, x1) = outs["cpu"], outs["cuda"]
+    torch.testing.assert_close(y1, y0, rtol=0, atol=1e-6)
+    assert float((t1 - t0).abs().max()) <= 1e-5 * float(t0.abs().max())
+    assert (t0.abs() > 0).sum() > 1000
+    torch.testing.assert_close(x1, x0, rtol=1e-5, atol=1e-5)
+
+
 def _tiny_train(dtype, march="block2"):
     from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     from google_nerf_tpu_torch.models.ngp import NGPConfig

@@ -1,10 +1,12 @@
-"""The block2 marcher and its occupancy tables in the PyTorch port against
-JAX on the same numpy inputs (tests/test_march_block.py's scenes).
+"""The block marchers (one-phase block and two-phase block2) and their
+occupancy tables in the PyTorch port against JAX on the same numpy inputs
+(tests/test_march_block.py's scenes and cases).
 
-Tables (pack_occupancy_blocks4, pack_super_liveness, the block2 dict)
-must be equal.  The march, on JAX's noise: valid and truncated equal;
-ts, xyzs and deltas within atol 1e-6; t_resume equal where finite and
-infinite at the same rays."""
+Tables (pack_occupancy_blocks, pack_occupancy_blocks4,
+pack_super_liveness, the block2 dict) and group sizes must be equal.
+The march, on JAX's noise: valid and truncated equal; ts, xyzs and
+deltas within atol 1e-6; t_resume equal where finite and infinite at
+the same rays."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +15,12 @@ import torch
 
 from google_nerf_tpu.ops import grid as jgrid
 from google_nerf_tpu.ops import march_block as jmb
+from google_nerf_tpu.ops.marching import march_rays_train as jax_dense
 from google_nerf_tpu.ops.ray_aabb import clamp_near, ray_aabb_intersect
 from google_nerf_tpu_torch.ops import grid as tgrid
 from google_nerf_tpu_torch.ops import march_block as tmb
 from google_nerf_tpu_torch.ops.march_seg import _first_k
+from google_nerf_tpu_torch.ops.marching import march_rays_train
 
 KEY = jax.random.PRNGKey(0)
 SCALE = 0.5
@@ -130,3 +134,113 @@ def test_block2_truncation_equals_jax(k_samples, n_keep_super,
     _assert_march_equal(got, want)
     if n_keep_super < MAX_SAMPLES // 64:
         assert want["truncated"].any()
+
+
+# ------------------------------------------------ the one-phase marcher
+
+def test_block_group_span():
+    """The auto group keeps g consecutive candidates within BLOCK-1 cells
+    per axis, and equals JAX's."""
+    for ms in (256, 512, 1024):
+        for gs in (32, 128):
+            g = tmb.block_group(ms, SCALE, gs)
+            assert g == jmb.block_group(ms, SCALE, gs)
+            assert g >= 1 and ms % g == 0
+            cells_per_step = (3.0 ** 0.5 / ms) * gs / (2.0 * min(0.5, SCALE))
+            assert (g - 1) * cells_per_step < 7.0
+
+
+@pytest.mark.parametrize("density", [0.01, 0.1])
+def test_pack_occupancy_blocks_bits(density):
+    """Every word equal to JAX's, and the bit layout checked directly:
+    bit dx*64 + dy*8 + dz of row (ax, ay, az) is occ at the offset
+    cell (out of the grid: 0)."""
+    occ = np.array(jax.random.bernoulli(KEY, density, (1, 16, 16, 16)))
+    blocks = tgrid.pack_occupancy_blocks(torch.as_tensor(occ))
+    assert blocks.dtype == torch.int32 and blocks.shape == (16 ** 3, 16)
+    blocks = blocks.numpy()
+    np.testing.assert_array_equal(
+        blocks, np.asarray(jgrid.pack_occupancy_blocks(occ)))
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        ax, ay, az = rng.integers(0, 16, 3)
+        dx, dy, dz = rng.integers(0, 8, 3)
+        o = dx * 64 + dy * 8 + dz
+        bit = (blocks[(ax * 16 + ay) * 16 + az][o // 32] >> (o % 32)) & 1
+        x, y, z = ax + dx, ay + dy, az + dz
+        want = occ[0, x, y, z] if max(x, y, z) < 16 else False
+        assert bool(bit) == bool(want), (ax, ay, az, dx, dy, dz)
+
+
+def _block_both(scene, **kw):
+    occ, o, d, hits, noise = scene
+    blocks = jgrid.pack_occupancy_blocks(occ)
+    want = jmb.march_rays_train_block(o, d, hits, blocks, scale=SCALE,
+                                      grid_size=G, max_samples=MAX_SAMPLES,
+                                      noise=noise, **kw)
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    got = tmb.march_rays_train_block(
+        t(o), t(d), t(hits), tgrid.pack_occupancy_blocks(t(occ)),
+        scale=SCALE, grid_size=G, max_samples=MAX_SAMPLES, noise=t(noise),
+        **kw)
+    return got, {k: np.asarray(v) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("density", [0.005, 0.05])
+@pytest.mark.parametrize("group", [0, 4])
+def test_block_matches_dense(density, group):
+    """At ample group capacity the block marcher's samples are the dense
+    lattice marcher's (the port's and JAX's): valid equal, ts and deltas
+    within atol 1e-6; and the whole march equals JAX's block march."""
+    scene = make_scene(KEY, density)
+    occ, o, d, hits, noise = scene
+    nkg = MAX_SAMPLES // (group or tmb.block_group(MAX_SAMPLES, SCALE, G))
+    got, want = _block_both(scene, k_samples=32, group=group,
+                            n_keep_groups=nkg)
+    _assert_march_equal(got, want)
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    dense = march_rays_train(t(o), t(d), t(hits), t(occ), cascades=1,
+                             scale=SCALE, exp_step_factor=0.0, grid_size=G,
+                             max_samples=MAX_SAMPLES, k_samples=32,
+                             noise=t(noise))
+    jd = jax_dense(o, d, hits, occ, cascades=1, scale=SCALE,
+                   exp_step_factor=0.0, grid_size=G, max_samples=MAX_SAMPLES,
+                   k_samples=32, noise=noise)
+    np.testing.assert_array_equal(dense["valid"].numpy(),
+                                  np.asarray(jd["valid"]))
+    np.testing.assert_array_equal(got["valid"].numpy(),
+                                  dense["valid"].numpy())
+    for k in ("ts", "deltas"):
+        np.testing.assert_allclose(got[k].numpy(), dense[k].numpy(),
+                                   atol=1e-6, rtol=1e-5, err_msg=k)
+    assert int(got["total_samples"]) == int(dense["total_samples"]) > 0
+
+
+@pytest.mark.parametrize("k_samples,n_keep_groups", [
+    (64, 2),          # groups truncate
+    (16, 8),          # the first-k of samples truncates too
+    (64, 0)])         # the default window: ceil(k_samples / g) groups
+def test_block_truncation_keeps_prefix_groups(k_samples, n_keep_groups):
+    """Truncated marches equal JAX's (valid, truncated, t_resume), and the
+    kept samples are a prefix of the dense march's: every kept t is a
+    dense sample and the kept groups are each ray's first live ones."""
+    scene = make_scene(jax.random.fold_in(KEY, 9), 0.2)
+    occ, o, d, hits, noise = scene
+    got, want = _block_both(scene, k_samples=k_samples,
+                            n_keep_groups=n_keep_groups)
+    _assert_march_equal(got, want)
+    assert want["truncated"].any()
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    dense = march_rays_train(t(o), t(d), t(hits), t(occ), cascades=1,
+                             scale=SCALE, exp_step_factor=0.0, grid_size=G,
+                             max_samples=MAX_SAMPLES, k_samples=MAX_SAMPLES,
+                             noise=t(noise))
+    ts_b, v_b = got["ts"].numpy(), got["valid"].numpy()
+    ts_d, v_d = dense["ts"].numpy(), dense["valid"].numpy()
+    for r in range(ts_b.shape[0]):
+        kept = np.sort(ts_b[r][v_b[r]])
+        ref = np.sort(ts_d[r][v_d[r]])
+        assert len(kept) <= len(ref)
+        if len(kept):
+            assert np.all(np.isin(np.round(kept, 6), np.round(ref, 6)))
+            assert (ref <= kept[-1] + 1e-6).sum() == len(kept)

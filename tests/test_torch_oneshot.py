@@ -19,7 +19,7 @@ from google_nerf_tpu.models.ngp import NGPConfig as JNGPConfig
 from google_nerf_tpu.models.ngp import init_ngp
 from google_nerf_tpu.models.render_test_oneshot import \
     render_test_oneshot as jax_oneshot
-from google_nerf_tpu.ops.grid import pack_occupancy_u8
+from google_nerf_tpu.ops.grid import pack_occupancy_blocks, pack_occupancy_u8
 from google_nerf_tpu.ops.march_block import pack_occupancy_block2
 from google_nerf_tpu.ops.march_seg import required_dilation_radius
 from google_nerf_tpu_torch.convert import params_from_jax
@@ -49,8 +49,9 @@ CASES = {
     # ::test_drain_matches_fast_with_tiny_pool: 8 rays a trip
     "drain_tiny_pool": dict(SEG, chunk=128, straggler_div=16, budget_div=0,
                             drain=True, max_passes=4096),
-    # ::test_oneshot_block2_matches_block
+    # ::test_oneshot_block2_matches_block, both sides of it
     "block2": dict(BLOCK2, chunk=480),
+    "block": dict(BLOCK2, chunk=480, march="block"),
     # ::test_oneshot_compact_main_matches
     "compact_main": dict(BLOCK2, chunk=480, compact_main=True),
     # ::test_drain_budget_pack_matches_dense
@@ -78,12 +79,14 @@ def scene():
                               "cpu")
     return dict(
         jcfg=jcfg, params=params, o=o, d=d,
-        occ={"seg": occ_u8, "block2": occ2},
+        occ={"seg": occ_u8, "block2": occ2,
+             "block": pack_occupancy_blocks(occ)},
         cfg=NGPConfig(scale=0.5, encoder="packed", grid_size=32,
                       packed_log2_size=12, packed_levels=4),
         tparams=tparams, to=torch.as_tensor(np.array(o)),
         td=torch.as_tensor(np.array(d)),
         tocc={"seg": torch.as_tensor(np.array(occ_u8)),
+              "block": torch.as_tensor(np.array(pack_occupancy_blocks(occ))),
               "block2": {k: torch.as_tensor(np.array(v))
                          for k, v in occ2.items()}})
 
@@ -122,7 +125,20 @@ def test_oneshot_equals_jax(scene, case):
 
 
 def test_block_march_names_its_item(scene):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        render_test_oneshot(scene["tparams"], scene["cfg"],
-                            scene["tocc"]["block2"], scene["to"],
-                            scene["td"], max_samples=MS, march="block")
+    """march="block" renders (it raised before the one-phase marcher was
+    ported): the same image as block2 on the same occupancy, rgb and
+    opacity within 1e-4 (tests/test_oneshot.py::
+    test_oneshot_block2_matches_block's bound: one candidate lattice, the
+    super phase a conservative superset)."""
+    kw = dict(max_samples=MS, T_threshold=1e-4, k=16, n_keep=8, chunk=480,
+              passes=1, budget_div=0, straggler_div=2, drain=True)
+    ref = render_test_oneshot(scene["tparams"], scene["cfg"],
+                              scene["tocc"]["block"], scene["to"],
+                              scene["td"], march="block", **kw)
+    got = render_test_oneshot(scene["tparams"], scene["cfg"],
+                              scene["tocc"]["block2"], scene["to"],
+                              scene["td"], march="block2", **kw)
+    for k in ("rgb", "opacity"):
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    assert float(ref["opacity"].max()) > 0.1

@@ -87,16 +87,38 @@ def test_ngp_density_and_apply_match_jax(widths, dtype, atol):
     np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), atol=atol)
 
 
-def test_init_ngp_shapes_and_unported_encoders():
-    cfg = NGPConfig(encoder="packed", **SMALL)
+# encoder -> (table key, table shape, sigma MLP input) at SMALL widths
+# with 4 hash levels of 2^12 rows and 12 frequency bands
+INIT_SHAPES = {
+    "packed": ("packed_table", (4, 4096, 16), 8),
+    "packed2": ("pair_table", (2, 4096, 70), 8),
+    "hash": ("hash_table", (4, 4096, 2), 8),
+    "freq": (None, None, 72),
+}
+
+
+@pytest.mark.parametrize("encoder", list(INIT_SHAPES))
+def test_init_ngp_shapes_and_unported_encoders(encoder):
+    """Every xyz encoder of NGPConfig initialises (none is left
+    unported): its table, U[-1e-4, 1e-4] (none for freq), and the MLPs'
+    shapes; the keys and shapes equal JAX's init_ngp's."""
+    key, shape, din = INIT_SHAPES[encoder]
+    kw = dict(SMALL, encoder=encoder, num_levels=4, log2_hashmap_size=12)
+    cfg = NGPConfig(**kw)
     p = init_ngp(torch.Generator().manual_seed(0), cfg, device="cpu")
-    assert p["packed_table"].shape == (4, 4096, 16)
-    assert float(p["packed_table"].abs().max()) <= 1e-4
-    assert [tuple(w.shape) for w in p["sigma_mlp"]] == [(8, 64), (64, 16)]
+    assert cfg.xyz_feat_dim == din
+    if key is not None:
+        assert p[key].shape == shape
+        assert 0 < float(p[key].abs().max()) <= 1e-4
+    assert sorted(p) == sorted(k for k in (key, "sigma_mlp", "rgb_mlp")
+                               if k)
+    assert [tuple(w.shape) for w in p["sigma_mlp"]] == [(din, 64), (64, 16)]
     assert [tuple(w.shape) for w in p["rgb_mlp"]] == [(32, 64), (64, 64),
                                                       (64, 3)]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        init_ngp(torch.Generator(), NGPConfig(encoder="hash"), device="cpu")
+    jp = jax_init_ngp(jax.random.PRNGKey(0), JNGPConfig(**kw))
+    assert {k: jax.tree_util.tree_map(np.shape, v) for k, v in jp.items()} \
+        == {k: ([tuple(w.shape) for w in v] if isinstance(v, list)
+                else tuple(v.shape)) for k, v in p.items()}
 
 
 @pytest.mark.parametrize("refine_poses", [False, True])

@@ -9,11 +9,19 @@ Tolerances: the loss rtol 1e-5; psnr, s_per_ray and mask_frac 1e-5.
 Gradients, as the norm of the difference over the norm of JAX's: in
 f32 compute 1e-4 for the rgb MLP and 1e-3 on the sigma path (the table
 and sigma_mlp), in bf16 compute 2e-2 for all (JAX's own bf16 tolerance).
-The sigma path's bound is JAX's error, not the port's: JAX's f32 stream
-composite is further from the same step with the composite in float64
-than the port is (asserted), and the port is held to that float64 step
-at 1e-5.  JAX's jitted step moves further than these bounds from its
-own op-by-op run on this fixture, so JAX is run op by op.  The Adam update from the
+The port's sample positions are JAX's to within a few ulp (asserted
+within 1e-6; 1.8e-7 on this fixture) and the sigma path amplifies that:
+the hash grid's and packed2's fine levels and the frequency encoding's
+2^11 pi band turn it into gradients 1e-3 to 7.4e-3 apart, so with those
+three encoders the sigma path (and, for the frequency field, whose rgb
+MLP gradients move too, every gradient) is held within 1e-2.  The same step on
+JAX's own sample positions removes that: every f32 case's gradients
+then lie within 5e-5 of JAX's for the table and 1e-5 for the MLPs (at
+most 1.6e-5 and 5.2e-6 on this fixture).  The port's f32 step is also
+within 1e-5 of its step with the stream composite in float64, and
+nearer it than JAX's step is.
+JAX's jitted step moves further than these bounds from its own op-by-op
+run on this fixture, so JAX is run op by op.  The Adam update from the
 same gradients rtol 1e-4 at steps 1 and 10.  One grid update: the grid
 rtol 1e-4, occ equal except at cells within 1e-5 relative of the
 threshold, and the block2 words equal to JAX's packing of that occ."""
@@ -28,10 +36,13 @@ import torch
 
 from google_nerf_tpu.data.synthetic import SyntheticDataset as JDataset
 from google_nerf_tpu.models.ngp import NGPConfig as JNGPConfig
+from google_nerf_tpu.models import ngp as jngp
+from google_nerf_tpu.models.ngp import init_ngp as jax_init_ngp
 from google_nerf_tpu.train import system as jsys
 from google_nerf_tpu_torch.convert import (train_state_from_jax,
                                            train_state_to_numpy)
 from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
+from google_nerf_tpu_torch.models import ngp as tngp
 from google_nerf_tpu_torch.models.ngp import NGPConfig
 from google_nerf_tpu_torch.train import system as tsys
 
@@ -42,12 +53,13 @@ TRAIN = dict(batch_size=256, k_samples=256, max_samples=256,
              exclude_incomplete="backfill", march="block2")
 
 
-def configs(dtype="bfloat16", **over):
+def configs(dtype="bfloat16", model=None, **over):
     kw = dict(TRAIN, **over)
+    mk = dict(MODEL, **(model or {}))
     jcfg = jsys.TrainConfig(model=JNGPConfig(
-        compute_dtype=getattr(jnp, dtype), **MODEL), **kw)
+        compute_dtype=getattr(jnp, dtype), **mk), **kw)
     cfg = tsys.TrainConfig(model=NGPConfig(
-        compute_dtype=getattr(torch, dtype), **MODEL), **kw)
+        compute_dtype=getattr(torch, dtype), **mk), **kw)
     return jcfg, cfg
 
 
@@ -159,6 +171,28 @@ def _grads_with_f64_composite(st, sc, tb, cfg, draws):
         rendering.composite_stream_train = orig
 
 
+def _recording(xs):
+    """JAX's ngp_density, recording each call's sample positions."""
+    density = jngp.ngp_density
+
+    def f(params, cfg, x, return_feat=False):
+        xs.append(np.array(x))
+        return density(params, cfg, x, return_feat)
+    return f
+
+
+def _on_positions(rec):
+    """The port's ngp_density on the positions JAX's step recorded in rec
+    (call by call), noting how far the port's own were from them."""
+    density = tngp.ngp_density
+
+    def f(params, cfg, x, return_feat=False):
+        xj = torch.as_tensor(rec["x"][len(rec["port_err"])])
+        rec["port_err"].append(float((x - xj).abs().max()))
+        return density(params, cfg, xj, return_feat)
+    return f
+
+
 def seg_words(occ, cfg):
     """JAX's packing of occ for the seg and dense layouts (the word grid,
     super-dilated when sup > 1), as its grid_update_step packs it."""
@@ -173,40 +207,65 @@ def seg_words(occ, cfg):
             if cfg.sup > 1 else 0)))
 
 
-def tree_for(tree, cfg):
-    """The state tree with occ_u8 in the layout cfg's march keeps."""
+TABLES = ("packed_table", "hash_table", "pair_table")
+
+
+def tree_for(tree, cfg, jcfg=None):
+    """The state tree with occ_u8 in the layout cfg's march keeps and,
+    for another encoder than the fixture's, JAX's init_ngp params of
+    jcfg (its table x1e3, as the fixture's)."""
+    if jcfg is not None and cfg.model.encoder != "packed":
+        params = jax_init_ngp(jax.random.PRNGKey(0), jcfg.model)
+        for k in TABLES:
+            if k in params:
+                params[k] = params[k] * 1e3
+        tree = dict(tree, params=np_tree(params))
     if cfg.march == "block2":
         return tree
+    if cfg.march == "block":
+        from google_nerf_tpu.ops.grid import pack_occupancy_blocks
+        return dict(tree, occ_u8=np.asarray(pack_occupancy_blocks(
+            jnp.asarray(tree["occ"]))))
     return dict(tree, occ_u8=seg_words(tree["occ"], cfg))
 
 
 # each case: (compute dtype, step, TrainConfig changes, render_train
-# keywords); backfill is on past warmup (step 300), off at step 0
+# keywords, NGPConfig changes); backfill is on past warmup (step 300), off
+# at step 0
+HASH = dict(encoder="hash", num_levels=4, log2_hashmap_size=12)
 STEP_CASES = [
-    pytest.param("bfloat16", 300, {}, {}, id="bfloat16-300"),
-    pytest.param("float32", 0, {}, {}, id="float32-0"),
-    pytest.param("float32", 300, dict(march="seg", sup=4), {}, id="seg"),
-    pytest.param("float32", 300, dict(march="dense"), {}, id="dense"),
-    pytest.param("float32", 300, dict(exclude_incomplete="hard"), {},
+    pytest.param("bfloat16", 300, {}, {}, {}, id="bfloat16-300"),
+    pytest.param("float32", 0, {}, {}, {}, id="float32-0"),
+    pytest.param("float32", 300, dict(march="seg", sup=4), {}, {}, id="seg"),
+    pytest.param("float32", 300, dict(march="dense"), {}, {}, id="dense"),
+    pytest.param("float32", 300, dict(exclude_incomplete="hard"), {}, {},
                  id="hard"),
     pytest.param("float32", 300, dict(exclude_incomplete="floor",
-                                      incomplete_floor=0.3), {}, id="floor"),
+                                      incomplete_floor=0.3), {}, {},
+                 id="floor"),
     pytest.param("float32", 300, dict(march="seg", sup=4),
-                 dict(stream=False), id="seg-padded"),
+                 dict(stream=False), {}, id="seg-padded"),
+    pytest.param("float32", 300, {}, {}, HASH, id="hash"),
+    pytest.param("float32", 300, {}, {}, dict(encoder="freq"), id="freq"),
+    pytest.param("float32", 300, {}, {}, dict(encoder="packed2"),
+                 id="packed2"),
+    pytest.param("float32", 300, dict(march="block"), {}, {}, id="block"),
 ]
 
 
-@pytest.mark.parametrize("dtype,step,over,render_kw", STEP_CASES)
+@pytest.mark.parametrize("dtype,step,over,render_kw,model", STEP_CASES)
 def test_one_fused_train_step_matches_jax(world, monkeypatch, dtype, step,
-                                          over, render_kw):
+                                          over, render_kw, model):
     """One step from the same state and draws (random bg, the block2
     march at bench.py's recipe unless a case changes it: the seg march
     with super-segments, the dense lattice, the "hard" and "floor"
-    exclusion of incomplete rays, the padded composite after unpack):
-    loss, metrics and every gradient."""
+    exclusion of incomplete rays, the padded composite after unpack, the
+    one-phase block march; the packed encoder unless a case takes the
+    hash grid, the frequency encoder or packed2, with JAX's params of
+    that encoder carried across): loss, metrics and every gradient."""
     ds, tree, scene = world
-    jcfg, cfg = configs(dtype, **over)
-    tree = tree_for(tree, cfg)
+    jcfg, cfg = configs(dtype, model, **over)
+    tree = tree_for(tree, cfg, jcfg)
     if render_kw:
         for mod in (jsys, tsys):
             monkeypatch.setattr(mod, "render_train", functools.partial(
@@ -225,8 +284,11 @@ def test_one_fused_train_step_matches_jax(world, monkeypatch, dtype, step,
     # JAX evaluated op by op (its marcher stays jitted): jitted whole, XLA
     # reorders the stream's (B, 7) cumsum and its per-ray sums move by up
     # to ~3e-4 against its own eager run on these inputs
-    (jl, jres), jgrads = jax.value_and_grad(jloss, has_aux=True)(
-        jst["params"])
+    jax_positions = dict(x=[], port_err=[])
+    with monkeypatch.context() as mp:
+        mp.setattr(jngp, "ngp_density", _recording(jax_positions["x"]))
+        (jl, jres), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+            jst["params"])
     _, jmetrics = jsys._train_step_impl(jst, scene, batch, k2, jcfg)
 
     st = port_state(tree, cfg, step)
@@ -240,18 +302,33 @@ def test_one_fused_train_step_matches_jax(world, monkeypatch, dtype, step,
     np.testing.assert_array_equal(res["ray_mask"].numpy(),
                                   np.asarray(jres["ray_mask"]))
     assert 0 < int(res["total_samples"]) and not bool(res["ray_mask"].all())
-    for k, jg in _flat_grads(jgrads).items():
-        tol = 2e-2 if dtype == "bfloat16" else (
-            1e-3 if k.startswith(("packed_table", "sigma_mlp")) else 1e-4)
-        assert _rel(grads[k], jg) <= tol, (k, _rel(grads[k], jg))
+    g64 = None
     if dtype == "float32" and not render_kw:
         _, _, g64 = _grads_with_f64_composite(port_state(tree, cfg, step),
                                               sc, tb, cfg, draws)
+    for k, jg in _flat_grads(jgrads).items():
+        tol = 2e-2 if dtype == "bfloat16" else (
+            1e-3 if k.startswith(TABLES + ("sigma_mlp",)) else 1e-4)
+        if cfg.model.encoder == "freq" or (
+                cfg.model.encoder != "packed" and tol == 1e-3):
+            tol = 1e-2
+        assert _rel(grads[k], jg) <= tol, (k, _rel(grads[k], jg))
+    if g64 is not None:
         for k, g in grads.items():
             assert _rel(g, g64[k].numpy()) <= 1e-5, (k, _rel(g, g64[k]))
-        jt = _flat_grads(jgrads)["packed_table"]
-        assert _rel(jt, g64["packed_table"]) > _rel(grads["packed_table"],
-                                                    g64["packed_table"])
+        key = next((k for k in TABLES if k in grads), "sigma_mlp.0")
+        jt = _flat_grads(jgrads)[key]
+        assert _rel(jt, g64[key]) > _rel(grads[key], g64[key])
+    if dtype == "float32":
+        with monkeypatch.context() as mp:
+            mp.setattr(tngp, "ngp_density", _on_positions(jax_positions))
+            _, _, gx = tsys.loss_and_grads(port_state(tree, cfg, step), sc,
+                                           tb, cfg, draws=draws)
+        err = jax_positions["port_err"]
+        assert len(err) == 1 and err[0] <= 1e-6, err
+        for k, jg in _flat_grads(jgrads).items():
+            tol = 5e-5 if k in TABLES else 1e-5
+            assert _rel(gx[k], jg) <= tol, (k, _rel(gx[k], jg))
     _, metrics = tsys.fused_train_step(port_state(tree, cfg, step), sc, cfg,
                                        draws=draws)
     for k in ("loss", "psnr", "s_per_ray", "mask_frac"):
