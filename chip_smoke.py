@@ -108,7 +108,18 @@ Phases:
      (freq: above its train psnr at step 64); the kernel step against
      the plain step for hash and packed2; P3 (hash) and P2/P3 (packed2,
      P2 on the bf16 table padded to 72 columns) on the kernels line
-     (requests "hash", "packed2").
+     (requests "hash", "packed2");
+ 15. the depth-prior path (phase15's notes): depth_eval_scannet_torch.py
+     at the CLIs' defaults (LeReS ResNeXt101-32x8d, encoder-site cIMLE at
+     d_latent 32, crop 448; random weights from --seed saved as JAX's
+     .npz) with 10 hypotheses a frame on phase 13's 28 ScanNet frames,
+     its PNG priors as ground truth; the priors and their minibatch
+     minima, a card forward against the CPU's (norm-relative 1e-4), the
+     latents' spread, the priors read by ScannetDataset, the metric
+     battery; ms a frame, images/s, GFLOP an image and its share of the
+     f32 peak, peak memory.  No kernel of the repo's own runs here: the
+     network is cuDNN's convolutions in f32 with TF32 off, as JAX's
+     reference leaves it to XLA.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -154,6 +165,7 @@ import json
 import math
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1802,7 +1814,7 @@ def test_view_depth_mae(argv, ckpt, gt_depth, gt_mask):
     return float(np.concatenate(errs).mean())
 
 
-def phase13(seed, steps=CLI_STEPS):
+def phase13(seed, steps=CLI_STEPS, scan_root=None):
     """Datasets on disk through the CLIs, in a temporary directory:
 
       * NSVF: write_nsvf_scene, then train_torch.main at opt.py's
@@ -1824,7 +1836,10 @@ def phase13(seed, steps=CLI_STEPS):
     and P3 launched in each training run; test_torch's PSNR within 1 dB
     of validate's on the same checkpoint.  P2/P3 on the NSVF and the
     supervised ScanNet training steps join the kernels line (requests
-    "nsvf" and "scannet").  Returns (summary, kernels-line entries)."""
+    "nsvf" and "scannet").  The ScanNet scan is written under
+    `scan_root` when one is given (it outlives the phase; phase 15 reads
+    it), else in the phase's temporary directory.  Returns (summary,
+    kernels-line entries, (scene dir, raw-scan root, priors dir))."""
     import os
     import tempfile
 
@@ -1921,7 +1936,8 @@ def phase13(seed, steps=CLI_STEPS):
             # ---- ScanNet
             t0 = time.time()
             scene, raw, priors, wrote, gt_depth, gt_mask = \
-                write_scannet_scene(os.path.join(tmp, "data"), seed, dev)
+                write_scannet_scene(scan_root or os.path.join(tmp, "data"),
+                                    seed, dev)
             wrote["write_s"] = time.time() - t0
             check(wrote["jpeg_min_psnr"] >= JPEG_MIN_PSNR,
                   f"phase 13: a JPEG decoded at {wrote['jpeg_min_psnr']} dB "
@@ -1984,7 +2000,7 @@ def phase13(seed, steps=CLI_STEPS):
         finally:
             os.chdir(cwd)
     torch.cuda.empty_cache()
-    return summary, entries
+    return summary, entries, (scene, raw, priors)
 
 
 # ------------------- phase 14: the other encoders and the block marcher
@@ -2173,6 +2189,213 @@ def phase14(seed, steps=CLI_STEPS):
             os.chdir(cwd)
     torch.cuda.empty_cache()
     return summary, entries
+
+
+# ------------------------------- phase 15: the depth-prior path, LeReS
+
+DEPTH_BACKBONE = "resnext101"     # the CLIs' default: ResNeXt101-32x8d
+DEPTH_LATENT = 32                 # --d_latent's default: cIMLE on
+DEPTH_CROP = 448                  # --crop_size's default
+DEPTH_SAMPLES = 10                # two minibatches of 5 a frame
+DEPTH_CPU_REL = 1e-4              # card vs CPU, tests/test_torch_cuda.py's
+DEPTH_REPS = 5                    # frames timed for the forward alone
+
+
+def forward_flops(model, rgb, z):
+    """Multiply-adds x 2 of every convolution and linear layer in one
+    forward of model on rgb (the elementwise work, BatchNorm, the
+    upsampling and the pooling, is left out)."""
+    from google_nerf_tpu_torch.depth.model import depth_forward
+    total = [0]
+
+    def conv(m, args, out):
+        total[0] += 2 * out.numel() * m.weight[0].numel()
+
+    def linear(m, args, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        depth_forward(model, rgb, z)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase15(seed, scan=None):
+    """The depth-prior path: depth_eval_scannet_torch.main at the CLIs'
+    defaults (ResNeXt101-32x8d, encoder-site cIMLE at d_latent 32, crop
+    448) with --num_samples 10 (two minibatches of 5 a frame) and
+    --save_rainbow on phase 13's ScanNet scan (`scan`: its scene dir,
+    raw-scan root and 640x480 mm PNG priors; written anew when None),
+    the PNGs served as the scan's depth/ ground truth.  The model is
+    random from `seed` (no reference weights are in the repo), saved as
+    JAX's .npz and passed as --load_ckpt.
+
+    Checks: every frame's prior finite and positive, 968x1296, at or
+    above 0.01; every minibatch of 5 with its minimum at 0.01 (recorded
+    from the CLI's depth_inference calls); frame 0's first minibatch on
+    the card against the same model and latents on the CPU
+    (norm-relative DEPTH_CPU_REL); its five latents give five different
+    priors; the priors load through ScannetDataset(depth_dir=...) at
+    640x480, finite; the metric battery finite.  Returns the summary."""
+    import os
+    import tempfile
+
+    import depth_eval_scannet_torch
+    import depth_test_torch
+    from google_nerf_tpu_torch.convert import save_depth_npz
+    from google_nerf_tpu_torch.data import dataset_dict
+    from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
+                                                   depth_inference,
+                                                   init_depth_model)
+    from google_nerf_tpu_torch.depth.weights import load_checkpoint
+    from google_nerf_tpu_torch.utils.image import resize_linear
+    dev = torch.device("cuda")
+    arch = depth_test_torch.BACKBONES[DEPTH_BACKBONE]
+    cfg = DepthModelConfig(backbone=arch, d_latent=DEPTH_LATENT)
+    with tempfile.TemporaryDirectory() as tmp:
+        if scan is None:
+            scene, raw, gt, *_ = write_scannet_scene(
+                os.path.join(tmp, "data"), seed, dev)
+        else:
+            scene, raw, gt = scan
+        os.symlink(gt, os.path.join(scene, "depth"))
+        t0 = time.time()
+        model = init_depth_model(torch.Generator().manual_seed(seed), cfg,
+                                 "cpu")
+        ckpt = os.path.join(tmp, "depth_cimle.npz")
+        save_depth_npz(ckpt, model.state_dict())
+        save_s = time.time() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"phase 15: {arch} cIMLE d_latent {DEPTH_LATENT}, "
+              f"{n_params:,} parameters, random from seed {seed}; built "
+              f"and saved as .npz in {save_s:.1f} s", flush=True)
+
+        mins, shapes = [], []
+        infer = depth_test_torch.depth_inference
+
+        def recording(m, rgb01, z=None):
+            out = infer(m, rgb01, z)
+            mins.append(out.amin())
+            shapes.append(tuple(out.shape))
+            check(out.is_cuda, "phase 15: the depth forward ran off the card")
+            return out
+
+        out_dir = os.path.join(tmp, "priors")
+        argv = ["--scene_dir", scene, "--out_dir", out_dir, "--load_ckpt",
+                ckpt, "--backbone", DEPTH_BACKBONE, "--d_latent",
+                str(DEPTH_LATENT), "--crop_size", str(DEPTH_CROP),
+                "--num_samples", str(DEPTH_SAMPLES), "--save_rainbow",
+                "--seed", str(seed)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        depth_test_torch.depth_inference = recording
+        t0 = time.time()
+        try:
+            run = depth_eval_scannet_torch.main(argv)
+        finally:
+            depth_test_torch.depth_inference = infer
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        frames = sorted(f[:-4] for f in os.listdir(out_dir)
+                        if f.endswith(".npy"))
+        check(run["frames"] == len(frames) == sum(SCANNET_FRAMES),
+              f"phase 15: {run['frames']} frames run, {len(frames)} priors")
+        check(shapes == [(5, 1, DEPTH_CROP, DEPTH_CROP)] * (2 * len(frames)),
+              f"phase 15: minibatches {sorted(set(shapes))}, "
+              f"{len(shapes)} of them")
+        mins = torch.stack(mins).cpu()
+        check(bool(((mins - 0.01).abs() <= 1e-6).all()),
+              f"phase 15: minibatch minima {mins.min()}..{mins.max()}")
+        cw, ch = SCANNET_COLOR_WH
+        lo = hi = None
+        for f in frames:
+            d = np.load(os.path.join(out_dir, f + ".npy"))
+            check(d.shape == (ch, cw) and bool(np.isfinite(d).all())
+                  and float(d.min()) >= 0.01 - 1e-6,
+                  f"phase 15: prior {f} shape {d.shape}, range "
+                  f"{d.min()}..{d.max()}")
+            check(os.path.exists(os.path.join(out_dir,
+                                              f + "-depth_rainbow.png")),
+                  f"phase 15: no rainbow PNG for frame {f}")
+            lo = d.min() if lo is None else min(lo, d.min())
+            hi = d.max() if hi is None else max(hi, d.max())
+        metrics = run["metrics"]
+        check(len(metrics) == 10 and all(math.isfinite(v)
+                                         for v in metrics.values()),
+              f"phase 15: metric battery {metrics}")
+        ds = dataset_dict["scannet"](scene, split="train", device="cpu",
+                                     raw_scan_rootdir=raw, depth_dir=out_dir)
+        check(ds.img_wh == (640, 480) and ds.depths.shape[1] == 640 * 480
+              and bool(np.isfinite(ds.depths).all())
+              and float(ds.depths.min()) > 0,
+              f"phase 15: ScannetDataset read the priors as "
+              f"{ds.depths.shape}, finite {np.isfinite(ds.depths).all()}")
+
+        # frame 0's first minibatch: the card against the CPU
+        cpu = init_depth_model(torch.Generator().manual_seed(0), cfg, "cpu")
+        load_checkpoint(cpu, ckpt)
+        card = init_depth_model(torch.Generator().manual_seed(0), cfg, dev)
+        load_checkpoint(card, ckpt)
+        rgb = depth_test_torch.read_rgb01(os.path.join(scene, "rgb",
+                                                       frames[0] + ".jpg"))
+        inp = resize_linear(torch.from_numpy(rgb), (DEPTH_CROP, DEPTH_CROP))
+        inp = inp.permute(2, 0, 1)[None].expand(5, -1, -1, -1).contiguous()
+        z = torch.randn((5, DEPTH_LATENT),
+                        generator=torch.Generator().manual_seed(seed + 1))
+        t0 = time.time()
+        want = depth_inference(cpu, inp, z)
+        cpu_s = time.time() - t0
+        got = depth_inference(card, inp.to(dev), z.to(dev)).cpu()
+        rel = float((got - want).norm() / want.norm())
+        check(rel <= DEPTH_CPU_REL, f"phase 15: card vs CPU forward {rel}")
+        spread = float((got[1:] - got[:1]).abs().amax(dim=(1, 2, 3)).min())
+        check(spread > 1e-3 * float(got.abs().max()),
+              f"phase 15: two latents gave one prior (max diff {spread})")
+        del cpu
+
+        # the forward alone: 10 hypotheses (two minibatches) a frame
+        x, zc = inp.to(dev), z.to(dev)
+        flops = forward_flops(card, x[:1], zc[:1])
+
+        def frame():
+            depth_inference(card, x, zc)
+            depth_inference(card, x, zc)
+
+        fwd_ms = cuda_ms(frame, DEPTH_REPS)
+        frame_ms = [1e3 * s for s in run["frame_s"]]
+        med = statistics.median(frame_ms)
+        share = flops * DEPTH_SAMPLES / (fwd_ms * 1e-3) / H100_F32_FLOPS
+    out = dict(arch=arch, d_latent=DEPTH_LATENT, crop=DEPTH_CROP,
+               samples=DEPTH_SAMPLES, frames=len(frames),
+               n_params=n_params, cli_wall_s=wall,
+               cli_frame_ms=frame_ms, cli_frame_ms_median=med,
+               frames_per_s=1e3 / med, images_per_s=DEPTH_SAMPLES * 1e3 / med,
+               forward_ms_per_frame=fwd_ms,
+               forward_images_per_s=DEPTH_SAMPLES * 1e3 / fwd_ms,
+               gflop_per_image=flops / 1e9, f32_peak_share=share,
+               peak_gib=peak_gib, build_s=run["build_s"],
+               load_s=run["load_s"], save_s=save_s, card_vs_cpu_rel=rel,
+               cpu_forward_s=cpu_s, latent_spread=spread,
+               prior_range=[float(lo), float(hi)], metrics=metrics)
+    print(f"phase 15: depth_eval_scannet_torch on {len(frames)} frames of "
+          f"{cw}x{ch}, {DEPTH_SAMPLES} hypotheses a frame: {wall:.1f} s "
+          f"(model build {run['build_s']:.2f} s, weight load "
+          f"{run['load_s']:.2f} s); a frame {med:.1f} ms median "
+          f"({1e3 / med:.2f} frames/s, {DEPTH_SAMPLES * 1e3 / med:.1f} "
+          f"images/s); the forward alone {fwd_ms:.2f} ms a frame "
+          f"({DEPTH_SAMPLES * 1e3 / fwd_ms:.1f} images/s), "
+          f"{flops / 1e9:.1f} GFLOP an image, {100 * share:.1f}% of the "
+          f"f32 peak; peak memory {peak_gib:.2f} GiB; card vs CPU "
+          f"{rel:.2e}; prior range {lo:.4f}..{hi:.4f}; metrics "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
+    return out
 
 
 def main():
@@ -2379,8 +2602,9 @@ def main():
     kernels += cli_kernels
 
     # ---- 13: datasets on disk: NSVF and ScanNet through the CLIs
+    scan_tmp = tempfile.TemporaryDirectory()     # phase 15 reads the scan
     t13 = time.time()
-    data, data_kernels = phase13(args.seed)
+    data, data_kernels, scan = phase13(args.seed, scan_root=scan_tmp.name)
     data["seconds"] = time.time() - t13
     kernels += data_kernels
 
@@ -2389,6 +2613,12 @@ def main():
     encoders, encoder_kernels = phase14(args.seed)
     encoders["seconds"] = time.time() - t14
     kernels += encoder_kernels
+
+    # ---- 15: the depth-prior path on phase 13's scan
+    t15 = time.time()
+    depth = phase15(args.seed, scan)
+    depth["seconds"] = time.time() - t15
+    scan_tmp.cleanup()
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -2413,7 +2643,10 @@ def main():
               f"psnr {encoders[r]['psnr']:.2f}, served "
               f"{encoders[r]['serve']['psnr']:.2f}"
               for r, *_ in ENCODER_RUNS)
-          + f"; phase 14 {encoders['seconds']:.0f} s; total "
+          + f"; phase 14 {encoders['seconds']:.0f} s; depth priors "
+          f"{depth['cli_frame_ms_median']:.1f} ms a frame of "
+          f"{DEPTH_SAMPLES}, forward {depth['forward_ms_per_frame']:.2f} "
+          f"ms, phase 15 {depth['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -2426,7 +2659,7 @@ def main():
                   rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
                   train=train, trained_wl256=served, serving_stages=stages,
                   bench_keys=bench_keys, cli=cli, datasets=data,
-                  encoders=encoders, kernels=kernels)
+                  encoders=encoders, depth=depth, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -1,11 +1,14 @@
-"""Carry NGP weights from the JAX package into the port.
+"""Carry NGP and depth-model weights from the JAX package into the port.
 
 These functions take numpy data only, so nothing here imports JAX: a JAX
 pytree is passed as nested dicts/lists of numpy arrays
-(`jax.tree_util.tree_map(np.asarray, params)`), and the bench state is
-the npz file that bench.py writes.
+(`jax.tree_util.tree_map(np.asarray, params)`), the bench state is the
+npz file that bench.py writes, and a depth checkpoint is the npz that
+JAX's save_pytree writes (read_depth_npz, depth_state_from_jax).
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -104,3 +107,157 @@ def train_state_to_numpy(state):
                         if isinstance(state["occ_u8"], dict)
                         else n(state["occ_u8"])),
                 step=np.asarray(state["step"], np.int32))
+
+
+# ------------------------------------------------------- the depth model
+
+_DEPTH_ROOTS = {"encoder": "encoder_modules", "decoder": "decoder_modules",
+                "auxi": "auxi_modules"}
+_FTB_NAMES = {"conv1": "conv1", "branch_conv1": "conv_branch.1",
+              "branch_bn": "conv_branch.2", "branch_conv2": "conv_branch.4"}
+_AO_NAMES = {"conv1": "adapt_conv.0", "bn": "adapt_conv.1",
+             "conv2": "adapt_conv.3"}
+_DEPTH_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "mean": "running_mean", "var": "running_var",
+                 "mean_shift": "mean_shift", "var_shift": "var_shift"}
+
+
+def _depth_module(mods, n_convs):
+    """A flax module path under encoder/decoder/auxi -> the port's module
+    name (the reference's torch name)."""
+    head, rest = mods[0], mods[1:]
+    m = re.fullmatch(r"layer(\d)_(\d+)", head)
+    if m:                                  # (ConvBN_n, Conv_0|BatchNorm_0)
+        n, conv = int(rest[0].split("_")[1]), rest[1] == "Conv_0"
+        sub = (f"downsample.{0 if conv else 1}" if n == n_convs
+               else f"{'conv' if conv else 'bn'}{n + 1}")
+        return f"layer{m.group(1)}.{m.group(2)}.{sub}"
+    if head.startswith("style_mod"):
+        return f"{head}.mlp.{2 * int(rest[0][3:])}" if rest else head
+    if head.startswith("ffm"):
+        return f"{head}.{rest[0]}.{_FTB_NAMES[rest[1]]}"
+    if head in ("outconv", "out"):
+        return f"{head}.{_AO_NAMES[rest[0]]}"
+    if rest:                               # an FTB: conv, ftb32 ... ftb2
+        return f"{head}.{_FTB_NAMES[rest[0]]}"
+    return head                            # conv1, bn1
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _n_convs(params):
+    """2 for a BasicBlock encoder (layer1_0's first conv is 3x3), 3 for a
+    Bottleneck one (1x1)."""
+    k = params["encoder"]["layer1_0"]["ConvBN_0"]["Conv_0"]["kernel"]
+    return 3 if np.shape(k)[0] == 1 else 2
+
+
+def depth_state_from_jax(variables, device="cpu"):
+    """A flax DepthNet's variables ({params, batch_stats[, adain_stats]},
+    numpy leaves) -> the port's DepthNet state dict.  Conv kernels go
+    HWIO -> OIHW (a grouped conv's (kh, kw, in/g, out) -> (out, in/g, kh,
+    kw)), dense kernels are transposed; BatchNorm's scale/bias and
+    mean/var become weight/bias and running_mean/running_var.  Every
+    BatchNorm also gets num_batches_tracked = 0, so the result loads
+    with strict=True."""
+    n_convs = _n_convs(variables["params"])
+    state = {}
+    for coll in ("params", "batch_stats", "adain_stats"):
+        for path, v in _flat(variables.get(coll, {})).items():
+            a = np.asarray(v, np.float32)
+            if path[-1] == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = (f"{_DEPTH_ROOTS[path[0]]}."
+                    f"{_depth_module(path[1:-1], n_convs)}."
+                    f"{_DEPTH_LEAVES[path[-1]]}")
+            state[name] = torch.tensor(np.ascontiguousarray(a),
+                                       device=device)
+            if path[-1] == "var":
+                state[name.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
+                    torch.zeros((), dtype=torch.long, device=device)
+    return state
+
+
+def depth_state_to_jax(state):
+    """The inverse of depth_state_from_jax: a port DepthNet state dict ->
+    flax variables as nested dicts of numpy arrays (num_batches_tracked
+    dropped)."""
+    ftb = {v: k for k, v in _FTB_NAMES.items()}
+    ao = {v: k for k, v in _AO_NAMES.items()}
+    roots = {v: k for k, v in _DEPTH_ROOTS.items()}
+    conv0 = "encoder_modules.layer1.0.conv1.weight"
+    n_convs = 3 if state[conv0].shape[-1] == 1 else 2
+    out = {}
+    for key, t in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        a = t.detach().cpu().numpy()
+        root, *mods, leaf = key.split(".")
+        head, rest = mods[0], ".".join(mods[1:])
+        if head.startswith("layer"):       # layerL.B.sub
+            b, sub = mods[1], ".".join(mods[2:])
+            if sub.startswith("downsample"):
+                n, conv = n_convs, sub.endswith("0")
+            else:
+                n, conv = int(sub[-1]) - 1, sub.startswith("conv")
+            path = (f"{head}_{b}", f"ConvBN_{n}",
+                    "Conv_0" if conv else "BatchNorm_0")
+        elif head.startswith("style_mod"):
+            path = (head,) + ((f"mlp{int(mods[2]) // 2}",) if rest else ())
+        elif head.startswith("ffm"):
+            path = (head, mods[1], ftb[".".join(mods[2:])])
+        elif head in ("outconv", "out"):
+            path = (head, ao[rest])
+        elif rest:
+            path = (head, ftb[rest])
+        else:
+            path = (head,)
+        if leaf in ("running_mean", "running_var"):
+            coll, fl = "batch_stats", leaf[len("running_"):]
+        elif leaf in ("mean_shift", "var_shift"):
+            coll, fl = "adain_stats", leaf
+        elif leaf == "weight":
+            coll = "params"
+            fl = "scale" if a.ndim == 1 else "kernel"
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                a = a.T
+        else:
+            coll, fl = "params", leaf
+        node = out.setdefault(coll, {}).setdefault(roots[root], {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[fl] = np.ascontiguousarray(a)
+    return out
+
+
+def read_depth_npz(path):
+    """JAX's save_pytree .npz (keys '/'-joined flax paths, as
+    google_nerf_tpu/utils/ckpt.py writes the depth CLIs' checkpoints) ->
+    nested dicts of numpy arrays, read with numpy alone."""
+    tree = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            node = tree
+            *parts, leaf = key.split("/")
+            for p in parts:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
+
+
+def save_depth_npz(path, state):
+    """A port DepthNet state dict -> a .npz in JAX's save_pytree layout,
+    which JAX's depth CLIs and read_depth_npz load."""
+    flat = {"/".join(p): v
+            for p, v in _flat(depth_state_to_jax(state)).items()}
+    np.savez(path, **flat)

@@ -7,7 +7,9 @@
     (baseline 4:2:0 or gray, at a quality);
   * resize_linear / resize_nearest: cv2.resize's INTER_LINEAR and
     INTER_NEAREST sample positions on float images;
-  * depth2img: depth maps through a 256-entry Turbo colour table.
+  * depth2img: depth maps through a 256-entry Turbo colour table;
+  * colorize_rainbow: matplotlib's "rainbow" colour map, without
+    matplotlib.
 
 zlib (inflate and deflate) is the standard library's.  The per-row PNG
 unfiltering and the JPEG codec are C (csrc/image_codec.c), built with the
@@ -54,6 +56,37 @@ def depth2img(depth: np.ndarray) -> np.ndarray:
     depth = np.asarray(depth, np.float64)
     d = (depth - depth.min()) / max(depth.max() - depth.min(), 1e-8)
     return TURBO[(d * 255).astype(np.uint8)]
+
+
+def _rainbow_table() -> np.ndarray:
+    """matplotlib's "rainbow" (gnuplot functions 33, 13, 10: red
+    |2x - 0.5|, green sin(pi x), blue cos(pi x / 2)) at its 256 entries,
+    quantised as `(cmap(d)[..., :3] * 255).astype(np.uint8)` does."""
+    x = np.linspace(0.0, 1.0, 256)
+    lut = np.clip(np.stack([np.abs(2 * x - 0.5), np.sin(x * np.pi),
+                            np.cos(x * np.pi / 2)], -1), 0.0, 1.0)
+    return (lut * 255).astype(np.uint8)
+
+
+RAINBOW = _rainbow_table()  # (256, 3) uint8
+
+
+def colorize_rainbow(depth: np.ndarray) -> np.ndarray:
+    """(H, W) depth -> (H, W, 3) uint8 RGB: min-max normalised, then
+    matplotlib's "rainbow" map, its bin of each value as
+    Colormap.__call__ picks it (x * 256 in the input's float type,
+    truncated, 1.0 in the last bin; NaN black)."""
+    depth = np.asarray(depth)
+    d = (depth - depth.min()) / max(depth.max() - depth.min(), 1e-8)
+    xa = np.array(d, copy=True)
+    xa *= 256
+    xa[xa == 256] = 255
+    bad = np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = np.clip(np.where(bad, 0, xa), 0, 255).astype(np.int64)
+    rgb = RAINBOW[idx]
+    rgb[bad] = 0
+    return rgb
 
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -247,11 +280,13 @@ def _linear_taps(n_in: int, n_out: int):
 def resize_linear(img: torch.Tensor, size) -> torch.Tensor:
     """(H, W[, C]) float image -> (h, w[, C]) for size = (w, h), with
     cv2.resize's INTER_LINEAR sample positions (no antialiasing):
-    horizontal taps first, then vertical, in float32."""
+    horizontal taps first, then vertical, in float32, on img's device."""
     img = torch.as_tensor(img, dtype=torch.float32)
     w, h = int(size[0]), int(size[1])
-    x0, x1, ax0, ax1 = _linear_taps(img.shape[1], w)
-    y0, y1, by0, by1 = _linear_taps(img.shape[0], h)
+    x0, x1, ax0, ax1 = (t.to(img.device)
+                        for t in _linear_taps(img.shape[1], w))
+    y0, y1, by0, by1 = (t.to(img.device)
+                        for t in _linear_taps(img.shape[0], h))
     extra = (None,) * (img.ndim - 2)
     rows = (img[:, x0] * ax0[(None, slice(None)) + extra]
             + img[:, x1] * ax1[(None, slice(None)) + extra])
@@ -267,6 +302,7 @@ def resize_nearest(img: torch.Tensor, size) -> torch.Tensor:
 
     def idx(n_in, n_out):
         i = np.floor(np.arange(n_out) * (1.0 / (n_out / n_in)))
-        return torch.from_numpy(np.minimum(i.astype(np.int64), n_in - 1))
+        return torch.from_numpy(np.minimum(i.astype(np.int64),
+                                           n_in - 1)).to(img.device)
 
     return img[idx(img.shape[0], h)][:, idx(img.shape[1], w)]

@@ -1022,3 +1022,37 @@ def test_render_test_fast_on_the_card_matches_the_cpu():
     assert float(a["opacity"].mean()) > 0.02        # the frame holds content
     for k in ("rgb", "opacity", "depth"):
         assert float((b[k].cpu() - a[k]).abs().max()) <= 2e-3, k
+
+
+@pytest.mark.cuda
+def test_depth_forward_on_the_card_matches_the_cpu():
+    """The LeReS depth network (ResNeXt101-32x8d, encoder-site cIMLE at
+    d_latent 32, one minibatch of 5 hypotheses at 128x128) on the card
+    against the same weights and latents on the CPU: depth_inference
+    norm-relative 1e-4 (f32 with TF32 off on both; cuDNN's convolution
+    algorithms sum in other orders), the minibatch's minimum 0.01 on
+    both, and TF32 back at its setting after the call."""
+    from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
+                                                   depth_inference,
+                                                   init_depth_model)
+    dev = _card()
+    cfg = DepthModelConfig(backbone="resnext101_32x8d", d_latent=32)
+    model = init_depth_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    rgb = torch.rand((1, 3, 128, 128), generator=gen).expand(5, -1, -1, -1)
+    z = torch.randn((5, 32), generator=gen)
+    want = depth_inference(model, rgb.contiguous(), z)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = depth_inference(model.to(dev), rgb.contiguous().to(dev),
+                              z.to(dev))
+        torch.cuda.synchronize()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    got = got.cpu()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 1e-4, rel
+    assert float(got.min()) == pytest.approx(0.01, abs=1e-6)
+    assert not torch.allclose(got[0], got[1])      # the latents differ

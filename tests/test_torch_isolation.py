@@ -1,10 +1,12 @@
 """The PyTorch port, its entry points (chip_smoke.py, bench_torch.py,
 train_torch.py, test_torch.py, train_scannet_torch.py,
-train_debug_torch.py) stand alone: no module of theirs imports JAX, its
-libraries, ml_dtypes, anything of the JAX package, or the JAX-free root
-scripts opt.py, train.py, test.py and bench.py (the port keeps its own
-copies); nor an image library (cv2, imageio, PIL): the port decodes and
-writes its images itself."""
+train_debug_torch.py, depth_test_torch.py, depth_eval_scannet_torch.py)
+stand alone: no module of theirs imports JAX, its libraries, ml_dtypes,
+anything of the JAX package, or the JAX-free root scripts opt.py,
+train.py, test.py, bench.py and the depth_*.py CLIs (the port keeps its
+own copies); nor an image or vision library (cv2, imageio, PIL,
+matplotlib, torchvision): the port decodes, colours and writes its
+images itself and writes its networks out by hand."""
 import ast
 from pathlib import Path
 
@@ -12,11 +14,13 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "google_nerf_tpu",
-          "ml_dtypes", "opt", "train", "test", "bench")
-IMAGE_LIBRARIES = ("cv2", "imageio", "PIL")
+          "ml_dtypes", "opt", "train", "test", "bench", "depth_test",
+          "depth_eval_scannet", "depth_eval", "depth_train", "depth_shape")
+IMAGE_LIBRARIES = ("cv2", "imageio", "PIL", "matplotlib", "torchvision")
 ENTRY_POINTS = ("chip_smoke.py", "bench_torch.py", "train_torch.py",
                 "test_torch.py", "train_scannet_torch.py",
-                "train_debug_torch.py")
+                "train_debug_torch.py", "depth_test_torch.py",
+                "depth_eval_scannet_torch.py")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
     ROOT / f for f in ENTRY_POINTS]
 
