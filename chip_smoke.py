@@ -81,7 +81,9 @@ Phases:
      ground truth and counters, and the checks in phase11's notes.  K2
      on the mxu frame's calls, K1 on the mixed frame's and P2 on the
      one-shot frame's largest gather join the kernels line (requests
-     "trained mxu", "trained mixed", "oneshot");
+     "trained mxu", "trained mixed", "oneshot"); then LPIPS-vgg of the
+     mxu frame against ground truth under the scope eval/metrics.py had
+     (cuDNN off) and under exact_f32 (cuDNN on, TF32 off), both times;
  12. the CLIs as a user runs them (train_torch.main, then
      test_torch.run, in a temporary directory): training at opt.py's
      defaults (f32, the seg march, budget 16 x batch) on the textured
@@ -119,7 +121,14 @@ Phases:
      battery; ms a frame, images/s, GFLOP an image and its share of the
      f32 peak, peak memory.  No kernel of the repo's own runs here: the
      network is cuDNN's convolutions in f32 with TF32 off, as JAX's
-     reference leaves it to XLA.
+     reference leaves it to XLA;
+ 16. the cIMLE depth trainer (phase16's notes): depth_train_torch.py at
+     the CLI's defaults (ResNeXt101-32x8d, encoder-site AdaIN at d_latent
+     32, crop 448, batch 2, 20 latents an image at the recache) on 8
+     frames of phase 13's scan for 2 epochs, --resume from epoch 1, one
+     full-width step on the card against the CPU (and float64), and
+     depth_eval_torch.py --num_samples 10 --select loss on its final.npz
+     over 4 more frames; ms a step, recache ms, GFLOP, peak memory.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -1246,6 +1255,44 @@ def oneshot_p2(ph, probe, frame, launches):
     return e
 
 
+def lpips_scopes(pred, gt, dev, reps=3):
+    """LPIPS-vgg of two 800x800 frames ((H*W, 3) in [0, 1]) on random
+    weights of the converter's shapes, under the scope eval/metrics.py
+    had (cudnn.flags(allow_tf32=False), which also turns cuDNN off) and
+    under the one it has (exact_f32: cuDNN on, TF32 off): the two
+    distances (within rtol 1e-4: both f32) and each one's ms by CUDA
+    events, in one call."""
+    from google_nerf_tpu_torch.eval import metrics
+    gen = torch.Generator().manual_seed(0)
+    w, cin, li = {}, 3, 0
+    for b, widths in enumerate(metrics._VGG_BLOCKS):
+        for width in widths:
+            w[f"conv{li}_w"] = (torch.randn((width, cin, 3, 3), generator=gen)
+                                * (2.0 / (9 * cin)) ** 0.5).to(dev)
+            w[f"conv{li}_b"] = torch.zeros(width, device=dev)
+            cin, li = width, li + 1
+        w[f"lin{b}_w"] = (torch.rand((1, cin, 1, 1), generator=gen)
+                          / cin).to(dev)
+    x, y = (t.reshape(800, 800, 3).permute(2, 0, 1)[None] * 2 - 1
+            for t in (pred, gt))
+
+    def cudnn_off():
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            fx = metrics._vgg_features(w, x)
+            fy = metrics._vgg_features(w, y)
+        return metrics._lpips_heads(w, fx, fy)
+
+    def exact():
+        return metrics._lpips_impl(w, x, y)
+
+    d_off, d_on = float(cudnn_off()), float(exact())
+    check(abs(d_on - d_off) <= 1e-4 * abs(d_off),
+          f"phase 11: LPIPS {d_on} under exact_f32, {d_off} with cuDNN off")
+    return dict(lpips=d_on, lpips_cudnn_off=d_off,
+                ms_cudnn_off=cuda_ms(cudnn_off, reps),
+                ms_exact_f32=cuda_ms(exact, reps))
+
+
 def phase11(state, tcfg, dev):
     """bench.py's serving stages on phase 9's trained state, in bench.py's
     order, through bench_torch's stage functions at its settings (the
@@ -1342,6 +1389,10 @@ def phase11(state, tcfg, dev):
             entries.append(e)
         summary[name] = info
         print(f"phase 11: {name}: {info}", flush=True)
+    summary["lpips"] = lpips_scopes(shared["out"]["mxu"]["rgb"], view.gt,
+                                    dev)
+    print(f"phase 11: LPIPS of the mxu frame (F4): {summary['lpips']}",
+          flush=True)
     del shared
     torch.cuda.empty_cache()
     return summary, keys, entries
@@ -2398,6 +2449,228 @@ def phase15(seed, scan=None):
     return out
 
 
+# ------------------------------ phase 16: the cIMLE depth trainer, LeReS
+
+DEPTH_TRAIN_FRAMES = (8, 4)       # train, test frames of phase 13's scan
+DEPTH_F64_FACTOR = 2.0            # card vs float64 gradients: at most
+DEPTH_F64_FLOOR = 1e-2            # max(this x the CPU's, the floor)
+DEPTH_TRAIN_EPOCHS = 2            # --epoch (the CLI's default: 50)
+DEPTH_EVAL_SAMPLES = 10           # depth_eval_torch.py --num_samples
+
+
+def write_depth_annotations(root, scene, priors):
+    """An annotation dataset `scannet_frames` over phase 13's scan: the
+    first DEPTH_TRAIN_FRAMES[0] frames' JPEGs and 16-bit mm PNG priors for
+    train, the next DEPTH_TRAIN_FRAMES[1] for test (absolute paths)."""
+    import json
+    import os
+    ids = sorted(int(f[:-4]) for f in os.listdir(os.path.join(scene, "rgb"))
+                 if f.endswith(".jpg"))
+    n_train, n_test = DEPTH_TRAIN_FRAMES
+    adir = os.path.join(root, "scannet_frames", "annotations")
+    os.makedirs(adir)
+    for split, sel in (("train", ids[:n_train]),
+                       ("test", ids[n_train:n_train + n_test])):
+        with open(os.path.join(adir, f"{split}_annotations.json"), "w") as f:
+            json.dump([{"rgb_path": os.path.join(scene, "rgb", f"{i}.jpg"),
+                        "depth_path": os.path.join(priors, f"{i}.png")}
+                       for i in sel], f)
+    return root
+
+
+def card_vs_cpu_step(model, cfg, data, z, draws, dev, what):
+    """The card's float32 train step against the CPU's, with the card's
+    float64 step as the exact one.  The loss within DEPTH_CPU_REL; the
+    gradients (all but trainer.bn_fed_biases: zero in exact arithmetic)
+    no further from float64 than max(DEPTH_F64_FACTOR x the CPU's,
+    DEPTH_F64_FLOOR): a train step of a BatchNorm network at init is
+    ill-conditioned in float32 (the CPU's own gradients miss float64 by
+    2.6e-2 at ResNeXt101-32x8d, 448^2, batch 1, and cuDNN's 3x3
+    algorithms round more than the CPU's on small maps), so two float32
+    runs cannot meet at 1e-4, while a different function, or TF32 in the
+    step (6.4e-2 at resnet18 64^2, 1.12 at full width), lands past the
+    bound; the updated parameters within DEPTH_CPU_REL of the CPU's.
+    Returns the numbers."""
+    from google_nerf_tpu_torch.tools.depth_step_precision import (
+        compared_keys, norm_rel, step)
+    got = step(cfg, model, data, z, draws, dev)
+    exact = step(cfg, model, data, z, draws, dev, torch.float64)
+    t0 = time.time()
+    want = step(cfg, model, data, z, draws, "cpu")
+    cpu_s = time.time() - t0
+    keys = compared_keys(model)
+    r = dict(loss=abs(got[0] - want[0]) / abs(want[0]),
+             grads=norm_rel(got[1], want[1], keys),
+             grads_card_vs_f64=norm_rel(got[1], exact[1], keys),
+             grads_cpu_vs_f64=norm_rel(want[1], exact[1], keys),
+             params=norm_rel(got[2], want[2], keys), cpu_step_s=cpu_s)
+    check(r["loss"] <= DEPTH_CPU_REL
+          and r["grads_card_vs_f64"] <= max(
+              DEPTH_F64_FACTOR * r["grads_cpu_vs_f64"], DEPTH_F64_FLOOR)
+          and r["params"] <= DEPTH_CPU_REL, f"{what}: card vs CPU step {r}")
+    return r
+
+
+def phase16(seed, scan, dev=torch.device("cuda"), flags=()):
+    """The cIMLE depth trainer: depth_train_torch.py at the CLI's defaults
+    (ResNeXt101-32x8d, --cimle_version v2: encoder-site AdaIN at d_latent
+    32, crop 448, --batchsize 2, the default loss mode, 20 latents an
+    image in minibatches of 5 at the recache) on an annotation dataset
+    over phase 13's scan (`scan`: its scene dir, raw root and 640x480 mm
+    PNG priors), random init from `seed`.  Cut: --epoch DEPTH_TRAIN_EPOCHS
+    and the frames (DEPTH_TRAIN_FRAMES; a dataset: thousands); set for the
+    checks: --options TRAIN.CKPT_EPOCHS 1 (the default 8 would write none
+    in 2 epochs).
+
+    Checks: the loss finite at every step; epoch1.npz, epoch2.npz,
+    final.npz and resume_epoch1 written; --resume resume_epoch1 runs
+    epoch 1's steps only, to the same step count, finite; one full-width
+    train step on a batch of 1 (the first train item, seeded latent and
+    loss draws) on the card against the CPU (card_vs_cpu_step: the loss
+    rtol 1e-4, the gradients as near float64 as the CPU's, the updated
+    parameters norm-relative 1e-4); depth_eval_torch.py
+    --num_samples 10 --select loss on final.npz over the test frames: a
+    finite battery of 10 metrics.  Reported: recache ms per
+    image-hypothesis, train ms a step (median after the first) and
+    images/s, GFLOP a step (3 x the forward's convolution and linear
+    multiply-adds x 2 per image) and its share of the f32 peak, peak
+    memory, the phase's seconds.  No kernel of the repo's own runs: the
+    network is cuDNN's convolutions in f32 with TF32 off, as JAX leaves
+    it to XLA.  `dev` and `flags` (more depth_train_torch.py flags) are
+    for a run of this phase at a toy size off the card."""
+    import os
+    import tempfile
+
+    import depth_eval_torch
+    import depth_train_torch
+    from google_nerf_tpu_torch.depth import trainer
+    from google_nerf_tpu_torch.depth.data import (DepthAnnotationDataset,
+                                                  MultiDatasetSampler)
+    from google_nerf_tpu_torch.depth.losses import loss_draws
+    on_card = dev.type == "cuda"
+    platform = ["--platform", dev.type]
+    t_phase = time.time()
+    scene, _, priors = scan
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_depth_annotations(os.path.join(tmp, "data"), scene,
+                                       priors)
+        out = os.path.join(tmp, "run")
+
+        def argv_to(out_dir):
+            return ["--dataroot", root, "--dataset_list", "scannet_frames",
+                    "--epoch", str(DEPTH_TRAIN_EPOCHS), "--out_dir", out_dir,
+                    "--seed", str(seed), *platform, *flags, "--options",
+                    "TRAIN.CKPT_EPOCHS", "1"]
+
+        argv = argv_to(out)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        run = depth_train_torch.main(argv)
+        peak_gib = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                    else float("nan"))
+        args = depth_train_torch.get_args(argv)
+        cfg = depth_train_torch.build_cfg(args)
+        t = cfg.train
+        steps = [h for h in run["history"] if h["kind"] == "step"]
+        recache = [h for h in run["history"] if h["kind"] == "recache"]
+        n_steps = DEPTH_TRAIN_EPOCHS * (DEPTH_TRAIN_FRAMES[0] // t.batch_size)
+        check(len(steps) == run["state"].step == n_steps,
+              f"phase 16: {len(steps)} steps, state at {run['state'].step}")
+        check(all(math.isfinite(h["total_loss"]) for h in steps),
+              f"phase 16: losses {[h['total_loss'] for h in steps]}")
+        for name in ("epoch1.npz", "epoch2.npz", "final.npz",
+                     "resume_epoch1"):
+            check(os.path.exists(os.path.join(out, name)),
+                  f"phase 16: {name} not written")
+        step_ms = [1e3 * h["seconds"] for h in steps]
+        med_ms = statistics.median(step_ms[1:])
+        recache_ms = 1e3 * recache[0]["seconds"] / (recache[0]["images"]
+                                                    * t.num_latent)
+        print(f"phase 16: {n_steps} steps, losses "
+              f"{[round(h['total_loss'], 4) for h in steps]}; step ms "
+              f"{[round(x, 1) for x in step_ms]}; recache "
+              f"{recache[0]['seconds']:.2f} s", flush=True)
+        model = run["state"].model
+        del run
+
+        # --resume from epoch 1: epoch 2's steps only
+        again = depth_train_torch.main(
+            argv_to(os.path.join(tmp, "again"))
+            + ["--resume", os.path.join(out, "resume_epoch1")])
+        resumed = [(h["epoch"], h["step"], h["total_loss"])
+                   for h in again["history"] if h["kind"] == "step"]
+        check(again["state"].step == n_steps
+              and {e for e, _, _ in resumed} == {1}
+              and len(resumed) == n_steps // DEPTH_TRAIN_EPOCHS
+              and all(math.isfinite(x) for _, _, x in resumed),
+              f"phase 16: --resume ran (epoch, step, loss) {resumed} to "
+              f"step {again['state'].step}")
+        del again
+
+        # one full-width step on a batch of 1: the card against the CPU
+        ds = DepthAnnotationDataset(root, "scannet_frames", cfg=cfg.dataset)
+        batch = next(MultiDatasetSampler([ds], seed=seed).batches(0, 1))
+        data = trainer.batch_to_device(batch, "cpu")
+        gen = torch.Generator().manual_seed(seed + 1)
+        z = torch.randn((1, cfg.model.d_latent), generator=gen)
+        draws = loss_draws(1, *cfg.dataset.crop_size, t.loss_mode, gen,
+                           "cpu")
+        init = trainer.init_trainer(seed, cfg, "cpu")[0].model
+        step = card_vs_cpu_step(init, cfg, data, z, draws, dev, "phase 16")
+        del init
+
+        # the FLOPs of a step: 3 x the forward's per image
+        x = data["rgb"].to(dev)
+        flops = 3 * forward_flops(model, x, z.to(dev)) * t.batch_size
+        share = flops / (med_ms * 1e-3) / H100_F32_FLOPS
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # the evaluation CLI on final.npz over the test frames
+        ev = depth_eval_torch.main(
+            ["--dataroot", root, "--dataset", "scannet_frames",
+             "--load_ckpt", os.path.join(out, "final.npz"), "--backbone",
+             args.backbone, "--crop_size", str(args.crop_size),
+             "--d_latent", str(cfg.model.d_latent), "--num_samples",
+             str(DEPTH_EVAL_SAMPLES), "--select", "loss", "--seed",
+             str(seed), *platform])
+        metrics = ev["metrics"]
+        check(ev["images"] == DEPTH_TRAIN_FRAMES[1] and len(metrics) == 10
+              and all(math.isfinite(v) for v in metrics.values()),
+              f"phase 16: eval battery {metrics}")
+    seconds = time.time() - t_phase
+    out = dict(arch=cfg.model.encoder, d_latent=cfg.model.d_latent,
+               crop=cfg.dataset.crop_size, batch=t.batch_size,
+               frames=DEPTH_TRAIN_FRAMES, epochs=DEPTH_TRAIN_EPOCHS,
+               losses=[h["total_loss"] for h in steps], step_ms=step_ms,
+               step_ms_median=med_ms,
+               images_per_s=t.batch_size * 1e3 / med_ms,
+               recache_s=recache[0]["seconds"],
+               recache_ms_per_image_hypothesis=recache_ms,
+               gflop_per_step=flops / 1e9, f32_peak_share=share,
+               peak_gib=peak_gib, card_vs_cpu=step, eval_metrics=metrics,
+               eval_image_ms=[1e3 * s for s in ev["image_s"]],
+               seconds=seconds)
+    print(f"phase 16: depth_train_torch {cfg.model.encoder} cIMLE d_latent "
+          f"{cfg.model.d_latent} at {cfg.dataset.crop_size[0]}^2, batch "
+          f"{t.batch_size}, {DEPTH_TRAIN_FRAMES[0]} frames x "
+          f"{DEPTH_TRAIN_EPOCHS} epochs: a step {med_ms:.1f} ms median "
+          f"({t.batch_size * 1e3 / med_ms:.2f} images/s), {flops / 1e9:.1f} "
+          f"GFLOP a step, {100 * share:.1f}% of the f32 peak; recache "
+          f"{recache_ms:.2f} ms an image-hypothesis; peak memory "
+          f"{peak_gib:.2f} GiB; card vs CPU step: loss {step['loss']:.2e}, "
+          f"gradients {step['grads']:.2e} (card vs float64 "
+          f"{step['grads_card_vs_f64']:.2e}, CPU vs float64 "
+          f"{step['grads_cpu_vs_f64']:.2e}), params {step['params']:.2e} "
+          f"(CPU step {step['cpu_step_s']:.1f} s); eval --select loss over "
+          f"{DEPTH_TRAIN_FRAMES[1]} frames "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }; phase "
+          f"{seconds:.1f} s", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2618,6 +2891,9 @@ def main():
     t15 = time.time()
     depth = phase15(args.seed, scan)
     depth["seconds"] = time.time() - t15
+
+    # ---- 16: the cIMLE depth trainer on phase 13's scan
+    depth_train = phase16(args.seed, scan)
     scan_tmp.cleanup()
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
@@ -2646,7 +2922,9 @@ def main():
           + f"; phase 14 {encoders['seconds']:.0f} s; depth priors "
           f"{depth['cli_frame_ms_median']:.1f} ms a frame of "
           f"{DEPTH_SAMPLES}, forward {depth['forward_ms_per_frame']:.2f} "
-          f"ms, phase 15 {depth['seconds']:.0f} s; total "
+          f"ms, phase 15 {depth['seconds']:.0f} s; depth training "
+          f"{depth_train['step_ms_median']:.1f} ms a step, phase 16 "
+          f"{depth_train['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -2659,7 +2937,8 @@ def main():
                   rgba_bake_ms=rgba_bake_ms, phase2_err=errs2,
                   train=train, trained_wl256=served, serving_stages=stages,
                   bench_keys=bench_keys, cli=cli, datasets=data,
-                  encoders=encoders, depth=depth, kernels=kernels)
+                  encoders=encoders, depth=depth,
+                  depth_train=depth_train, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -186,57 +186,70 @@ def depth_state_from_jax(variables, device="cpu"):
     return state
 
 
-def depth_state_to_jax(state):
-    """The inverse of depth_state_from_jax: a port DepthNet state dict ->
-    flax variables as nested dicts of numpy arrays (num_batches_tracked
-    dropped)."""
+def depth_n_convs(state) -> int:
+    """2 for a BasicBlock encoder, 3 for a Bottleneck one, from a port
+    DepthNet state dict (or its named parameters)."""
+    return 3 if state["encoder_modules.layer1.0.conv1.weight"].shape[-1] \
+        == 1 else 2
+
+
+def depth_flax_path(key: str, ndim: int, n_convs: int):
+    """A port DepthNet state_dict key (of a tensor with `ndim` axes) ->
+    (collection, the flax path under it: the root module, the module
+    path, the leaf), the inverse of depth_state_from_jax's names."""
     ftb = {v: k for k, v in _FTB_NAMES.items()}
     ao = {v: k for k, v in _AO_NAMES.items()}
     roots = {v: k for k, v in _DEPTH_ROOTS.items()}
-    conv0 = "encoder_modules.layer1.0.conv1.weight"
-    n_convs = 3 if state[conv0].shape[-1] == 1 else 2
+    root, *mods, leaf = key.split(".")
+    head, rest = mods[0], ".".join(mods[1:])
+    if head.startswith("layer"):       # layerL.B.sub
+        b, sub = mods[1], ".".join(mods[2:])
+        if sub.startswith("downsample"):
+            n, conv = n_convs, sub.endswith("0")
+        else:
+            n, conv = int(sub[-1]) - 1, sub.startswith("conv")
+        path = (f"{head}_{b}", f"ConvBN_{n}",
+                "Conv_0" if conv else "BatchNorm_0")
+    elif head.startswith("style_mod"):
+        path = (head,) + ((f"mlp{int(mods[2]) // 2}",) if rest else ())
+    elif head.startswith("ffm"):
+        path = (head, mods[1], ftb[".".join(mods[2:])])
+    elif head in ("outconv", "out"):
+        path = (head, ao[rest])
+    elif rest:
+        path = (head, ftb[rest])
+    else:
+        path = (head,)
+    if leaf in ("running_mean", "running_var"):
+        coll, fl = "batch_stats", leaf[len("running_"):]
+    elif leaf in ("mean_shift", "var_shift"):
+        coll, fl = "adain_stats", leaf
+    elif leaf == "weight":
+        coll, fl = "params", "scale" if ndim == 1 else "kernel"
+    else:
+        coll, fl = "params", leaf
+    return coll, (roots[root],) + path + (fl,)
+
+
+def depth_state_to_jax(state):
+    """The inverse of depth_state_from_jax: a port DepthNet state dict ->
+    flax variables as nested dicts of numpy arrays, copies of the tensors
+    (num_batches_tracked dropped)."""
+    n_convs = depth_n_convs(state)
     out = {}
     for key, t in state.items():
         if key.endswith("num_batches_tracked"):
             continue
-        a = t.detach().cpu().numpy()
-        root, *mods, leaf = key.split(".")
-        head, rest = mods[0], ".".join(mods[1:])
-        if head.startswith("layer"):       # layerL.B.sub
-            b, sub = mods[1], ".".join(mods[2:])
-            if sub.startswith("downsample"):
-                n, conv = n_convs, sub.endswith("0")
-            else:
-                n, conv = int(sub[-1]) - 1, sub.startswith("conv")
-            path = (f"{head}_{b}", f"ConvBN_{n}",
-                    "Conv_0" if conv else "BatchNorm_0")
-        elif head.startswith("style_mod"):
-            path = (head,) + ((f"mlp{int(mods[2]) // 2}",) if rest else ())
-        elif head.startswith("ffm"):
-            path = (head, mods[1], ftb[".".join(mods[2:])])
-        elif head in ("outconv", "out"):
-            path = (head, ao[rest])
-        elif rest:
-            path = (head, ftb[rest])
-        else:
-            path = (head,)
-        if leaf in ("running_mean", "running_var"):
-            coll, fl = "batch_stats", leaf[len("running_"):]
-        elif leaf in ("mean_shift", "var_shift"):
-            coll, fl = "adain_stats", leaf
-        elif leaf == "weight":
-            coll = "params"
-            fl = "scale" if a.ndim == 1 else "kernel"
-            if a.ndim == 4:
-                a = a.transpose(2, 3, 1, 0)
-            elif a.ndim == 2:
-                a = a.T
-        else:
-            coll, fl = "params", leaf
-        node = out.setdefault(coll, {}).setdefault(roots[root], {})
-        for p in path:
+        a = t.detach().cpu().numpy().copy()
+        coll, path = depth_flax_path(key, a.ndim, n_convs)
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2:
+            a = a.T
+        node = out.setdefault(coll, {})
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[fl] = np.ascontiguousarray(a)
+        node[path[-1]] = np.ascontiguousarray(a)
     return out
 
 
@@ -261,3 +274,65 @@ def save_depth_npz(path, state):
     flat = {"/".join(p): v
             for p, v in _flat(depth_state_to_jax(state)).items()}
     np.savez(path, **flat)
+
+
+def _optax_traces(opt_state):
+    """The momentum traces (merged over the parameter groups, nested
+    dicts of numpy arrays) and the update count of a numpy copy of the
+    optax state of JAX's make_depth_optimizer
+    (jax.tree_util.tree_map(np.asarray, opt_state)), read by field name:
+    TraceState.trace, ScaleByScheduleState.count."""
+    traces, counts = {}, set()
+
+    def merge(node, out):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                merge(v, out.setdefault(k, {}))
+            elif isinstance(v, np.ndarray):      # not a MaskedNode
+                out[k] = v
+
+    def walk(x):
+        if hasattr(x, "_fields"):                # a NamedTuple state
+            for f in x._fields:
+                v = getattr(x, f)
+                if f == "trace":
+                    merge(v, traces)
+                elif f == "count":
+                    counts.add(int(np.asarray(v)))
+                else:
+                    walk(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(opt_state)
+    if not traces or len(counts) != 1:
+        raise ValueError(f"not a depth optimizer state: traces "
+                         f"{bool(traces)}, counts {sorted(counts)}")
+    return traces, counts.pop()
+
+
+def depth_train_state_from_jax(variables, opt_state, step, cfg,
+                               device="cpu"):
+    """A JAX depth trainer's state -> the port's DepthTrainState, so that
+    a JAX run continues in the port.  variables: the flax DepthNet's
+    {params, batch_stats[, adain_stats]}; opt_state: the optax state of
+    JAX's make_depth_optimizer over those params; both as numpy trees
+    (jax.tree_util.tree_map(np.asarray, ...)); step: JAX's
+    DepthTrainState.step; cfg: the run's DepthCfg.  The model gets the
+    variables, the optimizer each parameter's momentum trace and the
+    update count."""
+    from google_nerf_tpu_torch.depth.trainer import init_trainer
+    state, _ = init_trainer(0, cfg, device)
+    state.model.load_state_dict(depth_state_from_jax(variables, device))
+    traces, count = _optax_traces(opt_state)
+    by_name = depth_state_from_jax({"params": traces}, device)
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p]["trace"] = by_name[name]
+    for group in state.optimizer.param_groups:
+        group["count"] = count
+    state.step = int(step)
+    return state

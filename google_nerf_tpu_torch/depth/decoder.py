@@ -18,7 +18,8 @@ reference's `Minist_Test/lib/network_auxi.py` and
     conv1 and the laterals features[2..0] before their FFMs;
   * AuxiNetV2 (`Train/lib/models/network_auxi.py:126-172`).
 
-Decoder convolutions carry a bias; BatchNorm eps 1e-5.  NCHW.
+Decoder convolutions carry a bias; BatchNorm is flax's (backbones.BatchNorm2d).
+NCHW.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod
+from google_nerf_tpu_torch.depth.backbones import BatchNorm2d
 
 MIDCHANNELS = (256, 256, 256, 512)
 
@@ -54,7 +56,7 @@ class FTB(nn.Module):
         super().__init__()
         self.conv1 = _conv3(inchannels, mid)
         self.conv_branch = nn.Sequential(
-            nn.ReLU(), _conv3(mid, mid), nn.BatchNorm2d(mid, eps=1e-5),
+            nn.ReLU(), _conv3(mid, mid), BatchNorm2d(mid),
             nn.ReLU(), _conv3(mid, mid))
 
     def forward(self, x):
@@ -99,7 +101,7 @@ class AO(nn.Module):
         super().__init__()
         self.adapt_conv = nn.Sequential(
             _conv3(inchannels, inchannels // 2),
-            nn.BatchNorm2d(inchannels // 2, eps=1e-5), nn.ReLU(),
+            BatchNorm2d(inchannels // 2), nn.ReLU(),
             _conv3(inchannels // 2, out))
         self.upfactor = upfactor
 

@@ -12,7 +12,6 @@ convolutions would otherwise take TF32 on the card.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -24,6 +23,7 @@ from google_nerf_tpu_torch.depth.adain import AdaInMod, EqualizedDense
 from google_nerf_tpu_torch.depth.backbones import (LateralEncoder,
                                                    lateral_channels)
 from google_nerf_tpu_torch.depth.decoder import AuxiNetV2, Decoder
+from google_nerf_tpu_torch.utils.precision import exact_f32
 
 # ImageNet normalisation of every LeReS CLI
 # (`Minist_Test/tools/test_depth.py:31-33`)
@@ -113,23 +113,6 @@ def init_depth_model(generator: torch.Generator, cfg: DepthModelConfig,
             m.mean_shift.zero_()
             m.var_shift.zero_()
     return model.to(device).eval()
-
-
-@contextlib.contextmanager
-def exact_f32():
-    """cuDNN convolutions and cuBLAS products without TF32 in this scope
-    (cuDNN stays on; its other settings are kept)."""
-    cudnn = torch.backends.cudnn
-    matmul = torch.backends.cuda.matmul
-    was = matmul.allow_tf32
-    matmul.allow_tf32 = False
-    try:
-        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            yield
-    finally:
-        matmul.allow_tf32 = was
 
 
 def normalize_rgb(rgb01: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,7 @@ scores None, as in JAX.
 
 JAX convolves at Precision.HIGHEST; cuDNN runs float32 convolutions in
 TF32 unless told otherwise, so every convolution here runs with TF32
-off, scoped to the call.
+off, scoped to the call by `utils.precision.exact_f32` (cuDNN stays on).
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from google_nerf_tpu_torch.utils.precision import exact_f32
 
 
 def mse(image_pred, image_gt, valid_mask=None):
@@ -43,7 +45,7 @@ def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device="cpu"):
 def _filter2d(img, kernel):
     """img: (N, C, H, W); kernel: (k, k) -> depthwise valid convolution."""
     c, k = img.shape[1], kernel.shape[0]
-    with torch.backends.cudnn.flags(allow_tf32=False):
+    with exact_f32():
         return F.conv2d(img, kernel.expand(c, 1, k, k).contiguous(),
                         groups=c)
 
@@ -107,9 +109,14 @@ def _vgg_features(weights, x):
 
 def _lpips_impl(weights, x, y):
     """LPIPS distance of NCHW images x, y in [-1, 1] (0-d tensor)."""
-    with torch.backends.cudnn.flags(allow_tf32=False):
+    with exact_f32():
         fx = _vgg_features(weights, x)
         fy = _vgg_features(weights, y)
+    return _lpips_heads(weights, fx, fy)
+
+
+def _lpips_heads(weights, fx, fy):
+    """The linear heads over the unit-normalised VGG activations."""
     total = 0.0
     for j, (a, b) in enumerate(zip(fx, fy)):
         a = a / torch.sqrt((a * a).sum(1, keepdim=True) + 1e-10)

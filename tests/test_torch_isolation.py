@@ -1,12 +1,14 @@
 """The PyTorch port, its entry points (chip_smoke.py, bench_torch.py,
 train_torch.py, test_torch.py, train_scannet_torch.py,
-train_debug_torch.py, depth_test_torch.py, depth_eval_scannet_torch.py)
-stand alone: no module of theirs imports JAX, its libraries, ml_dtypes,
-anything of the JAX package, or the JAX-free root scripts opt.py,
-train.py, test.py, bench.py and the depth_*.py CLIs (the port keeps its
-own copies); nor an image or vision library (cv2, imageio, PIL,
-matplotlib, torchvision): the port decodes, colours and writes its
-images itself and writes its networks out by hand."""
+train_debug_torch.py, depth_test_torch.py, depth_eval_scannet_torch.py,
+depth_train_torch.py, depth_eval_torch.py) and every module of
+google_nerf_tpu_torch/ (the depth trainer's losses, normals, optim, data
+and trainer among them) stand alone: no module of theirs imports JAX,
+its libraries, ml_dtypes, anything of the JAX package, or the JAX-free
+root scripts opt.py, train.py, test.py, bench.py and the depth_*.py CLIs
+(the port keeps its own copies); nor an image or vision library (cv2,
+imageio, PIL, matplotlib, torchvision): the port decodes, colours and
+writes its images itself and writes its networks out by hand."""
 import ast
 from pathlib import Path
 
@@ -20,7 +22,8 @@ IMAGE_LIBRARIES = ("cv2", "imageio", "PIL", "matplotlib", "torchvision")
 ENTRY_POINTS = ("chip_smoke.py", "bench_torch.py", "train_torch.py",
                 "test_torch.py", "train_scannet_torch.py",
                 "train_debug_torch.py", "depth_test_torch.py",
-                "depth_eval_scannet_torch.py")
+                "depth_eval_scannet_torch.py", "depth_train_torch.py",
+                "depth_eval_torch.py")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
     ROOT / f for f in ENTRY_POINTS]
 
