@@ -1,20 +1,18 @@
-"""How far a depth train step's float32 gradients lie from float64.
+"""How far a depth train step in float32 lies from the step in float64.
 
 One train step of the cIMLE depth trainer (trainer.loss_and_grads: the
-train-mode forward, depth_losses, the backward pass) on seeded inputs,
-run in float64 (the exact one) and in float32 under several settings;
-for each, the loss's relative distance from float64 and the gradients'
-norm-relative distance over every parameter but trainer.bn_fed_biases
-(zero in exact arithmetic), and the four tensors furthest off:
-
-  cpu             float32 on the CPU
-  device          float32 on --device under exact_f32 (the trainer's)
-  device_nocudnn  the same with cuDNN off
-  device_tf32     the same with TF32 on (what exact_f32 keeps out)
-  cpu_fast_var    float32 on the CPU with BatchNorm's variance as flax's
-                  E[x^2] - E[x]^2 instead of the two-pass E[(x - m)^2]
-
-The float64 step runs on --device.  Prints one JSON object a setting.
+train-mode forward, depth_losses, the backward pass; then the optimizer)
+on seeded inputs.  The exact step is float64 on the CPU; against it, the
+float32 step on the CPU and, on a card, the float64 and float32 steps
+there: the loss's relative distance, and for the gradients and the
+optimizer's momentum traces the global norm-relative distance, the
+largest per tensor and the four tensors furthest off, over
+compared_keys (every parameter whose gradient is not zero in exact
+arithmetic).  On the CPU it also splits the float32 step's error
+(`split`): the prediction, the loss's gradient with respect to it, the
+losses alone on the exact prediction, and the network's backward pass
+alone from the exact gradient, with BatchNorm on the batch and on its
+running statistics.  Prints one JSON object a setting.
 
     python -m google_nerf_tpu_torch.tools.depth_step_precision \\
         --device cuda --setting resnet18:64:2:8 \\
@@ -23,16 +21,15 @@ The float64 step runs on --device.  Prints one JSON object a setting.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import dataclasses
 import json
 
 import torch
 
-from google_nerf_tpu_torch.depth import backbones, trainer
+from google_nerf_tpu_torch.depth import trainer
 from google_nerf_tpu_torch.depth.config import DepthCfg
-from google_nerf_tpu_torch.depth.losses import loss_draws
+from google_nerf_tpu_torch.depth.losses import depth_losses, loss_draws
 
 
 def inputs(arch: str, hw: int, batch: int, d_latent: int, seed: int = 0):
@@ -57,76 +54,27 @@ def inputs(arch: str, hw: int, batch: int, d_latent: int, seed: int = 0):
     return cfg, model, data, z, draws
 
 
-def step(cfg, model, data, z, draws, device, dtype=torch.float32,
-         scope=None):
+def step(cfg, model, data, z, draws, device, dtype=torch.float32):
     """One train step of a copy of `model` on `device` in `dtype`: (loss,
-    {name: gradient}, {name: parameter after the optimizer's update}),
-    the tensors in float64 on the CPU; `scope` replaces exact_f32."""
+    {name: gradient}, {name: the optimizer's momentum trace}), the
+    tensors in float64 on the CPU.  The step moves each parameter by its
+    group's learning rate (a host number) times its trace."""
     m = copy.deepcopy(model).to(device, dtype)
 
     def cast(t):
         return t.to(device, dtype) if t.is_floating_point() else t.to(device)
 
-    orig = trainer.exact_f32
-    if scope is not None:
-        trainer.exact_f32 = scope
-    try:
-        losses, grads = trainer.loss_and_grads(
-            m, {k: cast(v) for k, v in data.items()}, cast(z),
-            trainer.loss_config(cfg),
-            draws={n: {k: cast(v) for k, v in d.items()}
-                   for n, d in draws.items()})
-    finally:
-        trainer.exact_f32 = orig
+    losses, grads = trainer.loss_and_grads(
+        m, {k: cast(v) for k, v in data.items()}, cast(z),
+        trainer.loss_config(cfg),
+        draws={n: {k: cast(v) for k, v in d.items()}
+               for n, d in draws.items()})
     grads = {k: g.detach().double().cpu() for k, g in grads.items()}
-    trainer.make_optimizer(m, cfg).step()
+    opt = trainer.make_optimizer(m, cfg)
+    opt.step()
     return (float(losses["total_loss"].detach()), grads,
-            {k: p.detach().double().cpu() for k, p in m.named_parameters()})
-
-
-@contextlib.contextmanager
-def _cudnn_off():
-    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
-        yield
-
-
-@contextlib.contextmanager
-def _tf32():
-    matmul = torch.backends.cuda.matmul
-    was = matmul.allow_tf32
-    matmul.allow_tf32 = True
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-            yield
-    finally:
-        matmul.allow_tf32 = was
-
-
-def _fast_variance(self, x):
-    """BatchNorm2d.forward with flax's E[x^2] - E[x]^2 in train mode."""
-    if not self.training:
-        return torch.nn.BatchNorm2d.forward(self, x)
-    mean = x.mean((0, 2, 3))
-    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-        self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
-        self.num_batches_tracked.add_(1)
-    mul = torch.rsqrt(var + self.eps) * self.weight
-    return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
-            + self.bias[None, :, None, None])
-
-
-@contextlib.contextmanager
-def _fast_var_scope():
-    from google_nerf_tpu_torch.utils.precision import exact_f32
-    two_pass = backbones.BatchNorm2d.forward
-    backbones.BatchNorm2d.forward = _fast_variance
-    try:
-        with exact_f32():
-            yield
-    finally:
-        backbones.BatchNorm2d.forward = two_pass
+            {k: opt.state[p]["trace"].double().cpu()
+             for k, p in m.named_parameters()})
 
 
 def norm_rel(got, want, keys) -> float:
@@ -135,37 +83,114 @@ def norm_rel(got, want, keys) -> float:
     return (num / sum(float(want[k].norm()) ** 2 for k in keys)) ** 0.5
 
 
-def compared_keys(model):
-    """Every parameter but trainer.bn_fed_biases (zero gradient)."""
+def compared_keys(model, batch: int):
+    """Every parameter but those whose gradient is zero in exact
+    arithmetic, which float32 leaves as rounding noise that no relative
+    bound can hold: trainer.bn_fed_biases, and at a batch of 1 the
+    encoder's first AdaIN modulator (style_mod0 scales and shifts conv1's
+    output per channel just before bn1, whose batch statistics over one
+    image take both out again; the scale's gradient is eps's alone)."""
     skip = set(trainer.bn_fed_biases(model))
+    if batch == 1:
+        skip |= {k for k, _ in model.named_parameters()
+                 if k.startswith("encoder_modules.style_mod0.")}
     return [k for k, _ in model.named_parameters() if k not in skip]
 
 
 def distances(exact, got, keys):
-    """(loss relative, gradients norm-relative over keys, the four
-    tensors furthest off) of two steps' results."""
-    worst = sorted(((norm_rel(got[1], exact[1], [k]), k) for k in keys),
-                   reverse=True)[:4]
-    return dict(loss=abs(got[0] - exact[0]) / abs(exact[0]),
-                grads=norm_rel(got[1], exact[1], keys), worst=worst)
+    """A step's distances from the exact one: the loss relative; for the
+    gradients and the traces, norm-relative over `keys`, the largest of
+    any one tensor, and the four tensors furthest off."""
+    out = dict(loss=abs(got[0] - exact[0]) / abs(exact[0]))
+    for i, what in ((1, "grads"), (2, "traces")):
+        per = sorted(((norm_rel(got[i], exact[i], [k]), k) for k in keys),
+                     reverse=True)
+        out[what] = norm_rel(got[i], exact[i], keys)
+        out[f"{what}_tensor_max"] = per[0][0]
+        out[f"{what}_worst"] = per[:4]
+    return out
+
+
+def compare(cfg, model, data, z, draws, device):
+    """The CPU's float32 step and, on a card, its float64 and float32
+    steps against the CPU's float64 step (`distances` each: "cpu",
+    "card_f64", "card"); "loss_card_vs_cpu", the relative distance of
+    the two float32 losses."""
+    batch = data["rgb"].shape[0]
+    keys = compared_keys(model, batch)
+    exact = step(cfg, model, data, z, draws, "cpu", torch.float64)
+    cpu = step(cfg, model, data, z, draws, "cpu")
+    out = dict(batch=batch, n_compared=len(keys),
+               cpu=distances(exact, cpu, keys))
+    if torch.device(device).type != "cpu":
+        out["card_f64"] = distances(
+            exact, step(cfg, model, data, z, draws, device, torch.float64),
+            keys)
+        card = step(cfg, model, data, z, draws, device)
+        out["card"] = distances(exact, card, keys)
+        out["loss_card_vs_cpu"] = abs(card[0] - cpu[0]) / abs(cpu[0])
+    return out
+
+
+def _forward(model, data, z, draws, lcfg, dtype):
+    """A train-mode forward and backward of a copy of `model` on the CPU
+    in `dtype`: (the prediction, dLoss/dprediction)."""
+    m = copy.deepcopy(model).to(dtype=dtype).train()
+
+    def cast(t):
+        return t.to(dtype=dtype) if t.is_floating_point() else t
+
+    pred = m(cast(data["rgb"]), cast(z))[:, 0]
+    pred.retain_grad()
+    depth_losses(pred, {k: cast(v) for k, v in data.items()}, lcfg,
+                 draws={n: {k: cast(v) for k, v in d.items()}
+                        for n, d in draws.items()})["total_loss"].backward()
+    return pred.detach().double(), pred.grad.double()
+
+
+def _backward(model, data, z, upstream, dtype, train):
+    """The parameter gradients of a copy of `model` on the CPU in
+    `dtype`, its prediction's gradient set to `upstream`; BatchNorm on
+    the batch (train) or on its running statistics."""
+    m = copy.deepcopy(model).to(dtype=dtype).train(train)
+    m(data["rgb"].to(dtype), z.to(dtype))[:, 0].backward(upstream.to(dtype))
+    return {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+def split(cfg, model, data, z, draws):
+    """Where the CPU's float32 step leaves float64, norm-relative:
+    "pred", the prediction; "dpred", dLoss/dprediction; "losses_alone",
+    dLoss/dprediction of the float32 losses on the float64 prediction;
+    "backward_alone", the gradients (compared_keys) of a float32 forward
+    and backward pass fed the float64 dLoss/dprediction, against the
+    same in float64; "backward_alone_bn_eval", the same with BatchNorm on
+    its running statistics (an affine map) instead of the batch's."""
+    lcfg = trainer.loss_config(cfg)
+    p64, g64 = _forward(model, data, z, draws, lcfg, torch.float64)
+    p32, g32 = _forward(model, data, z, draws, lcfg, torch.float32)
+    pred = p64.float().requires_grad_()
+    depth_losses(pred, {k: v.float() if v.is_floating_point() else v
+                        for k, v in data.items()}, lcfg,
+                 draws=draws)["total_loss"].backward()
+    keys = compared_keys(model, data["rgb"].shape[0])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    return dict(pred=rel(p32, p64), dpred=rel(g32, g64),
+                losses_alone=rel(pred.grad.double(), g64),
+                **{name: norm_rel(
+                    _backward(model, data, z, g64, torch.float32, train),
+                    _backward(model, data, z, g64, torch.float64, train),
+                    keys) for name, train in (
+                        ("backward_alone", True),
+                        ("backward_alone_bn_eval", False))})
 
 
 def run(arch, hw, batch, d_latent, device):
-    cfg, model, data, z, draws = inputs(arch, hw, batch, d_latent)
-    keys = compared_keys(model)
-    exact = step(cfg, model, data, z, draws, device, torch.float64)
-    out = dict(arch=arch, hw=hw, batch=batch, d_latent=d_latent,
-               device=str(device))
-    variants = {"cpu": ("cpu", None), "cpu_fast_var": ("cpu",
-                                                        _fast_var_scope)}
-    if torch.device(device).type == "cuda":
-        variants.update(device=(device, None),
-                        device_nocudnn=(device, _cudnn_off),
-                        device_tf32=(device, _tf32))
-    for name, (dev, scope) in variants.items():
-        out[name] = distances(exact, step(cfg, model, data, z, draws, dev,
-                                          scope=scope), keys)
-    return out
+    args = inputs(arch, hw, batch, d_latent)
+    return dict(arch=arch, hw=hw, d_latent=d_latent, device=str(device),
+                **compare(*args, device), cpu_split=split(*args))
 
 
 def main(argv=None):

@@ -19,14 +19,16 @@ on a dataset the tests write:
     diverging) and resume round trip, in the port's own checkpoint
     format.
 
-Train-mode BatchNorm on a batch of 2 at 64x64 is ill-conditioned in
-float32: flax's float32 forward is 8.4e-5 from its own float64 forward
-(the port's 2.3e-6), and JAX's float32 gradients miss its float64 ones
-by up to 2e-2 on some BatchNorm biases.  So the train-mode forward and
-the steps are held to JAX run in float64 (jax.enable_x64; its loss
-draws made in float32, the draws the port is given), which the port's
-step in float64 meets within 1e-6.  The biases start at
-zero and their three updates are sums of near-cancelling terms, so
+Float32 lies far from float64 in a train step of these networks at a
+batch of 2 at 64x64 (most of it in train-mode BatchNorm's backward
+pass, PERF.md section 6): flax's float32 forward is 8.4e-5 from its own
+float64 forward (the port's ~2e-6), and JAX's float32 gradients miss
+its float64 ones by up to 2e-2 on some BatchNorm biases.  So the
+train-mode forward and the steps are held to JAX run in float64
+(jax.enable_x64; its loss draws made in float32, the draws the port is
+given), which the port's step in float64 meets within 1e-6.  The
+biases start at zero and their three updates are sums of
+near-cancelling terms, so
 float32 leaves them 1.6e-3 from float64 (JAX's float32 run as the
 port's): 5e-3.  The biases of convolutions that feed a BatchNorm have a
 zero gradient in exact arithmetic; their float32 values are rounding
