@@ -4,7 +4,8 @@ and check them.
     python3 chip_smoke.py [--seed N] [--out result.json]
 
 Phases:
-  1. print the card (nvidia-smi name, power limit); build the kernels;
+  1. print the card (nvidia-smi name, power limit); build the kernels
+     and the host libraries (the image codec, the .sens decoder);
   2. hold K1 (brick_field_tiles_wl), K2 (brick_field_tiles_tp), K3
      (brick_field_tiles), K4 (brick_field_tiles_t) and K5
      (brick_field_tiles_rgba) against their plain PyTorch versions at
@@ -95,7 +96,8 @@ Phases:
      in phase12's notes;
  13. datasets on disk through the CLIs (phase13's notes): an NSVF
      Synthetic-layout scene of 800x800 RGBA PNGs trained by
-     train_torch.py at opt.py's defaults and served by test_torch.py; a
+     train_torch.py at opt.py's defaults (512 steps, as each run of
+     this phase) and served by test_torch.py; a
      ScanNet-layout scene (1296x968 JPEGs from the port's encoder, a
      metric frame, the mesh AABB, 16-bit PNG depth priors in mm) trained
      by train_scannet_torch.py at 640x480 with and without the priors,
@@ -128,7 +130,24 @@ Phases:
      frames of phase 13's scan for 2 epochs, --resume from epoch 1, one
      full-width step on the card against the CPU (and float64), and
      depth_eval_torch.py --num_samples 10 --select loss on its final.npz
-     over 4 more frames; ms a step, recache ms, GFLOP, peak memory.
+     over 4 more frames; ms a step, recache ms, GFLOP, peak memory;
+ 17. the .sens chain (phase17's notes): phase 13's 28 frames packed into
+     a v4 .sens by the port's write_sens (1296x968 colour JPEGs, 640x480
+     zlib depth in mm, depth_shift 1000), decoded (the header; the
+     native batch zlib decode, csrc/sens_decode.cpp, against Python's
+     zlib), exported by process_scene at 640x480 (frame skip 1: the scan
+     holds 28 frames) and split by split_train_test; ScannetDataset on
+     the export with its depth PNGs as the priors; train_scannet_torch.py
+     with those priors for 512 steps (P2/P3), the kernel step against the
+     plain step;
+     decode ms a frame, export s, ms a step, validate PSNR, depth MAE;
+     P2/P3 on the kernels line (request "sens chain");
+ 18. the shape refiner (phase18's notes): depth_shape_torch.py at its
+     defaults (ResNeXt101 at crop 448, the SPVCNN heads at random init
+     from the CLI's seeds) on two of phase 13's 1296x968 frames; then
+     the refinement's three SPVCNN calls on the card against the CPU,
+     both in exact_f32, on the same voxelized clouds (rel 1e-4); active
+     sites per level, ms per spvcnn_apply, peak memory.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -1401,6 +1420,11 @@ def phase11(state, tcfg, dev):
 # ---------------------------------- phase 12: the CLIs, train -> serve
 
 CLI_STEPS = 1024            # opt.py's default is 30 epochs x 1000 steps
+# phase 13's runs, cut to half of CLI_STEPS to keep the script inside
+# its time limit as phases 17-18 joined (validated at 36.99-38.25
+# dB; phase 14's hash run validated at 16.51 dB after 512 steps, so
+# phase 14 keeps CLI_STEPS)
+DATA_STEPS = 512
 CLI_SCENE = ["--root_dir", "x", "--dataset_name", "synthetic",
              "--synthetic_style", "textured", "--downsample", "4"]
 VIEW_800 = ["--downsample", "12.5"]          # the test views at 800x800
@@ -1865,7 +1889,7 @@ def test_view_depth_mae(argv, ckpt, gt_depth, gt_mask):
     return float(np.concatenate(errs).mean())
 
 
-def phase13(seed, steps=CLI_STEPS, scan_root=None):
+def phase13(seed, steps=DATA_STEPS, scan_root=None):
     """Datasets on disk through the CLIs, in a temporary directory:
 
       * NSVF: write_nsvf_scene, then train_torch.main at opt.py's
@@ -2666,6 +2690,444 @@ def phase16(seed, scan):
     return out
 
 
+# --------------------------- phase 17: the .sens chain, scannet_tools
+
+# process_scene's frame skip (its default, 10, is for a scan of
+# thousands of frames): the packed scan holds phase 13's 28, and every
+# one is kept, so that the training sees phase 13's view density (at a
+# skip of 2, 12 training views validated at 14.95 dB after 256 steps)
+SENS_FRAME_SKIP = 1
+SENS_TEST_STEP = 10               # split_train_test's; the loader's test_skip
+SENS_STEPS = 512                  # a short run (opt.py: 30 x 1000)
+
+
+def write_scan_sens(path, scene, priors):
+    """Phase 13's scan packed into a v4 .sens by the port's write_sens:
+    its 1296x968 colour JPEGs as they are, its 640x480 mm PNG priors as
+    the zlib depth (depth_shift 1000), its poses, K of the depth frame
+    (intrinsic_depth.txt) and of the colour frame (scaled to 1296x968).
+    Returns (frames written, seconds)."""
+    import os
+
+    from google_nerf_tpu_torch.scannet_tools.sensor_data import write_sens
+    from google_nerf_tpu_torch.utils.image import read_image
+    ids = sorted(int(f[:-4]) for f in os.listdir(os.path.join(scene, "rgb")))
+    Kd = np.loadtxt(os.path.join(scene, "intrinsic_depth.txt"))
+    Kc = Kd.copy()
+    Kc[0] *= SCANNET_COLOR_WH[0] / 640
+    Kc[1] *= SCANNET_COLOR_WH[1] / 480
+    t0 = time.time()
+    frames = []
+    for i in ids:
+        with open(os.path.join(scene, "rgb", f"{i}.jpg"), "rb") as f:
+            jpg = f.read()
+        frames.append((np.loadtxt(os.path.join(scene, "pose", f"{i}.txt")),
+                       jpg, read_image(os.path.join(priors, f"{i}.png"))))
+    write_sens(path, intrinsic_color=Kc, intrinsic_depth=Kd,
+               color_wh=SCANNET_COLOR_WH, depth_wh=(640, 480),
+               depth_shift=1000.0, frames=frames)
+    return frames, time.time() - t0
+
+
+def sens_export(tmp, scan):
+    """Phase 17's first half, under `tmp`: write_scan_sens, the decode
+    checks, process_scene and split_train_test, and ScannetDataset on the
+    export with its depth PNGs as the priors.  Returns (frames written,
+    the export's directory, train ids, test ids, the summary)."""
+    import os
+    import zlib
+
+    from google_nerf_tpu_torch.data.scannet import ScannetDataset
+    from google_nerf_tpu_torch.scannet_tools import native
+    from google_nerf_tpu_torch.scannet_tools.process import (
+        process_scene, split_train_test)
+    from google_nerf_tpu_torch.scannet_tools.sensor_data import SensorData
+    from google_nerf_tpu_torch.utils.image import read_image
+    scene_in, raw, priors = scan
+    name = os.path.basename(os.path.normpath(scene_in))
+    summary = {}
+    sens = os.path.join(tmp, f"{name}.sens")
+    frames, write_s = write_scan_sens(sens, scene_in, priors)
+    n = len(frames)
+    summary["sens_bytes"] = os.path.getsize(sens)
+
+    # ---- decode
+    sd = SensorData(sens)
+    try:
+        check((sd.num_frames, sd.color_width, sd.color_height,
+               sd.depth_width, sd.depth_height, sd.depth_shift,
+               sd.color_compression_type, sd.depth_compression_type)
+              == (n, SCANNET_COLOR_WH[0], SCANNET_COLOR_WH[1], 640, 480,
+                  1000.0, "jpeg", "zlib_ushort"),
+              "phase 17: the .sens header is not what was written")
+        check(np.allclose(sd.intrinsic_depth[:3, :3], SCANNET_K),
+              "phase 17: intrinsic_depth is not the scan's K")
+        t0 = time.time()
+        frs = list(sd.iter_frames())
+        index_s = time.time() - t0
+        t0 = time.time()
+        bulk = native.zlib_decompress_batch(
+            [f.depth_data for f in frs], 640 * 480 * 2)
+        batch_s = time.time() - t0
+        t0 = time.time()
+        single = [f.depth_image("zlib_ushort", 480, 640) for f in frs]
+        single_s = time.time() - t0
+        t0 = time.time()
+        py = [zlib.decompress(f.depth_data) for f in frs]
+        python_s = time.time() - t0
+        for k, f in enumerate(frs):
+            check(bulk[k].tobytes() == py[k]
+                  and np.array_equal(single[k], frames[k][2])
+                  and np.array_equal(f.camera_to_world,
+                                     np.float32(frames[k][0])),
+                  f"phase 17: .sens frame {k} decodes to other data")
+        t0 = time.time()
+        colours = [f.decompress_color("jpeg") for f in frs]
+        colour_s = time.time() - t0
+        check(all(c.shape == (968, 1296, 3) for c in colours),
+              "phase 17: a colour frame decoded to another shape")
+    finally:
+        sd.close()
+    del frs, bulk, single, py, colours
+    decode = dict(depth_batch_ms=1e3 * batch_s / n,
+                  depth_single_ms=1e3 * single_s / n,
+                  depth_python_zlib_ms=1e3 * python_s / n,
+                  colour_ms=1e3 * colour_s / n,
+                  frame_walk_ms=1e3 * index_s / n)
+    print(f"phase 17: wrote {n} frames ({summary['sens_bytes']} bytes) "
+          f"in {write_s:.2f} s; decode ms a frame {decode}", flush=True)
+
+    # ---- export and split
+    out = os.path.join(tmp, "scans_processed", name)
+    t0 = time.time()
+    process_scene(sens, out, frame_skip=SENS_FRAME_SKIP,
+                  image_size=(480, 640))
+    export_s = time.time() - t0
+    train_ids, test_ids = split_train_test(out, SENS_TEST_STEP)
+    kept = list(range(0, n, SENS_FRAME_SKIP))
+    check(sorted(train_ids + test_ids) == kept and test_ids,
+          f"phase 17: split {train_ids} / {test_ids} of {kept}")
+    for k in kept:
+        dep = read_image(os.path.join(out, "depth", f"{k}.png"))
+        check(np.array_equal(dep, frames[k][2]),
+              f"phase 17: exported depth {k} is not the frame's")
+        check(read_image(os.path.join(out, "rgb", f"{k}.jpg")).shape
+              == (480, 640, 3), f"phase 17: exported colour {k}")
+        check(np.allclose(np.loadtxt(os.path.join(out, "pose",
+                                                  f"{k}.txt")),
+                          frames[k][0], atol=1e-6),
+              f"phase 17: exported pose {k}")
+    print(f"phase 17: process_scene exported {len(kept)} frames in "
+          f"{export_s:.2f} s ({1e3 * export_s / len(kept):.1f} ms a "
+          f"frame); split {len(train_ids)} train / {len(test_ids)} "
+          "test", flush=True)
+
+    # ---- the loader on the export, its depth PNGs as priors
+    ds = ScannetDataset(out, split="train", raw_scan_rootdir=raw,
+                        depth_dir=os.path.join(out, "depth"),
+                        device="cpu")
+    want = np.stack([frames[k][2].reshape(-1) for k in train_ids]
+                    ).astype(np.float64) / 1000.0 / (2 * ds.scale)
+    prior_err = float(np.abs(np.asarray(ds.depths, np.float64)
+                             - want).max())
+    check(np.allclose(ds.depths, want, rtol=1e-5, atol=0),
+          f"phase 17: priors off by {prior_err} in scene units")
+    summary.update(frames=n, write_s=write_s, decode=decode,
+                   export_s=export_s,
+                   export_ms_per_frame=1e3 * export_s / len(kept),
+                   split=dict(train=train_ids, test=test_ids),
+                   prior_max_err_scene=prior_err)
+    return frames, out, train_ids, test_ids, summary
+
+
+def phase17(seed, scan, steps=SENS_STEPS):
+    """The first stage of the ScanNet chain, scannet_tools, at ScanNet's
+    native sizes, then the chain's training on what it exports:
+
+      * write_scan_sens: phase 13's frames into a .sens;
+      * SensorData: the header against what was written; every depth
+        frame through the native batch decoder (csrc/sens_decode.cpp)
+        against Python's zlib and against the array written; every
+        colour frame decoded; decode ms a frame;
+      * process_scene at 640x480 with frame skip SENS_FRAME_SKIP, then
+        split_train_test (test step SENS_TEST_STEP): the exported depth
+        PNGs equal to the frames' arrays, the poses to the files';
+      * ScannetDataset over the exported tree with its depth/ PNGs as
+        the priors (depth_dir): each prior the exported mm / 1000 in
+        scene units (rtol 1e-5);
+      * train_scannet_torch.run at opt.py's defaults with those priors
+        (--depth_loss_w 0.1) for `steps` steps, P2/P3 counters at 0 just
+        before (read just after): both launched, losses finite, the
+        depth term positive, validate PSNR >= 25 dB; the test views'
+        depth MAE against the exported depth;
+      * one step from the trained state with the kernels against the
+        plain step (phase 9's bounds, P3_SUM_C);
+      * P2/P3 on the last training step's calls on the kernels line
+        (request "sens chain").
+
+    Returns (summary, kernels-line entries)."""
+    import os
+    import tempfile
+
+    import train_scannet_torch
+    from google_nerf_tpu_torch.data.base import directions_of
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    raw = scan[1]
+    summary, entries = {}, []
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        frames, out, train_ids, test_ids, info = sens_export(tmp, scan)
+        summary.update(info)
+
+        # ---- training on the export
+        os.chdir(tmp)
+        try:
+            argv = ["--root_dir", out, "--dataset_name", "scannet",
+                    "--raw_scan_rootdir", raw, "--depth_dir",
+                    os.path.join(out, "depth"), "--depth_loss_w", "0.1",
+                    "--num_epochs", "1", "--steps_per_epoch", str(steps),
+                    "--seed", str(seed), "--exp_name", "sens"]
+            reset_cli_counters(bf, probe)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            logs, kept_calls = kept_training(
+                tsys, ph, lambda: train_scannet_torch.run(argv))
+            launches = cli_counters(bf, probe)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            for k in ("gather_rows_bf16", "scatter_add_rows"):
+                check(launches[k] > 0,
+                      f"phase 17: {k} not launched by the training")
+            recs = [json.loads(line) for line in
+                    open("results/scannet/sens/logs/scalars.jsonl")]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            dterm = [r["depth_loss"] for r in recs if "depth_loss" in r]
+            check(losses and all(math.isfinite(v) for v in losses),
+                  f"phase 17: logged losses {losses}")
+            check(dterm and all(math.isfinite(v) and v > 0 for v in dterm),
+                  f"phase 17: logged depth terms {dterm}")
+            check(logs["psnr"] >= 25.0,
+                  f"phase 17: validate psnr {logs['psnr']} < 25 dB")
+            entries += train_probe_entries(probe, kept_calls, launches,
+                                           "sens chain", "phase 17")
+            del kept_calls
+
+            # the test views' ray depth from the exported depth (mm of z)
+            Kd = np.float32(SCANNET_K)
+            norm = np.linalg.norm(directions_of(480, 640, Kd), axis=-1)
+            gt = np.stack([frames[k][2].reshape(-1) / 1000.0 * norm
+                           for k in test_ids])
+            ckpt = "ckpts/scannet/sens/epoch=0"
+            mae = test_view_depth_mae(argv, ckpt, gt, gt > 0)
+            state, scene, cfg = restored_state(argv, ckpt, dev)
+            draws = draws_of(torch.Generator(device=dev).manual_seed(
+                seed + 17), scene, cfg, dev)
+            step_errs, _ = kernel_vs_plain_step(
+                tsys, ph, probe, state, scene, cfg, draws, tag="phase 17")
+            del state, scene
+        finally:
+            os.chdir(cwd)
+    summary.update(
+        train_wall_s=wall,
+        ms_per_step=logs.get("ms_per_step"),
+        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
+        ssim=logs["ssim"], depth_mae_m=mae, launches=launches,
+        peak_gib=peak, depth_loss=dterm, kernel_vs_plain_step=step_errs,
+        seconds=time.time() - t_phase)
+    print(f"phase 17: {steps} steps in {wall:.1f} s; "
+          f"{logs.get('ms_per_step')} ms/step; validate psnr "
+          f"{logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; test-view depth "
+          f"MAE {mae:.4f} m; peak {peak:.2f} GiB; launches {launches}; "
+          f"kernel step vs plain step {step_errs}; phase "
+          f"{summary['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return summary, entries
+
+
+# ------------------------------ phase 18: the shape refiner, SPVCNN
+
+SHAPE_FRAMES = 2                  # of phase 13's 1296x968 frames
+SHAPE_REL = 1e-4                  # a head's logit, card vs CPU
+SHAPE_REPS = 5                    # spvcnn_apply calls timed a cloud (card)
+
+
+def refine_card_vs_cpu(depth, heads_cpu, heads_dev):
+    """reconstruct3d_from_depth's refinement of a (H, W) depth map (focal,
+    shift, focal), each head run on the CPU's voxelized cloud with its
+    weights on the CPU (`heads_cpu`) and on the card (`heads_dev`), in
+    exact_f32; the chain goes on with the CPU's logits.  Returns (per
+    step: logits, the cloud's counts and active sites, ms), shift, focal.
+    """
+    from google_nerf_tpu_torch.depth import spvcnn
+    from google_nerf_tpu_torch.utils.precision import exact_f32
+    h, w = depth.shape
+    u0, v0 = w / 2.0, h / 2.0
+    dn = depth - depth.min() + 0.5
+    dn = dn / np.percentile(dn, 98)
+    focal = h // 2 / np.tan((60 / 2.0) * np.pi / 180)
+    card = next(iter(heads_dev["shift"]["classifier"].values())).device
+
+    def voxels_before_cut(d, size):
+        mask = d > 1e-8
+        u = np.arange(w)[None, :] - u0
+        v = np.arange(h)[:, None] - v0
+        pts = np.stack([d * u / focal, d * v / focal, d], -1)[mask]
+        pc = np.round(pts / size)
+        pc -= pc.min(0, keepdims=True)
+        return int(mask.sum()), int(np.unique(
+            (pc[:, 0] * spvcnn.CMAX + pc[:, 1]) * spvcnn.CMAX
+            + pc[:, 2]).size)
+
+    def timed(params, cloud, reps):
+        t = []
+        for _ in range(reps):
+            t0 = time.time()
+            out = float(spvcnn.spvcnn_apply(params, *cloud)[0])
+            t.append(1e3 * (time.time() - t0))
+        return out, t
+
+    steps, shift = [], 0.0
+    with exact_f32():
+        for label, head in (("focal1", "focal"), ("shift", "shift"),
+                            ("focal2", "focal")):
+            d = dn - shift if label == "focal2" else dn
+            if head == "focal":
+                cloud, size = spvcnn.focal_cloud(d, focal, u0, v0), 0.005
+            else:
+                cloud, size = spvcnn.shift_cloud(d, focal, u0, v0), 0.01
+            coords, _, valid = cloud
+            points, voxels = voxels_before_cut(d, size)
+            cpu, cpu_ms = timed(heads_cpu[head], cloud, 1)
+            got, card_ms = timed(heads_dev[head], cloud,
+                                 SHAPE_REPS if card.type == "cuda" else 1)
+            err = abs(got - cpu)
+            check(err <= SHAPE_REL * max(abs(cpu), 0.1),
+                  f"phase 18: {label} logit card {got} vs CPU {cpu}")
+            step = dict(
+                label=label, logit_cpu=cpu, logit_card=got, abs_err=err,
+                points=points, voxels_before_cut=voxels,
+                voxels_kept=int(valid.sum()),
+                sites_past_10_bits=int(((coords >= spvcnn.CMAX).any(1)
+                                        & valid).sum()),
+                active_sites=spvcnn.active_sites(coords, valid),
+                card_ms=card_ms, cpu_ms=cpu_ms)
+            steps.append(step)
+            print(f"phase 18: {label}: {step}", flush=True)
+            if head == "focal":
+                focal = focal / max(cpu, 1e-3)
+            else:
+                shift = min(min(cpu, 0.7), 0.6)
+    return steps, shift, float(focal)
+
+
+def phase18(seed, scan):
+    """The shape refiner: depth_shape_torch.main at its defaults (LeReS
+    ResNeXt101-32x8d at crop 448, the SPVCNN heads at channel ratio 1;
+    random weights from the CLI's seeds: no checkpoint is in the repo) on
+    SHAPE_FRAMES of phase 13's 1296x968 JPEGs, on the card; then on the
+    first frame the same refinement, voxelize then spvcnn_apply three
+    times (focal, shift, focal), with the heads on the card and on the
+    CPU, both inside utils/precision.exact_f32, each head on the same
+    voxelized cloud (the CPU's chain; voxelize rounds, so a last-bit
+    difference could move a point to another voxel).
+
+    Checks: every printed shift and focal finite, each
+    <name>-depth_shifted.png 968x1296 uint16, each PLY of 1296 x 968
+    finite points; each of the three logits on the card within SHAPE_REL
+    (relative, floor 1e-5) of the CPU's, and the shift and focal built
+    from them.  Reported: the active sites per level of each cloud, the
+    points the voxelizer kept, its voxels before and after the n_cap
+    draw, the sites past 10 bits, ms per spvcnn_apply (card, CPU), the
+    CLI's seconds a frame, peak memory.  No kernel of the repo's own
+    runs: searchsorted, row gathers, index_add_ and f32 products."""
+    import io
+    import os
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import depth_shape_torch
+    from depth_test_torch import infer, read_rgb01
+    from google_nerf_tpu_torch.depth import spvcnn
+    from google_nerf_tpu_torch.depth.model import DepthModelConfig
+    from google_nerf_tpu_torch.utils.image import read_image, resize_linear
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    scene, _, _ = scan
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        imgs, out = os.path.join(tmp, "imgs"), os.path.join(tmp, "out")
+        os.makedirs(imgs)
+        names = sorted(os.listdir(os.path.join(scene, "rgb")),
+                       key=lambda f: int(f[:-4]))[:SHAPE_FRAMES]
+        for f in names:
+            shutil.copy(os.path.join(scene, "rgb", f), imgs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.time()
+        with redirect_stdout(buf):
+            depth_shape_torch.main(["--img_dir", imgs, "--out_dir", out])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        printed = [l.split() for l in buf.getvalue().splitlines()
+                   if "shift=" in l]
+        shifts = [float(w[0].split("=")[1]) for w in printed]
+        focals = [float(w[1].split("=")[1]) for w in printed]
+        check(len(printed) == SHAPE_FRAMES and all(
+            math.isfinite(v) for v in shifts + focals),
+            f"phase 18: depth_shape_torch printed {printed}")
+        for f in names:
+            base = os.path.splitext(f)[0]
+            png = read_image(os.path.join(out, base + "-depth_shifted.png"))
+            check(png.dtype == np.uint16 and png.shape == (968, 1296),
+                  f"phase 18: {base}-depth_shifted.png {png.dtype} "
+                  f"{png.shape}")
+            with open(os.path.join(out, base + "-pcd.ply"), "rb") as fh:
+                data = fh.read()
+            body = data[data.index(b"end_header\n") + 11:]
+            xyz = np.frombuffer(body, dtype=[("xyz", "<f4", 3),
+                                             ("rgb", "u1", 3)])["xyz"]
+            check(xyz.shape == (1296 * 968, 3) and np.isfinite(xyz).all(),
+                  f"phase 18: {base}-pcd.ply holds {xyz.shape} points")
+        print(f"phase 18: depth_shape_torch on {SHAPE_FRAMES} frames "
+              f"(1296x968, crop 448) in {cli_s:.1f} s, peak {cli_peak:.2f} "
+              f"GiB; shift {shifts}, focal {focals}", flush=True)
+
+        # ---- card vs CPU on frame 0, the CLI's heads
+        cfg = DepthModelConfig(backbone=depth_shape_torch.BACKBONES[
+            "resnext101"])
+        model, shift_p, focal_p = depth_shape_torch.build_models(cfg, None,
+                                                                 dev)
+        heads_cpu = {k: spvcnn.params_to(p, "cpu")
+                     for k, p in (("shift", shift_p), ("focal", focal_p))}
+        heads_dev = {"shift": shift_p, "focal": focal_p}
+        rgb01 = read_rgb01(os.path.join(imgs, names[0]))
+        h, w = rgb01.shape[:2]
+        pred = infer(model, rgb01, 448, dev)[0]
+        depth = resize_linear(pred, (w, h)).cpu().numpy()
+        del model, pred
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, shift, focal = refine_card_vs_cpu(depth, heads_cpu, heads_dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    summary.update(cli_s=cli_s, cli_s_per_frame=cli_s / SHAPE_FRAMES,
+                   cli_peak_gib=cli_peak, shifts=shifts, focals=focals,
+                   refine=steps, shift=shift, focal=focal,
+                   refine_peak_gib=peak,
+                   seconds=time.time() - t_phase)
+    print(f"phase 18: frame 0 shift {summary['shift']:.4f}, focal "
+          f"{summary['focal']:.1f}; spvcnn peak {peak:.2f} GiB; phase "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2697,7 +3159,7 @@ def main():
 
     t0 = time.time()
     libs = _build.build("brick_field_dense", "probe", "ladder",
-                        "image_codec")           # nvcc and cc in parallel
+                        "image_codec", "sens_decode")  # nvcc, cc, g++ at once
     build_s = time.time() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text()
@@ -2889,6 +3351,12 @@ def main():
 
     # ---- 16: the cIMLE depth trainer on phase 13's scan
     depth_train = phase16(args.seed, scan)
+
+    # ---- 17: phase 13's scan as a .sens through scannet_tools and
+    # training; 18: the shape refiner on its frames
+    sens_chain, sens_kernels = phase17(args.seed, scan)
+    kernels += sens_kernels
+    shape = phase18(args.seed, scan)
     scan_tmp.cleanup()
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
@@ -2919,7 +3387,15 @@ def main():
           f"{DEPTH_SAMPLES}, forward {depth['forward_ms_per_frame']:.2f} "
           f"ms, phase 15 {depth['seconds']:.0f} s; depth training "
           f"{depth_train['step_ms_median']:.1f} ms a step, phase 16 "
-          f"{depth_train['seconds']:.0f} s; total "
+          f"{depth_train['seconds']:.0f} s; .sens chain: depth decode "
+          f"{sens_chain['decode']['depth_batch_ms']:.2f} ms a frame, export "
+          f"{sens_chain['export_s']:.2f} s, {sens_chain['ms_per_step']} "
+          f"ms/step, validate psnr {sens_chain['psnr']:.2f}, depth MAE "
+          f"{sens_chain['depth_mae_m']:.4f} m, phase 17 "
+          f"{sens_chain['seconds']:.0f} s; shape refiner "
+          f"{shape['cli_s_per_frame']:.1f} s a frame, spvcnn_apply "
+          f"{statistics.median(shape['refine'][0]['card_ms'][1:]):.1f} ms, "
+          f"phase 18 {shape['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -2933,7 +3409,8 @@ def main():
                   train=train, trained_wl256=served, serving_stages=stages,
                   bench_keys=bench_keys, cli=cli, datasets=data,
                   encoders=encoders, depth=depth,
-                  depth_train=depth_train, kernels=kernels)
+                  depth_train=depth_train, sens_chain=sens_chain,
+                  shape=shape, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

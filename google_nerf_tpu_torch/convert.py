@@ -336,3 +336,53 @@ def depth_train_state_from_jax(variables, opt_state, step, cfg,
         group["count"] = count
     state.step = int(step)
     return state
+
+
+def spvcnn_from_jax(tree, device="cpu"):
+    """JAX's SPVCNN parameters (init_spvcnn or convert_spvcnn_state_dict;
+    nested dicts and lists of numpy arrays) -> the port's, the same tree
+    of float32 tensors (depth/spvcnn.py keeps JAX's layout: kernels (K,
+    inc, outc), dense weights (out, in))."""
+    if isinstance(tree, dict):
+        return {k: spvcnn_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [spvcnn_from_jax(v, device) for v in tree]
+    return _t(tree, device)
+
+
+# flax module names of depth/voxelnet.py's VoxelNetRegressor -> the port's
+_VOXEL_MODULES = {"VoxelConvBlock_0": "stem", "Dense_0": "fc1",
+                  "Dense_1": "fc2"}
+_VOXEL_BLOCK = {"VoxelConvBlock_0": "block", "Conv_0": "conv",
+                "BatchNorm_0": "bn", "Conv_1": "down.0",
+                "BatchNorm_1": "down.1"}
+_VOXEL_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+                 "mean": "running_mean", "var": "running_var"}
+
+
+def voxelnet_state_from_jax(variables, device="cpu"):
+    """flax VoxelNetRegressor variables ({params, batch_stats}, numpy
+    leaves) -> the port's VoxelNetRegressor state dict: Conv kernels
+    (kd, kh, kw, in, out) -> (out, in, kd, kh, kw), Dense kernels
+    transposed, BatchNorm scale/bias and mean/var -> weight/bias and
+    running_mean/running_var, with num_batches_tracked = 0 so that the
+    result loads with strict=True."""
+    state = {}
+    for coll in ("params", "batch_stats"):
+        for path, v in _flat(variables.get(coll, {})).items():
+            a = np.asarray(v, np.float32)
+            if path[-1] == "kernel":
+                a = a.transpose(4, 3, 0, 1, 2) if a.ndim == 5 else a.T
+            head, *mods = path[:-1]
+            if head.startswith("VoxelResBlock_"):
+                name = f"stages.{head.rsplit('_', 1)[1]}"
+            else:
+                name = _VOXEL_MODULES[head]
+            key = ".".join([name] + [_VOXEL_BLOCK[m] for m in mods]
+                           + [_VOXEL_LEAVES[path[-1]]])
+            state[key] = torch.tensor(np.ascontiguousarray(a),
+                                      device=device)
+            if path[-1] == "var":
+                state[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = \
+                    torch.zeros((), dtype=torch.long, device=device)
+    return state

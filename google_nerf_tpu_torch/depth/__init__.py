@@ -18,6 +18,9 @@ of google_nerf_tpu/depth/):
   data        annotation-JSON datasets and the interleaving sampler
   trainer     the argmin-z recache, the train step, train_depth,
               calibrate_adain
+  spvcnn      the SPVCNN shape-refiner heads as a coordinate-list sparse
+              executor, torchsparse state dicts, refine_shift/focal
+  voxelnet    the dense 64^3 refiner (JAX's redesign)
 
 JAX's flax variables, .npz checkpoints and trainer state carry across
 with google_nerf_tpu_torch/convert.py (depth_state_from_jax,

@@ -1,14 +1,18 @@
 """The PyTorch port, its entry points (chip_smoke.py, bench_torch.py,
 train_torch.py, test_torch.py, train_scannet_torch.py,
 train_debug_torch.py, depth_test_torch.py, depth_eval_scannet_torch.py,
-depth_train_torch.py, depth_eval_torch.py) and every module of
-google_nerf_tpu_torch/ (the depth trainer's losses, normals, optim, data
-and trainer among them) stand alone: no module of theirs imports JAX,
+depth_train_torch.py, depth_eval_torch.py, depth_shape_torch.py) and
+every module of google_nerf_tpu_torch/ (the depth trainer's losses,
+normals, optim, data and trainer, scannet_tools, the SPVCNN and voxelnet
+refiners among them) stand alone: no module of theirs imports JAX,
 its libraries, ml_dtypes, anything of the JAX package, or the JAX-free
 root scripts opt.py, train.py, test.py, bench.py and the depth_*.py CLIs
 (the port keeps its own copies); nor an image or vision library (cv2,
 imageio, PIL, matplotlib, torchvision): the port decodes, colours and
-writes its images itself and writes its networks out by hand."""
+writes its images itself and writes its networks out by hand.  The .sens
+decoder is the port's own C++ (csrc/sens_decode.cpp, built into
+build/kernels/): nothing of the port reaches the JAX package's native/
+directory or its library."""
 import ast
 from pathlib import Path
 
@@ -23,7 +27,7 @@ ENTRY_POINTS = ("chip_smoke.py", "bench_torch.py", "train_torch.py",
                 "test_torch.py", "train_scannet_torch.py",
                 "train_debug_torch.py", "depth_test_torch.py",
                 "depth_eval_scannet_torch.py", "depth_train_torch.py",
-                "depth_eval_torch.py")
+                "depth_eval_torch.py", "depth_shape_torch.py")
 FILES = sorted((ROOT / "google_nerf_tpu_torch").rglob("*.py")) + [
     ROOT / f for f in ENTRY_POINTS]
 
@@ -45,3 +49,15 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_the_port_has_files_to_check():
     assert len(FILES) > 10 and all((ROOT / f).exists() for f in ENTRY_POINTS)
+
+
+def test_the_sens_decoder_is_the_ports_own():
+    from google_nerf_tpu_torch.ops.cuda import _build
+    port = ROOT / "google_nerf_tpu_torch"
+    assert _build._source("sens_decode") == port / "csrc" / "sens_decode.cpp"
+    assert _build.library_path("sens_decode").parent == \
+        ROOT / "build" / "kernels"
+    for path in FILES + sorted((port / "csrc").iterdir()):
+        text = path.read_text()
+        assert "libsens_decode" not in text and '"native"' not in text \
+            and "native/" not in text, f"{path.name} reaches native/"
