@@ -148,6 +148,27 @@ Phases:
      the refinement's three SPVCNN calls on the card against the CPU,
      both in exact_f32, on the same voxelized clouds (rel 1e-4); active
      sites per level, ms per spvcnn_apply, peak memory.
+ 19. data parallel (parallel/, phase19's notes) at bench.py's recipe
+     from phase 9's trained state: NCCL at a world of one in this
+     process (the DP step against the fused step on the same draws:
+     loss and every gradient but the table's rtol 1e-6, the table within
+     P3_SUM_C of the float64 sum of its payloads; the sharded grid update
+     bit for bit; the DP one-shot, fast and brick frames at 800^2 against
+     the serial frames, 1e-4 a pixel, the brick telemetry equal; ms a DP
+     step against the plain step, in turns), then a gloo world of two
+     spawned processes sharing the card (launch.run_world, a join
+     timeout): 16 DP steps with the params and Adam moments bit-identical
+     across the ranks, one step's reduced gradients against the serial
+     mean of the two shards' (the table within P3_SUM_C of the float64
+     mean), the grid update bit for bit, the three DP renderers against
+     the serial frames, the multi-scene step on two procedural scenes
+     (seeds 0 and 1) against a lone step each, SyncBN at resnet18 64^2
+     (two images a rank) against the unsharded train-mode forward
+     (norm-relative 1e-4 in float32, 1e-9 in float64, the running
+     statistics too); ms a step at world 2 (two ranks on one card: not a
+     scaling figure), bytes all-reduced a step; P2/P3 of the phase's DP
+     step on the kernels line (request "dp"), their launches over the
+     whole phase (this process's DP path and both ranks').
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -984,6 +1005,32 @@ def P3_SUM_BOUND(n):
     return P3_SUM_C * n.sqrt() * 2.0 ** -24
 
 
+def table_vs_sum64(g, sidx, vals, T, what, scale=1.0):
+    """A table gradient g (an atomic f32 sum of the payloads vals into
+    rows sidx of T rows, over `scale`) held within P3_SUM_BOUND(n) x the
+    sum of |payload| (over scale) of each (row, column) of the float64
+    sum of the same payloads, for a row that takes n payloads.  Returns
+    the numbers the kernels-line notes print."""
+    def sum64(v):
+        return torch.zeros((T, v.shape[1]), dtype=torch.float64,
+                           device=v.device).index_add_(
+            0, sidx.long(), v.double()).view(g.shape) / scale
+    d = (g.double() - sum64(vals)).abs()
+    mag = sum64(vals.abs())
+    n = torch.bincount(sidx.long(), minlength=T).double()
+    n = n[:, None].expand(T, vals.shape[1]).reshape(g.shape)
+    over = d / (mag * P3_SUM_BOUND(n)).clamp_min(1e-300)
+    check(bool((over <= 1.0).all()), f"{what} beyond {P3_SUM_C} sqrt(n) "
+          f"2^-24 x sum|payload| (max abs {float(d.max())}, "
+          f"{float(over.max()):.3f} of the bound)")
+    at = int(over.argmax())
+    return {"": float(d.max()),
+            "_err_over_sum_abs": float((d / mag.clamp_min(1e-300)).max()),
+            "_share_of_bound": float(over.max()),
+            "_terms_there": int(n.reshape(-1)[at]),
+            "max_terms_a_row": int(n.max())}
+
+
 def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
                          names=("gather_rows", "scatter_add_rows"),
                          table="packed_table", tag="phase 9"):
@@ -1029,26 +1076,10 @@ def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
         check(ok, f"{tag}: gradient {k} kernel vs plain beyond rtol 1e-6"
               f" (max abs {errs[k]})")
     sidx, vals, T = rec["scatter_add_rows"].calls[0][0]
-
-    def sum64(v):
-        return torch.zeros((T, v.shape[1]), dtype=torch.float64,
-                           device=v.device).index_add_(
-            0, sidx.long(), v.double()).view(gp[table].shape)
-    d = (gk[table].double() - sum64(vals)).abs()
-    mag = sum64(vals.abs())
-    n = torch.bincount(sidx.long(), minlength=T).double()
-    n = n[:, None].expand(T, vals.shape[1]).reshape(gp[table].shape)
-    over = d / (mag * P3_SUM_BOUND(n)).clamp_min(1e-300)
-    check(bool((over <= 1.0).all()), f"{tag}: table gradient kernel vs the "
-          f"float64 sum beyond {P3_SUM_C} sqrt(n) 2^-24 x sum|payload| (max "
-          f"abs {float(d.max())}, {float(over.max()):.3f} of the bound)")
-    at = int(over.argmax())
-    errs[table] = float(d.max())
-    errs[table + "_err_over_sum_abs"] = float((d / mag.clamp_min(
-        1e-300)).max())
-    errs[table + "_share_of_bound"] = float(over.max())
-    errs[table + "_terms_there"] = int(n.reshape(-1)[at])
-    errs["max_terms_a_row"] = int(n.max())
+    t_errs = table_vs_sum64(gk[table], sidx, vals, T,
+                            f"{tag}: table gradient kernel vs the float64 sum")
+    errs.update({(k if k == "max_terms_a_row" else table + k): v
+                 for k, v in t_errs.items()})
     errs[table + "_vs_plain"] = float((gk[table] - gp[table]).abs().max())
     return errs, rec
 
@@ -3128,6 +3159,549 @@ def phase18(seed, scan):
     return summary
 
 
+DP_SIZES = dict(
+    steps=16,                 # DP steps of the world of two on one card
+    timed=10,                 # steps a turn in the world-of-one timing
+    train_views=40, train_hw=256,     # phase 9's scene
+    scene_views=8,            # views a multi-scene scene (at train_hw)
+    bake_res=256,             # the brick renderer's bake (phase 10's)
+    view=800,                 # the served frames
+    syncbn_hw=64)
+DP_SCENES = 2                 # multi-scene: procedural scenes, seeds 0, 1
+DP_SYNCBN = dict(backbone="resnet18", per_rank=2)
+DP_JOIN_S = 420               # the world of two's join timeout
+DP_BRICK_TELEMETRY = ("trunc_tiles", "trunc_rays", "pairs_dropped",
+                      "pairs_total")
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_train_scene(dev, sizes):
+    """Phase 9's scene (bench.py's: the textured scene, 40 views at
+    256^2)."""
+    from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
+    hw = sizes["train_hw"]
+    return SyntheticDataset(split="train", n_images=sizes["train_views"],
+                            img_wh=(hw, hw), style="textured",
+                            device=dev).scene()
+
+
+def dp_scene(seed, dev, sizes):
+    """A multi-scene scene: the textured procedural scene from `seed`."""
+    from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
+    hw = sizes["train_hw"]
+    ds = SyntheticDataset(split="train", n_images=sizes["scene_views"],
+                          img_wh=(hw, hw), style="textured", seed=seed,
+                          device=dev)
+    return ds, ds.scene()
+
+
+def dp_scene_state(cfg, seed, dev, sizes):
+    """Scene `seed`'s first state: init from seed, a warmup grid update on
+    a generator from seed (the same in every process)."""
+    from google_nerf_tpu_torch.train import system as tsys
+    ds, scene = dp_scene(seed, dev, sizes)
+    st = tsys.init_train_state(cfg, ds.K, ds.poses, ds.img_wh,
+                               generator=torch.Generator().manual_seed(seed),
+                               device=dev)
+    tsys.grid_update_step(st, cfg, warmup=True, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    return st, scene
+
+
+def dp_serving(tree, cfg, dev, sizes):
+    """The trained state's three serving inputs: the one-shot renderer's
+    block2 tables, the fast renderer's seg words, the bake and its
+    geometry; with the served view."""
+    from google_nerf_tpu_torch.convert import train_state_from_jax
+    from google_nerf_tpu_torch.models.baked import BakedConfig, bake
+    from google_nerf_tpu_torch.models.render_brick import brick_geometry
+    from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
+    import train_torch
+    st = train_state_from_jax(tree, cfg, dev)
+    m = cfg.model
+    os_kw = bench_torch.SETTINGS["oneshot"]
+    bcfg = BakedConfig(voxel_res=sizes["bake_res"], block=8,
+                       dtype="bfloat16")
+    baked = bake(st["params"], m, st["occ"], bcfg, device=dev)
+    return dict(
+        params=st["params"],
+        view=bench_torch.serving_view(dev, sizes["view"], sizes["view"]),
+        block2=pack_occupancy_block2(st["occ"],
+                                     max_samples=os_kw["max_samples"],
+                                     scale=m.scale),
+        words=train_torch.serving_words(st, cfg), baked=baked, bcfg=bcfg,
+        geo=brick_geometry(baked["block_map"], bcfg, m, dev))
+
+
+def dp_frames(sv, cfg, dev, dp_forms: bool):
+    """The three frames of the serving inputs: one-shot (bench.py's
+    settings), fast (test.py's max_samples, chunks of a quarter of the
+    frame) and brick (bench.py's); through
+    the DP renderers or the serial ones.  The fast renderer's budget
+    packing lets the rays that share a bucket move each other's window
+    splits (5.3e-3 apart a pixel at 800^2 with its default chunk), so
+    its chunk divides a rank's shard: the DP frame's chunks are then the
+    serial frame's."""
+    from google_nerf_tpu_torch.models.render_brick import render_brick
+    from google_nerf_tpu_torch.models.render_test_fast import \
+        render_test_fast
+    from google_nerf_tpu_torch.models.render_test_oneshot import \
+        render_test_oneshot
+    from google_nerf_tpu_torch.parallel import dp
+    v, m = sv["view"], cfg.model
+    oneshot = dp.render_test_oneshot_dp if dp_forms else render_test_oneshot
+    fast = dp.render_test_fast_dp if dp_forms else render_test_fast
+    brick = dp.render_brick_dp if dp_forms else render_brick
+    out = dict(
+        oneshot=oneshot(sv["params"], m, sv["block2"], v.rays_o, v.rays_d,
+                        **bench_torch.SETTINGS["oneshot"]),
+        fast=fast(sv["params"], m, sv["words"], v.rays_o, v.rays_d,
+                  T_threshold=1e-2, max_samples=cfg.max_samples,
+                  chunk=v.w * v.h // 4),
+        brick=brick(sv["baked"], m, v.rays_o, v.rays_d, v.w, v.h,
+                    bcfg=sv["bcfg"], geometry=sv["geo"], device=dev,
+                    **bench_torch.SETTINGS["brick"]))
+    sync(dev)
+    return {k: {f: f_v for f, f_v in fr.items() if f in (
+        "rgb", "opacity", "depth") + DP_BRICK_TELEMETRY}
+        for k, fr in out.items()}
+
+
+def dp_frame_errors(got, want, what):
+    """rgb, opacity and depth within 1e-4 a pixel; the brick telemetry
+    equal.  Returns the max abs differences."""
+    errs = {}
+    for k in ("rgb", "opacity", "depth"):
+        g, w = torch.as_tensor(got[k]), torch.as_tensor(want[k])
+        errs[k] = float((g.to(w.device) - w).abs().max())
+        check(errs[k] <= 1e-4, f"{what}: {k} max diff {errs[k]} > 1e-4")
+    for k in DP_BRICK_TELEMETRY:
+        if k in want:
+            check(int(got[k]) == int(want[k]), f"{what}: {k} {int(got[k])} "
+                  f"vs {int(want[k])}")
+    return errs
+
+
+def digest(t):
+    import hashlib
+    t = torch.as_tensor(t).detach().cpu().reshape(-1).contiguous()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def p2p3_counts(probe):
+    return {"gather_rows_bf16": probe.gather_rows.launches["bfloat16"],
+            "scatter_add_rows": probe.scatter_add_rows.launches}
+
+
+def zero_p2p3(probe):
+    probe.gather_rows.launches = {"float32": 0, "bfloat16": 0}
+    probe.scatter_add_rows.launches = 0
+
+
+def capture_grads(mod, run):
+    """run() with mod.apply_grads wrapped to keep the gradients it is
+    given; returns (run's result, the gradients)."""
+    seen, apply = {}, mod.apply_grads
+
+    def keep(state, grads, cfg):
+        seen.update({k: g.detach().clone() for k, g in grads.items()})
+        return apply(state, grads, cfg)
+
+    mod.apply_grads = keep
+    try:
+        return run(), seen
+    finally:
+        mod.apply_grads = apply
+
+
+def grads_equal(got, want, table, what):
+    """Every gradient but the table's within rtol 1e-6 (phase 9's
+    bound)."""
+    out = {}
+    for k, w in want.items():
+        if k == table:
+            continue
+        g = torch.as_tensor(got[k]).to(w.device)
+        out[k] = float((g - w).abs().max())
+        check(bool(((g - w).abs() <= 1e-6 * w.abs()).all()),
+              f"{what}: gradient {k} beyond rtol 1e-6 (max abs {out[k]})")
+    return out
+
+
+def phase19_rank(tree, cfg, seed, step_draws, grid_draws_np, ms_draws,
+                 bn_state, bn_rgb, dev, sizes):
+    """One rank of phase 19's gloo world of two on one card: the DP
+    steps (the params and Adam moments' digests, ms a step), one DP step
+    on the parent's draws (its reduced gradients), the sharded grid
+    update on the parent's draws, the three DP renderers at 800^2, this
+    rank's scene of the multi-scene step (its metrics and gradients), and
+    the SyncBN forwards; the P2/P3 launches of it all."""
+    from google_nerf_tpu_torch.convert import train_state_from_jax
+    from google_nerf_tpu_torch.depth.model import DepthModelConfig, DepthNet
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.parallel import comm, dp
+    from google_nerf_tpu_torch.parallel.multiscene import \
+        make_multiscene_train_step
+    from google_nerf_tpu_torch.train import system as tsys
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = comm.get_rank()
+    zero_p2p3(probe)
+    scene = dp_train_scene(dev, sizes)
+    n_steps = sizes["steps"]
+    out = {}
+
+    def tens(d):
+        return {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+
+    # the DP steps on the rank's own generator, timed after the first
+    st = train_state_from_jax(tree, cfg, dev)
+    step = dp.make_dp_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100 + rank)
+    step(st, scene, generator=gen)
+    sync(dev)
+    comm.synchronize()
+    t0 = time.time()
+    for _ in range(n_steps - 1):
+        _, m = step(st, scene, generator=gen)
+    sync(dev)
+    out["step_ms"] = 1e3 * (time.time() - t0) / (n_steps - 1)
+    check(math.isfinite(float(m["loss"])), "phase 19: a DP step's loss")
+    out["allreduce_bytes"] = step.allreduce_bytes
+    leaves = tsys.param_leaves(st["params"])
+    out["digests"] = {k: digest(v) for k, v in leaves.items()}
+    for k, v in leaves.items():
+        for name, t in st["opt"].state[v].items():
+            if torch.is_tensor(t):
+                out["digests"][f"{k}/{name}"] = digest(t)
+
+    # one DP step on the parent's per-rank draws: the reduced gradients
+    _, out["reduced"] = capture_grads(dp, lambda: step(
+        train_state_from_jax(tree, cfg, dev), scene,
+        draws=tens(step_draws[rank])))
+
+    # the sharded grid update on the parent's draws
+    st = train_state_from_jax(tree, cfg, dev)
+    dp.make_dp_grid_update(cfg)(st, warmup=False,
+                                draws=[tens(d) for d in grid_draws_np])
+    out["grid"] = {"density_grid": st["density_grid"], "occ": st["occ"],
+                   **{f"occ_u8/{k}": v for k, v in st["occ_u8"].items()}}
+
+    # the three DP renderers at 800^2 (rank 0 hands the frames back;
+    # rank 1 their digests)
+    sv = dp_serving(tree, cfg, dev, sizes)
+    out["pool_digest"] = digest(sv["baked"]["pool"])
+    frames = dp_frames(sv, cfg, dev, dp_forms=True)
+    out["frames"] = frames if rank == 0 else {
+        k: {f: digest(v) for f, v in fr.items()} for k, fr in frames.items()}
+    del sv
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # multi-scene: scene `rank`, one step on the parent's draws
+    st, sc = dp_scene_state(cfg, rank, dev, sizes)
+    (st, m), out["ms_grads"] = capture_grads(
+        tsys, lambda: make_multiscene_train_step(cfg)(
+            st, sc, draws=tens(ms_draws[rank])))
+    out["ms_metrics"] = m
+
+    # SyncBN: the rank's images, train mode, float32 and float64
+    per = DP_SYNCBN["per_rank"]
+    for dt in (torch.float32, torch.float64):
+        model = DepthNet(DepthModelConfig(backbone=DP_SYNCBN["backbone"],
+                                          bn_axis_name="data"))
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                               bn_state.items()})
+        model = model.to(dev, dt).train()
+        with torch.no_grad():
+            y = model(torch.as_tensor(bn_rgb[rank * per:(rank + 1) * per],
+                                      device=dev, dtype=dt))
+        key = str(dt).split(".")[1]
+        out[f"bn_logit_{key}"] = y
+        out[f"bn_stats_{key}"] = {k: v.clone() for k, v in
+                                  model.state_dict().items()
+                                  if "running" in k}
+    sync(dev)
+    out["launches"] = p2p3_counts(probe)
+    return out
+
+
+def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
+            sizes=DP_SIZES):
+    """Data-parallel training and serving on the one card (phase19's
+    notes in the module docstring): `backend` (NCCL) at a world of one in
+    this process, then a gloo world of two spawned processes sharing the
+    card.  `tree`: phase 9's trained state as numpy leaves; cfg: bench.py's
+    training recipe unless given.  Returns (summary, kernels-line
+    entries)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from google_nerf_tpu_torch.convert import train_state_from_jax
+    from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
+                                                   DepthNet,
+                                                   init_depth_model)
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.ops.grid import grid_draws
+    from google_nerf_tpu_torch.parallel import dp
+    from google_nerf_tpu_torch.parallel.launch import free_port, run_world
+    from google_nerf_tpu_torch.train import system as tsys
+    t_phase = time.time()
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = cfg or bench_torch.train_config()
+    m = cfg.model
+    scene = dp_train_scene(dev, sizes)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    summary = {}
+
+    # ---- NCCL at a world of one, in this process
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == backend, f"phase 19: not {backend}")
+        draws = draws_of(gen, scene, cfg, dev)
+        batch = tsys.sample_batch(scene, cfg.batch_size,
+                                  img_idxs=draws["img_idxs"],
+                                  pix_idxs=draws["pix_idxs"])
+        serial_state = train_state_from_jax(tree, cfg, dev)
+        (ls, _, gs), kept = with_kept(
+            ph, {"scatter_add_rows": dict(keep="last")},
+            lambda: tsys.loss_and_grads(serial_state, scene, batch, cfg,
+                                        draws=draws))
+        gd = grid_draws(m.grid_size, m.cascades, warmup=False,
+                        sample_div=cfg.grid_sample_div, generator=gen,
+                        device=dev)
+        grid_state = train_state_from_jax(tree, cfg, dev)
+        serial_grid = tsys.grid_update_step(dict(grid_state), cfg,
+                                            warmup=False, draws=gd)
+        sv = dp_serving(tree, cfg, dev, sizes)
+        serial_frames = dp_frames(sv, cfg, dev, dp_forms=False)
+
+        # the DP path, its P2/P3 counts from 0
+        dp_state = train_state_from_jax(tree, cfg, dev)
+        step = dp.make_dp_train_step(cfg)
+        zero_p2p3(probe)
+        ((_, metrics), reduced), dp_kept = with_kept(
+            ph, {"gather_rows": dict(keep="last"),
+                 "scatter_add_rows": dict(keep="last")},
+            lambda: capture_grads(dp, lambda: step(dp_state, scene,
+                                                   draws=draws)))
+        dp.make_dp_grid_update(cfg)(grid_state, warmup=False, draws=gd)
+        frames = dp_frames(sv, cfg, dev, dp_forms=True)
+        launches1 = p2p3_counts(probe)
+        loss_rel = abs(float(metrics["loss"]) - float(ls)) / abs(float(ls))
+        check(loss_rel <= 1e-6, f"phase 19: DP step loss "
+              f"{float(metrics['loss'])} vs fused {float(ls)} at world 1")
+        errs1 = dict(loss_rel=loss_rel, grads=grads_equal(
+            reduced, gs, "packed_table", "phase 19 world 1"))
+        sidx, vals, T = kept["scatter_add_rows"][0][0]
+        errs1["packed_table"] = table_vs_sum64(
+            reduced["packed_table"], sidx, vals, T,
+            "phase 19 world 1: DP table gradient vs the float64 sum")
+        for k in ("density_grid", "occ"):
+            check(torch.equal(grid_state[k], serial_grid[k]),
+                  f"phase 19 world 1: sharded {k} != serial")
+        for k, v in serial_grid["occ_u8"].items():
+            check(torch.equal(grid_state["occ_u8"][k], v),
+                  f"phase 19 world 1: sharded occ_u8/{k} != serial")
+        errs1["frames"] = {k: dp_frame_errors(frames[k], serial_frames[k],
+                                              f"phase 19 world 1 {k}")
+                           for k in frames}
+
+        # ms a step: the plain fused step and the DP step, in turns
+        plain_state = train_state_from_jax(tree, cfg, dev)
+
+        def turn(fn):
+            sync(dev)
+            t0 = time.time()
+            for _ in range(sizes["timed"]):
+                fn()
+            sync(dev)
+            return 1e3 * (time.time() - t0) / sizes["timed"]
+
+        def plain():
+            return tsys.fused_train_step(plain_state, scene, cfg,
+                                         generator=gen)
+
+        def dps():
+            return step(dp_state, scene, generator=gen)
+        turn(plain)
+        turn(dps)                               # warm both
+        ms = dict(plain=[turn(plain)], dp=[turn(dps), turn(dps)])
+        ms["plain"].append(turn(plain))
+        summary["world1"] = dict(
+            errors=errs1, launches=launches1,
+            step_ms=ms, allreduce_bytes=step.allreduce_bytes)
+        print(f"phase 19: NCCL world of 1: DP step vs fused step {errs1}; "
+              f"grid update bit for bit; frames {errs1['frames']}; ms a "
+              f"step plain {ms['plain']}, DP {ms['dp']}; all-reduced "
+              f"{step.allreduce_bytes} bytes a step; launches {launches1}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    del sv, serial_state, grid_state, dp_state, plain_state, frames
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()        # the two ranks share the card
+
+    # ---- a gloo world of two processes on the one card
+    n = 2
+    local = dataclasses.replace(cfg, batch_size=cfg.batch_size // n)
+    step_draws = [{k: v.cpu().numpy() for k, v in
+                   draws_of(gen, scene, local, dev).items()}
+                  for _ in range(n)]
+    grid_np = [{k: v.cpu().numpy() for k, v in d.items()} for d in gd]
+    ms_draws = []
+    for s in range(DP_SCENES):
+        _, sc = dp_scene(s, dev, sizes)
+        ms_draws.append({k: v.cpu().numpy() for k, v in
+                         draws_of(gen, sc, cfg, dev).items()})
+    hw = sizes["syncbn_hw"]
+    bn_model = init_depth_model(torch.Generator().manual_seed(seed),
+                                DepthModelConfig(
+                                    backbone=DP_SYNCBN["backbone"]),
+                                device="cpu")
+    bn_state = {k: v.numpy() for k, v in bn_model.state_dict().items()}
+    bn_rgb = np.random.default_rng(seed).uniform(
+        size=(n * DP_SYNCBN["per_rank"], 3, hw, hw)).astype(np.float32)
+    t0 = time.time()
+    ranks = run_world(phase19_rank, n, (
+        tree, cfg, seed, step_draws, grid_np, ms_draws, bn_state, bn_rgb,
+        str(dev), sizes), backend="gloo", device=dev, timeout=DP_JOIN_S,
+        threads=4)
+    world_s = time.time() - t0
+    r0, r1 = ranks
+    check(r0["digests"] == r1["digests"], "phase 19 world 2: params or Adam "
+          "moments differ across the ranks after the DP steps")
+
+    # the reduced gradients against the serial mean of the shards'
+    shard = []
+    for r in range(n):
+        d = {k: torch.as_tensor(v, device=dev)
+             for k, v in step_draws[r].items()}
+        b = tsys.sample_batch(scene, local.batch_size,
+                              img_idxs=d["img_idxs"], pix_idxs=d["pix_idxs"])
+        (l, _, g), kept = with_kept(
+            ph, {"scatter_add_rows": dict(keep="last")},
+            lambda: tsys.loss_and_grads(train_state_from_jax(tree, cfg, dev),
+                                        scene, b, cfg, draws=d))
+        shard.append((l, g, kept["scatter_add_rows"][0][0]))
+    mean = {k: (shard[0][1][k] + shard[1][1][k]) / 2 for k in shard[0][1]}
+    errs2 = dict(grads=grads_equal(r0["reduced"], mean, "packed_table",
+                                   "phase 19 world 2"))
+    for rr in ranks:
+        for k, v in rr["reduced"].items():
+            check(np.array_equal(v, r0["reduced"][k]),
+                  f"phase 19 world 2: reduced {k} differs across the ranks")
+    (s0, v0, T), (s1, v1, _) = shard[0][2], shard[1][2]
+    errs2["packed_table"] = table_vs_sum64(
+        torch.as_tensor(r0["reduced"]["packed_table"], device=dev),
+        torch.cat([s0, s1]), torch.cat([v0, v1]), T,
+        "phase 19 world 2: reduced table gradient vs the float64 mean",
+        scale=2.0)
+
+    # the grid update bit for bit
+    for k, v in r0["grid"].items():
+        want = (serial_grid["occ_u8"][k.split("/")[1]] if "/" in k
+                else serial_grid[k])
+        check(np.array_equal(v, want.cpu().numpy()),
+              f"phase 19 world 2: sharded {k} != serial")
+        check(digest(v) == digest(r1["grid"][k]),
+              f"phase 19 world 2: {k} differs across the ranks")
+
+    # the three DP renderers against the serial frames
+    check(r0["pool_digest"] == r1["pool_digest"] == digest(
+        dp_serving(tree, cfg, dev, sizes)["baked"]["pool"]),
+        "phase 19 world 2: the ranks' bakes differ from this process's")
+    errs2["frames"] = {k: dp_frame_errors(r0["frames"][k], serial_frames[k],
+                                          f"phase 19 world 2 {k}")
+                       for k in serial_frames}
+    for k, fr in r1["frames"].items():
+        for f, dg in fr.items():
+            check(dg == digest(r0["frames"][k][f]), f"phase 19 world 2: "
+                  f"{k} {f} differs across the ranks")
+
+    # multi-scene: each scene against a lone fused step on the same draws
+    errs2["multiscene"] = {}
+    for s in range(DP_SCENES):
+        st, sc = dp_scene_state(cfg, s, dev, sizes)
+        d = {k: torch.as_tensor(v, device=dev)
+             for k, v in ms_draws[s].items()}
+        b = tsys.sample_batch(sc, cfg.batch_size, img_idxs=d["img_idxs"],
+                              pix_idxs=d["pix_idxs"])
+        (l, _, g), kept = with_kept(
+            ph, {"scatter_add_rows": dict(keep="last")},
+            lambda: tsys.loss_and_grads(st, sc, b, cfg, draws=d))
+        for rr in ranks:
+            check(rr["ms_metrics"]["loss"].shape == (DP_SCENES,),
+                  "phase 19: multi-scene metrics are not per scene")
+        got = ranks[s]
+        lrel = abs(float(got["ms_metrics"]["loss"][s]) - float(l)) / abs(
+            float(l))
+        check(lrel <= 1e-6, f"phase 19: multi-scene loss of scene {s}")
+        e = dict(loss_rel=lrel, grads=grads_equal(
+            got["ms_grads"], g, "packed_table", f"phase 19 scene {s}"))
+        sidx, vals, T = kept["scatter_add_rows"][0][0]
+        e["packed_table"] = table_vs_sum64(
+            torch.as_tensor(got["ms_grads"]["packed_table"], device=dev),
+            sidx, vals, T, f"phase 19: scene {s} table gradient vs the "
+            "float64 sum")
+        errs2["multiscene"][s] = e
+
+    # SyncBN: the sharded train-mode forward against the unsharded one
+    errs2["syncbn"] = {}
+    for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+        model = DepthNet(DepthModelConfig(backbone=DP_SYNCBN["backbone"]))
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in bn_state.items()})
+        model = model.to(dev, dt).train()
+        with torch.no_grad():
+            y = model(torch.as_tensor(bn_rgb, device=dev, dtype=dt))
+        key = str(dt).split(".")[1]
+        got = torch.as_tensor(np.concatenate(
+            [rr[f"bn_logit_{key}"] for rr in ranks]), device=dev, dtype=dt)
+        rel = float((got - y).norm() / y.norm())
+        check(rel <= tol, f"phase 19: SyncBN {key} forward {rel} > {tol}")
+        srel = 0.0
+        for k, v in model.state_dict().items():
+            if "running" in k:
+                g = torch.as_tensor(r0[f"bn_stats_{key}"][k], device=dev,
+                                    dtype=dt)
+                srel = max(srel, float((g - v).norm() / v.norm()))
+        check(srel <= tol, f"phase 19: SyncBN {key} running statistics "
+              f"{srel} > {tol}")
+        errs2["syncbn"][key] = dict(logit=rel, running=srel)
+
+    launches = {k: launches1[k] + r0["launches"][k] + r1["launches"][k]
+                for k in launches1}
+    summary["world2"] = dict(
+        errors=errs2, step_ms=[r0["step_ms"], r1["step_ms"]],
+        allreduce_bytes=r0["allreduce_bytes"], world_s=world_s,
+        launches=[r0["launches"], r1["launches"]])
+    print(f"phase 19: gloo world of 2 on one card ({world_s:.1f} s): "
+          f"params and Adam moments equal across the ranks after "
+          f"{sizes['steps']} steps; {r0['step_ms']:.3f} / "
+          f"{r1['step_ms']:.3f} ms "
+          "a step (two ranks sharing one card: not a scaling figure); "
+          f"all-reduced {r0['allreduce_bytes']} bytes a step; {errs2}; "
+          f"launches {r0['launches']}, {r1['launches']}", flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"phase 19: {k} not launched on the DP path")
+    entries = train_probe_entries(probe, dp_kept, launches, "dp",
+                                  "phase 19")
+    summary["launches"] = launches
+    summary["seconds"] = time.time() - t_phase
+    return summary, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3144,6 +3718,7 @@ def main():
     from google_nerf_tpu_torch.models.baked_rgba import (
         bake_rgba, render_brick_mxu_rgba)
     from google_nerf_tpu_torch.models.ngp import init_ngp
+    from google_nerf_tpu_torch.convert import train_state_to_numpy
     from google_nerf_tpu_torch.models.render_brick import brick_geometry
     from google_nerf_tpu_torch.ops.cuda import _build
     from google_nerf_tpu_torch.ops.cuda import brick_field as bf
@@ -3324,6 +3899,7 @@ def main():
     # ---- 11: bench.py's serving stages on the trained state
     stages, bench_keys, stage_kernels = phase11(state, tcfg, dev)
     kernels += stage_kernels
+    trained = train_state_to_numpy(state)       # phase 19 starts from it
     del state
     torch.cuda.empty_cache()
 
@@ -3358,6 +3934,10 @@ def main():
     kernels += sens_kernels
     shape = phase18(args.seed, scan)
     scan_tmp.cleanup()
+
+    # ---- 19: data-parallel training and serving on the one card
+    dp_run, dp_kernels = phase19(args.seed, trained)
+    kernels += dp_kernels
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -3395,7 +3975,12 @@ def main():
           f"{sens_chain['seconds']:.0f} s; shape refiner "
           f"{shape['cli_s_per_frame']:.1f} s a frame, spvcnn_apply "
           f"{statistics.median(shape['refine'][0]['card_ms'][1:]):.1f} ms, "
-          f"phase 18 {shape['seconds']:.0f} s; total "
+          f"phase 18 {shape['seconds']:.0f} s; DP step at world 1 "
+          f"{statistics.mean(dp_run['world1']['step_ms']['dp']):.3f} ms vs "
+          f"plain {statistics.mean(dp_run['world1']['step_ms']['plain']):.3f}"
+          f" ms, at world 2 on one card {dp_run['world2']['step_ms'][0]:.3f}"
+          f" ms (not a scaling figure), phase 19 {dp_run['seconds']:.0f} s; "
+          "total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -3410,7 +3995,7 @@ def main():
                   bench_keys=bench_keys, cli=cli, datasets=data,
                   encoders=encoders, depth=depth,
                   depth_train=depth_train, sens_chain=sens_chain,
-                  shape=shape, kernels=kernels)
+                  shape=shape, dp=dp_run, kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

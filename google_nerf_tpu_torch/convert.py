@@ -89,6 +89,26 @@ def train_state_from_jax(tree, cfg, device="cuda"):
     return state
 
 
+def multiscene_states_from_jax(stacked, S: int, cfg, device="cuda"):
+    """JAX's stack_states tree (numpy leaves with a leading scene axis of
+    S: params, density_grid, occ, occ_u8, step) -> S port train states,
+    scene s from row s of every leaf (unstack_states), each through
+    train_state_from_jax (the optax state is not carried)."""
+    def row(tree, s):
+        if isinstance(tree, dict):
+            return {k: row(v, s) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [row(v, s) for v in tree]
+        a = np.asarray(tree)
+        if a.shape[:1] != (S,):
+            raise ValueError(f"a leaf of shape {a.shape} has no scene axis "
+                             f"of {S}")
+        return a[s]
+    keys = ("params", "density_grid", "occ", "occ_u8", "step")
+    return [train_state_from_jax({k: row(stacked[k], s) for k in keys}, cfg,
+                                 device) for s in range(S)]
+
+
 def _words(occ_u8, device):
     if isinstance(occ_u8, dict):
         return {k: _words(v, device) for k, v in occ_u8.items()}

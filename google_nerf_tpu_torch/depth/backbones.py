@@ -16,13 +16,14 @@ AdaIN modulators act after conv1 (before bn1) and after layers 1-3
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod
+from google_nerf_tpu_torch.parallel.comm import all_reduce_sum
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -37,21 +38,51 @@ class BatchNorm2d(nn.BatchNorm2d):
     0.9: torch's batch_norm normalises the batch by its mean and biased
     variance, and the running statistics take 0.9 of themselves plus 0.1
     of the batch's, the biased variance too (torch's would take the
-    unbiased).  Eval mode is torch's, on the running statistics."""
+    unbiased).  Eval mode is torch's, on the running statistics.
+
+    With `axis_name` set (DepthModelConfig.bn_axis_name sets it on every
+    BatchNorm of the network; the port's one data axis is the default
+    process group), train mode is flax's BatchNorm with that axis_name,
+    SyncBN: the statistics of the whole group's batch, from the per-rank
+    sums of x and x^2 and the counts all-reduced in one call (count-
+    weighted), the variance flax's E[x^2] - E[x]^2 floored at 0.  The
+    all-reduce is differentiable: the backward pass sums the statistics'
+    gradients over the ranks.  Without a group it is the rank's own
+    batch."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=0.1)
+        self.axis_name: Optional[str] = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.axis_name is not None:
+            return self._synced(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
+            self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    @torch.no_grad()
+    def _track(self, mean, var):
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var)
+        self.num_batches_tracked.add_(1)
+
+    def _synced(self, x):
+        C = x.shape[1]
+        count = torch.full((1,), x.numel() // C, dtype=x.dtype,
+                           device=x.device)
+        sums = all_reduce_sum(torch.cat([x.sum((0, 2, 3)),
+                                         (x * x).sum((0, 2, 3)), count]))
+        mean = sums[:C] / sums[-1]
+        var = torch.clamp_min(sums[C:2 * C] / sums[-1] - mean * mean, 0.0)
+        self._track(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 def _bn(c: int) -> BatchNorm2d:

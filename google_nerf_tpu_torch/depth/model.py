@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod, EqualizedDense
-from google_nerf_tpu_torch.depth.backbones import (LateralEncoder,
+from google_nerf_tpu_torch.depth.backbones import (BatchNorm2d,
+                                                   LateralEncoder,
                                                    lateral_channels)
 from google_nerf_tpu_torch.depth.decoder import AuxiNetV2, Decoder
 from google_nerf_tpu_torch.utils.precision import exact_f32
@@ -37,6 +38,8 @@ class DepthModelConfig:
     d_latent: int = 0                    # >0 enables cIMLE
     cimle_site: str = "encoder"          # "encoder" (v2) | "decoder" (v3+)
     with_auxi: bool = False              # train-time disparity branch
+    bn_axis_name: Optional[str] = None   # SyncBN over the process group
+                                         # (flax's BatchNorm axis_name)
 
 
 class DepthNet(nn.Module):
@@ -55,6 +58,9 @@ class DepthNet(nn.Module):
                                        d_latent=dec_latent)
         if cfg.with_auxi:
             self.auxi_modules = AuxiNetV2()
+        for m in self.modules():        # every BatchNorm, encoder to heads
+            if isinstance(m, BatchNorm2d):
+                m.axis_name = cfg.bn_axis_name
 
     def forward(self, rgb, z=None, return_adain_acts: bool = False):
         """rgb: (B, 3, H, W) normalised -> (B, 1, H, W) logit, or

@@ -332,25 +332,11 @@ def _render_tiles(pool, rgb_mlp, brick_lo, brick_hi, pool_base, rays_o,
                 pairs_total=pairs_total)
 
 
-@torch.no_grad()
-def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
-                 bcfg: BakedConfig = BakedConfig(), tile: int = 8,
-                 L: int = 256, Lk: int = 24, max_samples: int = 512,
-                 T_threshold: float = 1e-2, chunk_tiles: int = 2048,
-                 pairs_per_ray: float = 4.0, exp_step_factor: float = 0.0,
-                 geometry=None, pass_fracs: tuple = (),
-                 drain_frac: float = 0.25, macro_tiles: int = 8,
-                 macro_L: int = 1024, device="cuda"):
-    """Full-frame pair renderer over W*H rays in image row-major order,
-    JAX's arguments.  `geometry`: brick_geometry's output, to skip its
-    rebuild.  Returns rgb (H*W, 3), opacity, depth and the counters
-    trunc_tiles, trunc_rays, pairs_dropped, pairs_total (summed over
-    chunks) and pairs_per_chunk."""
-    lo, hi, pool_base = (geometry if geometry is not None else
-                         brick_geometry(baked["block_map"], bcfg, cfg, device))
-    lo, hi, pool_base = lo.to(device), hi.to(device), pool_base.to(device)
-    pool = baked["pool"].to(device)
-    rgb_mlp = [w.to(device) for w in baked["rgb_mlp"]]
+def tile_stream(rays_o, rays_d, W: int, H: int, tile: int, device):
+    """W*H rays in image row-major order -> the tile-ordered stream the
+    renderers march: (rays_o, unit rays_d, inv, Wp, Hp), the image
+    edge-replicated out to a tile multiple (Wp, Hp) and inv the
+    permutation back to row-major order."""
     rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=device)
     rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=device)
     Wp = ((W + tile - 1) // tile) * tile
@@ -367,18 +353,43 @@ def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
     perm = torch.as_tensor(perm, dtype=torch.int64, device=device)
     norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     rdu = rays_d / torch.where(norm > 0, norm, 1.0)
-    ro_t, rd_t = rays_o[perm], rdu[perm]
+    inv = torch.as_tensor(inv, dtype=torch.int64, device=device)
+    return rays_o[perm], rdu[perm], inv, Wp, Hp
 
+
+def pad_stream(ro_t, rd_t, n_tiles: int, tpx: int):
+    """The stream padded by n_tiles tiles of rays that start far outside
+    the scene box: they hit nothing."""
+    if not n_tiles:
+        return ro_t, rd_t
+    dev = ro_t.device
+    return (torch.cat([ro_t, torch.full((n_tiles * tpx, 3), 100.0,
+                                        device=dev)]),
+            torch.cat([rd_t, torch.full((n_tiles * tpx, 3), 1.0 / SQRT3,
+                                        device=dev)]))
+
+
+def render_stream(baked, geometry, cfg: NGPConfig, ro_t, rd_t, *,
+                  bcfg: BakedConfig, tile: int, L: int, Lk: int,
+                  max_samples: int, T_threshold: float, chunk_tiles: int,
+                  pairs_per_ray: float, pass_fracs: tuple,
+                  drain_frac: float, macro_tiles: int, macro_L: int):
+    """Render a tile-ordered stream in chunks of chunk_tiles tiles (a
+    partial last chunk padded to the chunk's size): rgb, opacity and
+    depth per ray of the stream (pad rays included), the counters
+    trunc_tiles, trunc_rays, pairs_dropped, pairs_total summed over the
+    chunks, and pairs_per_chunk."""
+    lo, hi, pool_base = geometry
+    pool, rgb_mlp = baked["pool"], baked["rgb_mlp"]
     tpx = tile * tile
-    n_tiles = (Wp * Hp) // tpx
+    n_tiles = ro_t.shape[0] // tpx
     n_bricks = int(lo.shape[0])
     L = min(L, n_bricks)
     Lk = min(Lk, L)
     # longest lattice window inside one brick: brick diagonal / dt
     vox_w = 2.0 * baked_extent(cfg) / bcfg.voxel_res
     S = int(np.ceil(bcfg.block * vox_w * SQRT3 / (SQRT3 / max_samples))) + 1
-    # the chunk never exceeds the frame's tiles; a partial last chunk is
-    # padded to the chunk's size
+    # the chunk never exceeds the stream's tiles
     cpr = max(min(int(chunk_tiles), n_tiles), 1)
     mL = min(macro_L, n_bricks)
     mt = macro_tiles if mL > 0 else 0
@@ -387,15 +398,9 @@ def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
     outs = []
     for i in range(0, n_tiles, cpr):
         n_c = min(cpr, n_tiles - i)
-        ro_c = ro_t[i * tpx:(i + n_c) * tpx]
-        rd_c = rd_t[i * tpx:(i + n_c) * tpx]
-        pad = (cpr - n_c) * tpx
-        if pad:
-            # pad rays start far outside the scene box: they hit nothing
-            ro_c = torch.cat([ro_c, torch.full((pad, 3), 100.0,
-                                               device=device)])
-            rd_c = torch.cat([rd_c, torch.full((pad, 3), 1.0 / SQRT3,
-                                               device=device)])
+        ro_c, rd_c = pad_stream(ro_t[i * tpx:(i + n_c) * tpx],
+                                rd_t[i * tpx:(i + n_c) * tpx], cpr - n_c,
+                                tpx)
         outs.append(_render_tiles(
             pool, rgb_mlp, lo, hi, pool_base, ro_c, rd_c, cfg=cfg,
             bcfg=bcfg, tile=tile, L=L, Lk=Lk, S=S, max_samples=max_samples,
@@ -406,8 +411,14 @@ def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
     cat = {k: (torch.cat([o[k] for o in outs]) if outs[0][k].ndim
                else torch.stack([o[k] for o in outs]).sum())
            for k in outs[0]}
-    inv = torch.as_tensor(inv, dtype=torch.int64, device=device)
+    cat["pairs_per_chunk"] = torch.stack([o["pairs_total"] for o in outs])
+    return cat
 
+
+def frame_of_stream(cat, inv, W: int, H: int, Wp: int, Hp: int,
+                    bg: float):
+    """rgb (over the background bg), opacity and depth of the stream's
+    first Wp*Hp rays back in row-major order, cropped to W x H."""
     def unpermute(x):
         x = x[:Wp * Hp][inv]
         if (Wp, Hp) != (W, H):
@@ -416,10 +427,45 @@ def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
         return x
 
     opacity = unpermute(cat["opacity"])
-    bg = 1.0 if exp_step_factor == 0.0 else 0.0
     return dict(rgb=unpermute(cat["rgb"]) + bg * (1.0 - opacity[:, None]),
-                opacity=opacity, depth=unpermute(cat["depth"]),
-                trunc_tiles=cat["trunc_tiles"], trunc_rays=cat["trunc_rays"],
-                pairs_dropped=cat["pairs_dropped"],
-                pairs_total=cat["pairs_total"],
-                pairs_per_chunk=torch.stack([o["pairs_total"] for o in outs]))
+                opacity=opacity, depth=unpermute(cat["depth"]))
+
+
+def on_device(baked, geometry, bcfg, cfg, device):
+    """The bake's pool and rgb MLP and its brick geometry (built when
+    None) on device."""
+    geometry = (geometry if geometry is not None else
+                brick_geometry(baked["block_map"], bcfg, cfg, device))
+    return (dict(pool=baked["pool"].to(device),
+                 rgb_mlp=[w.to(device) for w in baked["rgb_mlp"]]),
+            tuple(a.to(device) for a in geometry))
+
+
+@torch.no_grad()
+def render_brick(baked, cfg: NGPConfig, rays_o, rays_d, W, H, *,
+                 bcfg: BakedConfig = BakedConfig(), tile: int = 8,
+                 L: int = 256, Lk: int = 24, max_samples: int = 512,
+                 T_threshold: float = 1e-2, chunk_tiles: int = 2048,
+                 pairs_per_ray: float = 4.0, exp_step_factor: float = 0.0,
+                 geometry=None, pass_fracs: tuple = (),
+                 drain_frac: float = 0.25, macro_tiles: int = 8,
+                 macro_L: int = 1024, device="cuda"):
+    """Full-frame pair renderer over W*H rays in image row-major order,
+    JAX's arguments.  `geometry`: brick_geometry's output, to skip its
+    rebuild.  Returns rgb (H*W, 3), opacity, depth and the counters
+    trunc_tiles, trunc_rays, pairs_dropped, pairs_total (summed over
+    chunks) and pairs_per_chunk."""
+    baked, geometry = on_device(baked, geometry, bcfg, cfg, device)
+    ro_t, rd_t, inv, Wp, Hp = tile_stream(rays_o, rays_d, W, H, tile,
+                                          device)
+    cat = render_stream(
+        baked, geometry, cfg, ro_t, rd_t, bcfg=bcfg, tile=tile, L=L, Lk=Lk,
+        max_samples=max_samples, T_threshold=T_threshold,
+        chunk_tiles=chunk_tiles, pairs_per_ray=pairs_per_ray,
+        pass_fracs=pass_fracs, drain_frac=drain_frac,
+        macro_tiles=macro_tiles, macro_L=macro_L)
+    bg = 1.0 if exp_step_factor == 0.0 else 0.0
+    return dict(frame_of_stream(cat, inv, W, H, Wp, Hp, bg),
+                **{k: cat[k] for k in ("trunc_tiles", "trunc_rays",
+                                       "pairs_dropped", "pairs_total",
+                                       "pairs_per_chunk")})

@@ -1,5 +1,4 @@
-"""Occupancy/density-grid maintenance (port of google_nerf_tpu/ops/grid.py,
-single device: no `axis_name`).
+"""Occupancy/density-grid maintenance (port of google_nerf_tpu/ops/grid.py).
 
 The density grid is raster (C, G, G, G) float32, index [c, x, y, z];
 negative cells are permanently invisible.  Occupancy is `grid >
@@ -11,12 +10,19 @@ centers follow the reference mapping
     world(c, i) = (i / (G-1) * 2 - 1) * (s - s/G),  s = min(2^(c-1), scale).
 
 Random draws come from a torch.Generator or from the caller (`draws`),
-so tests can hand in the draws JAX made from its key.
+so tests can hand in the draws JAX made from its key.  The density
+evaluation of an update can be sharded over a process group (JAX's
+`axis_name`): every rank takes the same draws, evaluates its share of
+the fixed-shape chunks, and the per-cell maxima are merged by an
+all-reduce with MAX (parallel/dp.make_dp_grid_update).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from google_nerf_tpu_torch.parallel import comm
 
 NEAR_DISTANCE = 0.05
 
@@ -136,14 +142,23 @@ def update_density_grid(density_grid, density_fn, *, scale: float,
                         density_threshold: float, warmup: bool,
                         decay: float = 0.95, erode: bool = False,
                         eval_chunks: int = 32, sample_div: int = 4,
-                        generator=None, draws=None):
+                        generator=None, draws=None, sharded: bool = False,
+                        group=None):
     """One density-grid maintenance step.
 
     density_grid: (C, G, G, G) float32; density_fn: (M, 3) world xyz ->
     (M,) sigma.  Warmup evaluates every cell, otherwise G^3/sample_div
     uniform and as many occupied cells per cascade.  draws: grid_draws'
     list (made from `generator` when None).  Returns (new_density_grid,
-    occ bool (C, G, G, G))."""
+    occ bool (C, G, G, G)).
+
+    The sampled cells are evaluated in `eval_chunks` chunks of one shape,
+    which depends on (G, warmup) only.  With `sharded`, the ranks of
+    `group` (which must all pass the same draws) each evaluate a
+    contiguous eval_chunks // world of them, and the per-cell maxima are
+    merged by an all-reduce with MAX.  A max is exact in any order and
+    each chunk sees the shape it has in the serial update, so the merged
+    grid equals the serial one bit for bit."""
     C, G = density_grid.shape[0], density_grid.shape[1]
     dev = density_grid.device
     if draws is None:
@@ -151,6 +166,12 @@ def update_density_grid(density_grid, density_fn, *, scale: float,
                            generator=generator, device=dev)
     flat = density_grid.reshape(C, -1)
     tmp = torch.zeros_like(flat)
+    n_rep = comm.get_world_size(group) if sharded else 1
+    rep = comm.get_rank(group) if sharded else 0
+    if eval_chunks % n_rep:
+        raise ValueError(f"eval_chunks={eval_chunks} must be a multiple of "
+                         f"the world size {n_rep}")
+    vg = eval_chunks // n_rep                # chunks this rank evaluates
     for c in range(C):
         d = draws[c]
         if warmup:
@@ -166,9 +187,16 @@ def update_density_grid(density_grid, density_fn, *, scale: float,
         xyz = cells_to_world(coords, c, scale, G)
         half = _cascade_bound(c, scale) / G
         pts = xyz + (d["jitter"] * 2 - 1) * half
-        sigmas = torch.cat([density_fn(p).reshape(-1)
-                            for p in pts.reshape(eval_chunks, -1, 3)])
-        tmp[c] = _segment_max_dense(idx, sigmas.float(), G ** 3)
+        if idx.shape[0] % eval_chunks:
+            raise ValueError(f"eval_chunks={eval_chunks} must divide the "
+                             f"sample count {idx.shape[0]}")
+        idx = idx.reshape(eval_chunks, -1)[rep * vg:(rep + 1) * vg]
+        pts = pts.reshape(eval_chunks, -1, 3)[rep * vg:(rep + 1) * vg]
+        sigmas = torch.cat([density_fn(p).reshape(-1) for p in pts])
+        tmp[c] = _segment_max_dense(idx.reshape(-1), sigmas.float(), G ** 3)
+    if sharded and comm.initialized():
+        # a group of one still takes the all-reduce: its backend's path
+        dist.all_reduce(tmp, op=dist.ReduceOp.MAX, group=group)
     new = torch.where(flat < 0, flat, torch.maximum(flat * decay, tmp))
     new = new.reshape(density_grid.shape)
     if erode:

@@ -26,6 +26,11 @@ dense lattice, which also takes every scene with an exponential step
 of NGPConfig trains (hash, freq, packed, packed2).  With depth priors
 (lambda_depth > 0) the step's metrics carry the depth term as
 depth_loss.
+
+`apply_grads` is the optimizer update from given gradients, which the
+one-device step and the data-parallel step (parallel/dp.py: the
+gradients all-reduced first) share; `fused_train_steps` runs n steps on
+a list of per-step draws.
 """
 from __future__ import annotations
 
@@ -319,12 +324,36 @@ def loss_and_grads(state, scene, batch, cfg: TrainConfig, *, draws=None,
     return loss.detach(), results, grads
 
 
+def apply_grads(state, grads, cfg: TrainConfig) -> float:
+    """The optimizer update from given gradients ({leaf name: grad}, as
+    loss_and_grads returns them; a leaf without one is left as it is):
+    Adam (AdamW on the table with weight_decay) at the cosine lr of the
+    state's step, the params updated in place.  Returns the lr; the step
+    count is the caller's to advance."""
+    leaves = param_leaves(state["params"])
+    for k, p in leaves.items():
+        p.grad = grads.get(k)
+    lr = set_lr(state["opt"], cfg, state["step"])
+    state["opt"].step()
+    for p in leaves.values():
+        p.grad = None
+    return lr
+
+
 @torch.no_grad()
-def _metrics(loss, results, batch_size: int, lr: float):
+def masked_mse(results):
+    """Mean squared error of the supervised rays (ray_mask) against the
+    target the step supervised."""
     rm = results["ray_mask"]
     rmw = rm[:, None].expand(results["rgb"].shape)
     err = (results["rgb"].detach() - results["rgb_target"]) ** 2
-    mse = torch.where(rmw, err, 0.0).sum() / torch.clamp_min(rmw.sum(), 1)
+    return torch.where(rmw, err, 0.0).sum() / torch.clamp_min(rmw.sum(), 1)
+
+
+@torch.no_grad()
+def _metrics(loss, results, batch_size: int, lr: float):
+    rm = results["ray_mask"]
+    mse = masked_mse(results)
     out = dict(loss=loss.detach(),
                psnr=-10.0 * torch.log10(torch.clamp_min(mse, 1e-10)),
                s_per_ray=results["total_samples"] / batch_size,
@@ -338,15 +367,9 @@ def train_step(state, scene, batch, cfg: TrainConfig, *, draws=None,
                generator=None):
     """One optimization step on an explicit batch; updates state in
     place and returns (state, metrics).  draws: optional bg and noise."""
-    draws = draws or {}
-    opt = state["opt"]
-    opt.zero_grad(set_to_none=True)
-    loss, results = loss_and_results(
-        state["params"], state, scene, batch, cfg, step=state["step"],
-        bg=draws.get("bg"), noise=draws.get("noise"), generator=generator)
-    loss.backward()
-    lr = set_lr(opt, cfg, state["step"])
-    opt.step()
+    loss, results, grads = loss_and_grads(state, scene, batch, cfg,
+                                          draws=draws, generator=generator)
+    lr = apply_grads(state, grads, cfg)
     metrics = _metrics(loss, results, batch["rgb"].shape[0], lr)
     state["step"] += 1
     return state, metrics
@@ -364,19 +387,37 @@ def fused_train_step(state, scene, cfg: TrainConfig, *, draws=None,
                       generator=generator)
 
 
+def fused_train_steps(state, scene, cfg: TrainConfig, *, n_steps: int,
+                      draws=None, generator=None):
+    """n_steps fused steps; draws: None or a list of n_steps per-step
+    draws (fused_train_step's).  Returns the state and the last step's
+    metrics, as JAX's (which runs the steps under one lax.scan, step i on
+    the key fold_in(key, i)).  A plain loop here: capturing the steps in
+    one CUDA graph is ROADMAP item 26."""
+    if draws is not None and len(draws) != n_steps:
+        raise ValueError(f"{len(draws)} draws for {n_steps} steps")
+    metrics = None
+    for i in range(n_steps):
+        state, metrics = fused_train_step(
+            state, scene, cfg, draws=None if draws is None else draws[i],
+            generator=generator)
+    return state, metrics
+
+
 @torch.no_grad()
 def grid_update_step(state, cfg: TrainConfig, *, warmup: bool, draws=None,
-                     generator=None):
+                     generator=None, sharded: bool = False, group=None):
     """Density-grid maintenance: update the grid, its occupancy and the
     marcher's packed tables in place.  draws: ops.grid.grid_draws'
-    list."""
+    list.  sharded: the density evaluation split over `group`'s ranks and
+    max-merged (ops.grid.update_density_grid)."""
     m = cfg.model
     params = state["params"]
     new_grid, occ = update_density_grid(
         state["density_grid"], lambda x: ngp_density(params, m, x),
         scale=m.scale, density_threshold=cfg.density_threshold,
         warmup=warmup, erode=cfg.erode, sample_div=cfg.grid_sample_div,
-        generator=generator, draws=draws)
+        generator=generator, draws=draws, sharded=sharded, group=group)
     state["density_grid"] = new_grid
     state["occ"] = occ
     state["occ_u8"] = pack_marching_grid(occ, cfg)

@@ -13,7 +13,12 @@ render_test_baked with --bake), brick (the pair renderer over a bake) and brick_
 over a bake); --save_bake/--load_bake write and read the bake.  Every
 timed frame ends with torch.cuda.synchronize() on the card; FPS is the
 mean over the frames after the first.  Runs on the CUDA card unless
-given --platform cpu.  Serving over several cards is ROADMAP item 21.
+given --platform cpu.  With --num_gpus N under torchrun (one process a
+device, as train_torch.py; gloo with --platform cpu) the oneshot and
+brick renderers serve each frame's rays sharded over the ranks
+(render_test_oneshot_dp, render_brick_dp; every rank gets the whole
+frame) and rank 0 alone prints; the other renderers run whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -43,11 +48,16 @@ def run(hparams):
                                                 pack_occupancy_u8)
     from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
     from google_nerf_tpu_torch.ops.march_seg import required_dilation_radius
+    from google_nerf_tpu_torch.parallel import comm
+    from google_nerf_tpu_torch.parallel.dp import (render_brick_dp,
+                                                   render_test_oneshot_dp)
     from google_nerf_tpu_torch.train.system import (block_march,
                                                     init_train_state)
     from google_nerf_tpu_torch.utils.ckpt import load_ckpt_filtered
 
     dev = device_of(hparams)
+    dp = comm.get_world_size() > 1
+    say = print if comm.is_main_process() else (lambda *a, **k: None)
     dataset = make_dataset(hparams, 'test', dev)
     cfg = build_configs(hparams)
     m = cfg.model
@@ -84,32 +94,32 @@ def run(hparams):
     baked = bcfg = None
     if renderer in ("brick", "brick_mxu"):
         if cfg.exp_step_factor != 0.0:
-            print("brick renderers target bounded scenes; "
+            say("brick renderers target bounded scenes; "
                   "falling back to oneshot")
             renderer = "oneshot"
         else:
             hparams.bake = True
     if hparams.load_bake:
         baked, bcfg = bk.load_baked(hparams.load_bake, device=dev)
-        print(f'loaded bake: {baked["n_blocks"]} blocks (pool '
+        say(f'loaded bake: {baked["n_blocks"]} blocks (pool '
               f'{baked["pool"].nbytes / 2**20:.0f} MiB, {bcfg.dtype})')
     elif hparams.bake:
         bcfg = bk.BakedConfig(voxel_res=hparams.bake_res,
                               dtype=hparams.bake_dtype)
         t0 = time.time()
         baked = bk.bake(state["params"], m, state["occ"], bcfg, device=dev)
-        print(f'baked {baked["n_blocks"]} blocks in {time.time()-t0:.1f}s '
+        say(f'baked {baked["n_blocks"]} blocks in {time.time()-t0:.1f}s '
               f'(pool {baked["pool"].nbytes / 2**20:.0f} MiB)')
-        if hparams.save_bake:
+        if hparams.save_bake and comm.is_main_process():
             bk.save_baked(hparams.save_bake, baked, bcfg)
-            print(f'saved bake -> {hparams.save_bake}')
+            say(f'saved bake -> {hparams.save_bake}')
 
     directions = torch.as_tensor(dataset.directions, device=dev)
     poses = torch.as_tensor(dataset.poses, device=dev)
     brick_geo = None
     if renderer in ("brick", "brick_mxu"):
         brick_geo = brick_geometry(baked["block_map"], bcfg, m, dev)
-        print(f"brick geometry: {brick_geo[0].shape[0]} bricks")
+        say(f"brick geometry: {brick_geo[0].shape[0]} bricks")
     if renderer == "brick" and not hparams.brick_ppr:
         # --brick_ppr 0: render pose 0 with a generous budget and size the
         # per-chunk budget off its densest chunk with a 1.25x margin
@@ -123,7 +133,7 @@ def run(hparams):
         chunk_rays = min(2048, n_tiles) * 8 * 8
         densest = int(probe["pairs_per_chunk"].max())
         hparams.brick_ppr = max(0.5, round(1.25 * densest / chunk_rays, 1))
-        print(f'brick auto budget: {int(probe["pairs_total"])} windows '
+        say(f'brick auto budget: {int(probe["pairs_total"])} windows '
               f'(densest chunk {densest}/{chunk_rays} rays) -> --brick_ppr '
               f'{hparams.brick_ppr}')
 
@@ -150,7 +160,7 @@ def run(hparams):
                 macro_L=hparams.brick_macro_L, max_samples=rms, device=dev)
             tele = ("trunc_tiles", "pairs_rendered", "pairs_undrained")
         elif renderer == "brick":
-            out = render_brick(
+            out = (render_brick_dp if dp else render_brick)(
                 baked, m, rays_o, rays_d, w, h, bcfg=bcfg, T_threshold=1e-2,
                 geometry=brick_geo, L=hparams.brick_L, Lk=hparams.brick_Lk,
                 pairs_per_ray=hparams.brick_ppr,
@@ -173,7 +183,7 @@ def run(hparams):
                 os_kw["compact_main"] = True
             if baked is not None:
                 os_kw["apply_fn"] = bk.make_baked_apply(bcfg)
-            out = render_test_oneshot(
+            out = (render_test_oneshot_dp if dp else render_test_oneshot)(
                 baked if baked is not None else state["params"], m,
                 occ_oneshot, rays_o, rays_d, **os_kw)
             tele = ("drain_trips",) if "drain_trips" in out else ()
@@ -200,7 +210,7 @@ def run(hparams):
             # culled (raise --brick_mxu_drain, --brick_L/--brick_Lk or
             # --brick_ppr)
             frame0 = {k: int(out[k]) for k in tele}
-            print(f'{renderer} telemetry (frame 0): ' + ' '.join(
+            say(f'{renderer} telemetry (frame 0): ' + ' '.join(
                 f'{k}={v}' for k, v in frame0.items()))
         if len(dataset.rays) > 0:
             psnrs.append(float(psnr(out["rgb"], torch.as_tensor(
@@ -209,10 +219,13 @@ def run(hparams):
     steady = times[1:] if len(times) > 1 else times
     fps = 1.0 / np.mean(steady)
     mean_psnr = float(np.mean(psnrs)) if psnrs else float('nan')
-    print(f'mean PSNR: {mean_psnr:.2f}, FPS: {fps:.2f} '
+    say(f'mean PSNR: {mean_psnr:.2f}, FPS: {fps:.2f} '
           f'({w}x{h}, {len(times)} frames)')
     return dict(psnr=mean_psnr, fps=fps, frame0=frame0)
 
 
 if __name__ == '__main__':
     run(get_opts())
+    from google_nerf_tpu_torch.parallel import comm
+    if comm.initialized():
+        comm.dist.destroy_process_group()

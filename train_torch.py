@@ -15,7 +15,16 @@ PNGs.
         --synthetic_style textured --downsample 4 --exp_name my_exp
 
 Runs on the CUDA card unless given --platform cpu.  Data-parallel
-training over several cards (ROADMAP item 21) raises.  The test video
+training runs one process a device, started by torchrun:
+
+    torchrun --nproc_per_node 2 train_torch.py --num_gpus 2 ...
+
+(NCCL on the cards; with --platform cpu the same ranks over gloo).  Each
+rank samples batch_size / N rays, the gradients are all-reduced
+(parallel/dp.make_dp_train_step), the grid update runs on every rank
+alike, validation renders each view's rays sharded over the ranks
+(render_test_fast_dp), and rank 0 alone writes checkpoints, logs and
+images.  The test video
 of a Synthetic NSVF scene is not encoded (no mp4 encoder in the port):
 its PNG frames stay, with the warning train.py prints when imageio or
 ffmpeg is missing.
@@ -33,21 +42,34 @@ from google_nerf_tpu_torch.opt import get_opts
 
 def device_of(hparams) -> torch.device:
     """--platform cpu runs on the CPU; otherwise the CUDA card, which
-    must be there.  One device: several cards are ROADMAP item 21."""
+    must be there.  --num_gpus N > 1 (or -1 and 0 inside a world of more
+    than one) makes this process a rank of torchrun's world of N
+    (parallel/dp.init_distributed: NCCL, a card a rank, or gloo on the
+    CPU) and returns its device; --num_gpus N in a process that is not
+    one of N ranks raises."""
     n = hparams.num_gpus
-    if hparams.platform == "cpu":
-        dev = torch.device("cpu")
-    elif not torch.cuda.is_available():
+    cpu = hparams.platform == "cpu"
+    if not cpu and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: pass --platform cpu to run on the "
                            "CPU")
-    else:
-        dev = torch.device("cuda")
-    if n > 1 or (n == -1 and dev.type == "cuda"
-                 and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"--num_gpus {n}: several cards (data-parallel training and "
-            "serving) are ROADMAP item 21; the port runs on one device")
-    return dev
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n in (-1, 0):
+        n = world
+        if n == 1 and not cpu and torch.cuda.device_count() > 1:
+            raise RuntimeError(
+                f"--num_gpus {hparams.num_gpus}: {torch.cuda.device_count()}"
+                " cards take a rank each: torchrun --nproc_per_node "
+                f"{torch.cuda.device_count()} ... --num_gpus "
+                f"{torch.cuda.device_count()}")
+    if n != world:
+        raise RuntimeError(
+            f"--num_gpus {n} runs as a world of {n} ranks, one process a "
+            f"device: torchrun --nproc_per_node {n} ... --num_gpus {n} "
+            f"(this process is in a world of {world})")
+    if n == 1:
+        return torch.device("cpu" if cpu else "cuda")
+    from google_nerf_tpu_torch.parallel.dp import init_distributed
+    return init_distributed(device_type="cpu" if cpu else "cuda")[1]
 
 
 def dataset_kwargs(hparams):
@@ -136,16 +158,25 @@ def serving_words(state, cfg):
 
 @torch.no_grad()
 def validate(hparams, cfg, state, test_dataset, val_dir=None):
-    """Render every test view; mean PSNR/SSIM(/LPIPS) over them."""
+    """Render every test view; mean PSNR/SSIM(/LPIPS) over them.  In a
+    world of several ranks each view's rays are sharded over them
+    (render_test_fast_dp; every rank gets the whole frame) and rank 0
+    alone writes the PNGs."""
     from google_nerf_tpu_torch.core.rays import get_rays
     from google_nerf_tpu_torch.eval.metrics import LPIPS, psnr, ssim
     from google_nerf_tpu_torch.models.render_test_fast import \
         render_test_fast
     from google_nerf_tpu_torch.models.rendering import render_test
+    from google_nerf_tpu_torch.parallel import comm
+    from google_nerf_tpu_torch.parallel.dp import render_test_fast_dp
     from google_nerf_tpu_torch.train.system import refined_poses
     from google_nerf_tpu_torch.utils.image import depth2img, write_png
 
     dev = state["occ"].device
+    fast = (render_test_fast_dp if comm.get_world_size() > 1
+            else render_test_fast)
+    if not comm.is_main_process():
+        val_dir = None
     w, h = test_dataset.img_wh
     lpips = (LPIPS(hparams.lpips_weights, device=dev) if hparams.eval_lpips
              else None)
@@ -160,9 +191,8 @@ def validate(hparams, cfg, state, test_dataset, val_dir=None):
                                  torch.tensor([i], device=dev))[0]
         rays_o, rays_d = get_rays(directions, pose)
         if cfg.exp_step_factor == 0.0:
-            out = render_test_fast(state["params"], cfg.model, occ_u8,
-                                   rays_o, rays_d,
-                                   max_samples=cfg.max_samples)
+            out = fast(state["params"], cfg.model, occ_u8, rays_o, rays_d,
+                       max_samples=cfg.max_samples)
         else:
             out = render_test(state["params"], cfg.model, state["occ"],
                               rays_o, rays_d,
@@ -187,6 +217,9 @@ def validate(hparams, cfg, state, test_dataset, val_dir=None):
 def main(hparams, video_fps=30):
     """Train (or, with --val_only, validate a checkpoint); returns the
     validation logs, with the net-of-warm-up training time and rate."""
+    from google_nerf_tpu_torch.parallel import comm
+    from google_nerf_tpu_torch.parallel.dp import (make_dp_train_step,
+                                                   replicate)
     from google_nerf_tpu_torch.train.system import (fused_train_step,
                                                     grid_update_step,
                                                     init_train_state,
@@ -207,11 +240,14 @@ def main(hparams, video_fps=30):
     train_dataset = make_dataset(hparams, hparams.split, dev)
     test_dataset = make_dataset(hparams, 'test', dev)
     cfg = build_configs(hparams)
+    # rank 0 alone writes checkpoints, logs and images
+    main_rank = comm.is_main_process()
     ckpt_dir = os.path.abspath(
         f'ckpts/{hparams.dataset_name}/{hparams.exp_name}')
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(ckpt_dir, exist_ok=True)
     val_dir = None
-    if not hparams.no_save_test:
+    if not hparams.no_save_test and main_rank:
         val_dir = os.path.abspath(
             f'results/{hparams.dataset_name}/{hparams.exp_name}')
         os.makedirs(val_dir, exist_ok=True)
@@ -225,22 +261,40 @@ def main(hparams, video_fps=30):
         # boolean grid, so a checkpoint from before a layout change does
         # not march empty space until the next grid update
         state["occ_u8"] = pack_marching_grid(state["occ"], cfg)
-        print(f'Loaded checkpoint {hparams.ckpt_path} '
-              f'(step {state["step"]})')
+        if main_rank:
+            print(f'Loaded checkpoint {hparams.ckpt_path} '
+                  f'(step {state["step"]})')
+    n_ranks = comm.get_world_size()
+    if n_ranks > 1:
+        replicate(state)        # rank 0's state on every rank
 
     if hparams.val_only:
         logs = validate(hparams, cfg, state, test_dataset, val_dir)
-        print('validation:', logs)
+        if main_rank:
+            print('validation:', logs)
         return logs
 
     big = train_dataset.rays.nbytes > 2 << 30
     scene = train_dataset.scene(images_uint8=big)
     gen = torch.Generator(device=dev).manual_seed(hparams.seed)
+    train_step = lambda: fused_train_step(  # noqa: E731
+        state, scene, cfg, generator=gen)
+    if n_ranks > 1:
+        # the grid update takes `gen` alike on every rank (the same
+        # draws: equal grids); each rank's batch its own generator
+        dp_step = make_dp_train_step(cfg)
+        batch_gen = torch.Generator(device=dev).manual_seed(
+            hparams.seed + 1 + comm.get_rank())
+        train_step = lambda: dp_step(  # noqa: E731
+            state, scene, generator=batch_gen)
+        if main_rank:
+            print(f'data-parallel over {n_ranks} ranks '
+                  f'({comm.dist.get_backend()})')
 
     total_steps = cfg.total_steps
     log_dir = hparams.log_dir or (os.path.join(val_dir, 'logs')
                                   if val_dir else None)
-    logger = ScalarLogger(log_dir)
+    logger = ScalarLogger(log_dir, rank=comm.get_rank())
     stats = TrainingStats(total_steps, log_interval=100, logger=logger)
     profiler_ctx = None
     prof_start = min(200, total_steps // 2)
@@ -248,7 +302,7 @@ def main(hparams, video_fps=30):
     t_warm, step_warm = None, 0
     rays_done = 0
     for step in range(state["step"], total_steps):
-        if hparams.profile_steps and step == prof_start:
+        if hparams.profile_steps and step == prof_start and main_rank:
             profiler_ctx = profile_trace(os.path.join(
                 log_dir or ckpt_dir, 'profile'))
             profiler_ctx.__enter__()
@@ -260,7 +314,7 @@ def main(hparams, video_fps=30):
         if step % cfg.grid_update_interval == 0:
             grid_update_step(state, cfg, warmup=step < cfg.warmup_steps,
                              generator=gen)
-        state, metrics = fused_train_step(state, scene, cfg, generator=gen)
+        state, metrics = train_step()
         rays_done += cfg.batch_size
         if (step + 1) % 100 == 0:
             m = {k: float(v) for k, v in metrics.items()}   # reads the card
@@ -268,9 +322,10 @@ def main(hparams, video_fps=30):
             dt = time.time() - t0
             if t_warm is None:
                 t_warm, step_warm = time.time(), step + 1
-            stats.update(m)
-            stats.log_iter_stats(step + 1,
-                                 extra={'rays_per_sec': rays_done / dt})
+            if main_rank:
+                stats.update(m)
+                stats.log_iter_stats(step + 1,
+                                     extra={'rays_per_sec': rays_done / dt})
         else:
             stats.iter_toc()
     if profiler_ctx is not None:
@@ -285,27 +340,32 @@ def main(hparams, video_fps=30):
     if t_warm is not None and total_steps > step_warm:
         steady = (time.time() - t_warm) / (total_steps - step_warm)
         train_time_net = steady * total_steps
-    print(f'Total training time: {train_time:.1f}s '
-          f'(net of compile ~{train_time_net:.1f}s)')
-
     epoch = hparams.num_epochs - 1
-    save_ckpt(os.path.join(ckpt_dir, f'epoch={epoch}'), state)
-    save_slim_ckpt(os.path.join(ckpt_dir, f'epoch={epoch}_slim'), state,
-                   save_poses=hparams.optimize_ext)
+    if main_rank:
+        print(f'Total training time: {train_time:.1f}s '
+              f'(net of compile ~{train_time_net:.1f}s)')
+        save_ckpt(os.path.join(ckpt_dir, f'epoch={epoch}'), state)
+        save_slim_ckpt(os.path.join(ckpt_dir, f'epoch={epoch}_slim'), state,
+                       save_poses=hparams.optimize_ext)
 
     logs = validate(hparams, cfg, state, test_dataset, val_dir)
     logs['train_time_net_s'] = round(float(train_time_net), 1)
     if steady is not None:
         logs['ms_per_step'] = 1e3 * steady
         logs['rays_per_sec'] = cfg.batch_size / steady
-    print('test:', logs)
+    if main_rank:
+        print('test:', logs)
     logger.log(total_steps, {f'test/{k}': v for k, v in logs.items()})
     logger.close()
     if val_dir and hparams.dataset_name == 'nsvf' and \
             'Synthetic' in hparams.root_dir:
         save_videos(val_dir, fps=video_fps)
+    comm.synchronize()          # rank 0's files are written
     return logs
 
 
 if __name__ == '__main__':
     main(get_opts())
+    from google_nerf_tpu_torch.parallel import comm
+    if comm.initialized():
+        comm.dist.destroy_process_group()
