@@ -88,10 +88,11 @@ Phases:
  12. the CLIs as a user runs them (train_torch.main, then
      test_torch.run, in a temporary directory): training at opt.py's
      defaults (f32, the seg march, budget 16 x batch) on the textured
-     scene at 256^2 for 1024 steps (the only cut: depth), with P2 and
+     scene at 256^2 for 1024 steps (the only cuts: depth), with P2 and
      P3; --val_only on its full checkpoint; serving it with oneshot,
      fast and brick_mxu (tp on a 512^3 bake) at 256^2, and with oneshot
-     over the bake and brick_mxu at 800^2; checks and kernels-line
+     over the bake and brick_mxu on 10 test views at 800^2; checks and
+     kernels-line
      entries ("cli train", "cli oneshot", "cli fast", "cli brick_mxu")
      in phase12's notes;
  13. datasets on disk through the CLIs (phase13's notes): an NSVF
@@ -106,7 +107,8 @@ Phases:
      the kernels line (requests "nsvf", "scannet").  The image codec
      (csrc/image_codec.c) builds in phase 1 with the host C compiler;
  14. the other encoders and the block marcher through the CLIs (phase14's
-     notes): phase 12's training run with --xyz_encoder hash, freq or
+     notes): phase 12's training run (1024 steps for hash, 512 for the
+     others) with --xyz_encoder hash, freq or
      packed2, or --march block, then test_torch.py's oneshot on each
      checkpoint (block serving on the block rows); validate >= 25 dB
      (freq: above its train psnr at step 64); the kernel step against
@@ -126,11 +128,11 @@ Phases:
      reference leaves it to XLA;
  16. the cIMLE depth trainer (phase16's notes): depth_train_torch.py at
      the CLI's defaults (ResNeXt101-32x8d, encoder-site AdaIN at d_latent
-     32, crop 448, batch 2, 20 latents an image at the recache) on 8
+     32, crop 448, batch 2, 20 latents an image at the recache) on 4
      frames of phase 13's scan for 2 epochs, --resume from epoch 1, one
      full-width step on the card against the CPU (and float64), and
      depth_eval_torch.py --num_samples 10 --select loss on its final.npz
-     over 4 more frames; ms a step, recache ms, GFLOP, peak memory;
+     over 2 more frames; ms a step, recache ms, GFLOP, peak memory;
  17. the .sens chain (phase17's notes): phase 13's 28 frames packed into
      a v4 .sens by the port's write_sens (1296x968 colour JPEGs, 640x480
      zlib depth in mm, depth_shift 1000), decoded (the header; the
@@ -169,6 +171,16 @@ Phases:
      scaling figure), bytes all-reduced a step; P2/P3 of the phase's DP
      step on the kernels line (request "dp"), their launches over the
      whole phase (this process's DP path and both ranks').
+ 20. RTMV from OpenEXR frames (phase20's notes): an RTMV-layout scene
+     (the bricks subset's) of 110 views at 1600^2 of the textured scene,
+     ZIP-compressed HALF RGBA frames (tools/exr_fixture.py), every frame
+     decoded back bit for bit and one frame's decode timed; then
+     train_torch.main --dataset_name rtmv at opt.py's defaults for
+     DATA_STEPS steps (P2/P3), validate >= 25 dB, test_torch.run's
+     default renderer within 1 dB of validate, the kernel step against
+     the plain step (phase 9's bounds); P2/P3 on the kernels line
+     (request "rtmv"); the phase's seconds, the writer's share, peak host
+     and card memory.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -193,7 +205,9 @@ table gradient within P3_SUM_C sqrt(n) 2^-24 x the sum of |payload| of
 each (row, column) of the float64 sum of the same payloads, for a row of
 n payloads (the plain step's table gradient is an atomic f32 sum too, in
 its own order: held against it, two roundings add up).  Phase 14's
-kernel steps (hash, packed2) are held to the same bounds.  Phase
+kernel steps (hash, packed2) and those of phases 17 and 20 are held to
+the same bounds.  Phase 20's frames decode to the HALF samples written,
+bit for bit.  Phase
 10's frame against its plain frame: opacity 1e-4 per pixel and the
 counters equal; rgb 1e-4 per pixel on all but 0.01% of the pixels,
 which may differ by up to 2e-3
@@ -744,13 +758,17 @@ SPECS = {
                                tile_rows)}
 
 
+PLAIN_CALLS = 16     # calls the plain version is timed on (every call is
+                     # held against it)
+
+
 def measure(bf, name, calls, request, launches, reps, trained=False):
     """One kernel on every call its request made: held against the plain
     version (1e-4; on trained weights kernel_errors' trained rule, with
     the rays past 1e-4 in rgb over all the calls at most 0.01% of an
     800x800 frame's, as trained_frame_errors allows the frame), its
-    device time, wrapper time, plain time (one run of every call) and
-    bound.  Returns the kernels-line entry."""
+    device time, wrapper time, plain time (one run of each of the first
+    PLAIN_CALLS calls) and bound.  Returns the kernels-line entry."""
     kname, src, rows_of = SPECS[name]
     fn, plain_fn = getattr(bf, name), getattr(bf, name + "_plain")
     errs, works, flips = [], [], 0
@@ -772,7 +790,7 @@ def measure(bf, name, calls, request, launches, reps, trained=False):
              f"{reps * len(calls)})")
     if ms is None:                  # no device trace: the whole call
         ms, ms_by = call_ms, "CUDA events around the wrapper call"
-    plain_ms = time_calls(plain_fn, calls, reps=1)
+    plain_ms = time_calls(plain_fn, calls[:PLAIN_CALLS], reps=1)
     mean = lambda key: sum(w[key] for w in works) / len(works)  # noqa: E731
     entry = dict(
         name=name, route="cuda",
@@ -1453,14 +1471,32 @@ def phase11(state, tcfg, dev):
 CLI_STEPS = 1024            # opt.py's default is 30 epochs x 1000 steps
 # phase 13's runs, cut to half of CLI_STEPS to keep the script inside
 # its time limit as phases 17-18 joined (validated at 36.99-38.25
-# dB; phase 14's hash run validated at 16.51 dB after 512 steps, so
-# phase 14 keeps CLI_STEPS)
+# dB); phase 14's runs but hash's and phase 20's take it too
 DATA_STEPS = 512
 CLI_SCENE = ["--root_dir", "x", "--dataset_name", "synthetic",
              "--synthetic_style", "textured", "--downsample", "4"]
 VIEW_800 = ["--downsample", "12.5"]          # the test views at 800x800
+VIEWS_800 = 10     # test views of the 800^2 runs (the synthetic split: 50)
 # every tile of a chunk drainable, the drain lists unfiltered
 BRICK_EXACT = ["--brick_mxu_drain", "1024", "--brick_mxu_drain_xc", "0"]
+
+
+class synthetic_views:
+    """While the `with` block runs, the CLIs' synthetic dataset makes `n`
+    views a split (its default is 50): a cut of depth."""
+
+    def __init__(self, n):
+        import functools
+
+        from google_nerf_tpu_torch.data import dataset_dict
+        self.table, self.cls = dataset_dict, dataset_dict["synthetic"]
+        self.cut = functools.partial(self.cls, n_images=n)
+
+    def __enter__(self):
+        self.table["synthetic"] = self.cut
+
+    def __exit__(self, *exc):
+        self.table["synthetic"] = self.cls
 
 
 def reset_cli_counters(bf, probe):
@@ -1552,8 +1588,8 @@ def phase12(seed, steps=CLI_STEPS):
     --val_only on its full checkpoint; then test_torch.run on it with
     the renderers oneshot and fast, oneshot on fast's 1024-sample
     lattice, brick_mxu (512^3 bake, tp) at test.py's defaults; then, on
-    the test views at 800^2, oneshot over the 512^3 bake (--bake) and
-    brick_mxu with every tile drainable (BRICK_EXACT).  Each run has the
+    VIEWS_800 test views at 800^2, oneshot over the 512^3 bake (--bake)
+    and brick_mxu with every tile drainable (BRICK_EXACT).  Each run has the
     kernel counters at 0 just before it (read just after).  Checks: P2
     and P3 launched in training; the logged loss finite at every log
     line; the full and slim checkpoints written; validate's PSNR >= 25
@@ -1567,6 +1603,7 @@ def phase12(seed, steps=CLI_STEPS):
     800^2 brick_mxu run's first 160 calls join the kernels line
     (requests "cli train", "cli oneshot", "cli fast", "cli brick_mxu").
     Returns (summary, kernels-line entries)."""
+    import contextlib
     import os
     import tempfile
 
@@ -1581,8 +1618,9 @@ def phase12(seed, steps=CLI_STEPS):
     from google_nerf_tpu_torch.train import system as tsys
     argv = CLI_SCENE + ["--num_epochs", "1", "--steps_per_epoch", str(steps),
                         "--seed", str(seed), "--exp_name", "cli"]
-    cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000); "
-           "widths at opt.py's defaults")
+    cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000), "
+           f"{VIEWS_800} test views at 800^2 (the split: 50); widths at "
+           "opt.py's defaults")
     print(f"phase 12: {cut}", flush=True)
     summary, entries = dict(cut=cut, steps=steps), []
     cwd = os.getcwd()
@@ -1665,8 +1703,14 @@ def phase12(seed, steps=CLI_STEPS):
                 reset_cli_counters(bf, probe)
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.time()
-                run = lambda: test_torch.run(get_opts(  # noqa: E731
-                    argv + ["--renderer", r, "--ckpt_path", ckdir] + extra))
+                views = (synthetic_views(VIEWS_800) if VIEW_800[1] in extra
+                         else contextlib.nullcontext())
+
+                def run():
+                    with views:
+                        return test_torch.run(get_opts(
+                            argv + ["--renderer", r, "--ckpt_path", ckdir]
+                            + extra))
                 if request is None:
                     out, kept = run(), {}
                     torch.cuda.synchronize()
@@ -2122,6 +2166,10 @@ ENCODER_RUNS = (
     ("block", ["--march", "block"], "packed_hash",
      ("gather_rows", "scatter_add_rows"), "packed_table"))
 EARLY_STEP = 64             # the freq run's train psnr is compared here
+# the hash run keeps CLI_STEPS (it validated at 16.51 dB after 512); the
+# others take DATA_STEPS to keep the script inside its time limit as
+# phase 20 joined
+HASH_STEPS = CLI_STEPS
 
 
 def steps_metrics(tsys, at, run):
@@ -2143,16 +2191,17 @@ def steps_metrics(tsys, at, run):
         tsys.fused_train_step = step_fn
 
 
-def restored_state(argv, ckpt, dev):
+def restored_state(argv, ckpt, dev, split=None):
     """The train state of a checkpoint written by train_torch.main(argv),
-    its marching tables repacked, and the run's scene and config."""
+    its marching tables repacked, and the scene of the run's split (or of
+    `split`) and config."""
     import train_torch
     from google_nerf_tpu_torch.opt import get_opts
     from google_nerf_tpu_torch.train import system as tsys
     from google_nerf_tpu_torch.utils.ckpt import load_ckpt
     hp = get_opts(argv)
     cfg = train_torch.build_configs(hp)
-    ds = train_torch.make_dataset(hp, hp.split, dev)
+    ds = train_torch.make_dataset(hp, split or hp.split, dev)
     state = tsys.init_train_state(cfg, ds.K, ds.poses, ds.img_wh,
                                   generator=torch.Generator().manual_seed(0),
                                   device=dev)
@@ -2161,17 +2210,18 @@ def restored_state(argv, ckpt, dev):
     return state, ds.scene(), cfg
 
 
-def phase14(seed, steps=CLI_STEPS):
+def phase14(seed, steps=DATA_STEPS):
     """The other xyz encoders and the one-phase block marcher through the
     CLIs, in a temporary directory, each as phase 12's training run
     (train_torch.main at opt.py's defaults on the textured scene at 256^2,
-    1 epoch of `steps`) with one flag changed: --xyz_encoder hash (16
-    levels of 2^19 x 2, P3 for the table gradient; its forward gather is
-    index_select, as JAX's is XLA's), freq (12 bands, no table, no
-    kernel), packed2 (4 pair tables of 2^16 x 70, P2 on a copy padded to
-    72 columns, P3) and --march block (the packed encoder, P2 and P3);
-    then test_torch.run's default renderer (oneshot) on each slim
-    checkpoint, with --march block serving on the block rows.  The kernel
+    1 epoch of `steps`, HASH_STEPS for hash) with one flag changed:
+    --xyz_encoder hash (16 levels of 2^19 x 2, P3 for the table
+    gradient; its forward gather is index_select, as JAX's is XLA's),
+    freq (12 bands, no table, no kernel), packed2 (4 pair tables of
+    2^16 x 70, P2 on a copy padded to 72 columns, P3) and --march block
+    (the packed encoder, P2 and P3); then test_torch.run's default
+    renderer (oneshot) on each slim checkpoint, with --march block
+    serving on the block rows.  The kernel
     counters are at 0 just before each run (read just after).
 
     Checks: P2/P3 launched in training where the encoder calls them;
@@ -2195,8 +2245,8 @@ def phase14(seed, steps=CLI_STEPS):
     from google_nerf_tpu_torch.ops.cuda import probe
     from google_nerf_tpu_torch.train import system as tsys
     dev = torch.device("cuda")
-    cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000); "
-           "widths at opt.py's defaults")
+    cut = (f"depth cut: 1 epoch of {HASH_STEPS} steps for hash, {steps} "
+           "for the others (opt.py: 30 x 1000); widths at opt.py's defaults")
     print(f"phase 14: {cut}", flush=True)
     summary, entries = dict(cut=cut, steps=steps), []
     cwd = os.getcwd()
@@ -2204,8 +2254,9 @@ def phase14(seed, steps=CLI_STEPS):
         os.chdir(tmp)
         try:
             for label, flags, modname, names, table in ENCODER_RUNS:
+                n_steps = HASH_STEPS if label == "hash" else steps
                 argv = CLI_SCENE + flags + [
-                    "--num_epochs", "1", "--steps_per_epoch", str(steps),
+                    "--num_epochs", "1", "--steps_per_epoch", str(n_steps),
                     "--seed", str(seed), "--exp_name", label,
                     "--no_save_test"]
                 mod = (importlib.import_module(
@@ -2234,7 +2285,7 @@ def phase14(seed, steps=CLI_STEPS):
                 else:
                     check(logs["psnr"] >= 25.0, f"phase 14: {label} "
                           f"validate psnr {logs['psnr']} < 25 dB")
-                print(f"phase 14: {label}: {steps} steps in {wall:.1f} s "
+                print(f"phase 14: {label}: {n_steps} steps in {wall:.1f} s "
                       f"(with setup and validate); {logs.get('ms_per_step')}"
                       f" ms/step net of warm-up, {logs.get('rays_per_sec')} "
                       f"rays/s; train psnr at step {EARLY_STEP} {early:.3f};"
@@ -2506,7 +2557,8 @@ def phase15(seed, scan=None):
 
 # ------------------------------ phase 16: the cIMLE depth trainer, LeReS
 
-DEPTH_TRAIN_FRAMES = (8, 4)       # train, test frames of phase 13's scan
+DEPTH_TRAIN_FRAMES = (4, 2)       # train, test frames of phase 13's scan
+                                  # (8, 4 until phase 20 joined)
 DEPTH_F64_REL = 1e-9              # card vs CPU float64 step, each tensor
 DEPTH_F32_TENSOR = 6e-2           # card float32 vs float64, each tensor
 DEPTH_F32_GLOBAL = 5e-2           # and over all (card_vs_cpu_step)
@@ -3702,6 +3754,291 @@ def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
     return summary, entries
 
 
+# ------------------------- phase 20: an RTMV scene of OpenEXR frames
+
+RTMV_VIEWS = 110      # the fewest with a test view under the 100/5/45
+                      # split (test starts at 105); RTMV: 150 a scene
+RTMV_WH = 1600        # RTMV's frames are 1600x1600
+RTMV_FOCAL = 1600.0   # pixels: a 53-degree field of view, as phase 13's
+RTMV_RADIUS = 2.0     # the cameras' distance: the object fills the middle
+                      # third of a frame
+RTMV_SHIFT = (0.1, -0.2, 0.3)   # the scene box's centre in the files'
+                                # frame (the bricks subset's rescale)
+RTMV_MARCH = 0.4      # half-side of the cube the integrator marches: the
+                      # objects, displaced, lie within 0.352 of the centre
+                      # (26% of the rays enter it; 43% the 0.5 box)
+
+
+def render_box_hits(dirs, pose, dev):
+    """render_views' integrator (the textured scene, 512 steps) over the
+    cube of half-side RTMV_MARCH, on the rays of one pose that enter it,
+    in chunks; the others are empty, as the integrator makes them (no
+    weight).  -> (HW, 4) premultiplied rgb + alpha as numpy."""
+    from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.data.synthetic import _integrate_gt
+    from google_nerf_tpu_torch.ops.ray_aabb import (clamp_near,
+                                                    ray_aabb_intersect)
+    o, d = get_rays(dirs, torch.as_tensor(pose, device=dev))
+    hits = clamp_near(ray_aabb_intersect(
+        o, d / torch.linalg.norm(d, dim=-1, keepdim=True), torch.zeros(3),
+        torch.full((3,), RTMV_MARCH)), 0.05)
+    idx = torch.nonzero(hits[:, 0] >= 0)[:, 0]
+    out = torch.zeros(o.shape[0], 4, device=dev)
+    chunk = 1 << 17      # (chunk, 512, 4-object) intermediates ~4 GB
+    for i in range(0, idx.numel(), chunk):
+        j = idx[i:i + chunk]
+        out[j] = _integrate_gt(o[j], d[j], scale=RTMV_MARCH,
+                               style="textured")
+    return out.cpu().numpy()
+
+
+class PeakRss:
+    """The process's peak resident memory while the `with` block runs,
+    sampled from /proc/self/statm every 50 ms (GiB)."""
+
+    def __enter__(self):
+        import os
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak, self.stop = self.rss(), threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 2 ** 30
+
+    def sample(self):
+        while not self.stop.wait(0.05):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.peak = max(self.peak, self.rss())
+
+
+def write_rtmv_scene(root, seed, dev):
+    """An RTMV-layout scene of the textured procedural scene (the bricks
+    subset's layout): <i>.json camera_data (cam2world in OpenGL axes,
+    stored transposed, the intrinsics, the scene's 3-D box) and
+    images/<i>.exr, ZIP-compressed HALF RGBA of straight colour with
+    alpha the integrator's opacity, as phase 13's PNGs (render_box_hits).
+    Cameras at RTMV_RADIUS on a Fibonacci sphere, shuffled from `seed`
+    so the test views sit among the train views.  The box is the cube of
+    half-side 0.5 / 1.05 about RTMV_SHIFT, so the loader's rescale,
+    (t - centre) / (2 x 0.5), maps the files' poses onto the scene's.
+    Rendering on the card overlaps the host's work on the frame before
+    (one writer thread: straight colour, HALF, then the file, its chunks
+    compressed on 8 threads).  Returns (the HALF frames written, by path;
+    render seconds; the writer thread's seconds)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from google_nerf_tpu_torch.data.base import directions_of
+    from google_nerf_tpu_torch.data.synthetic import _fibonacci_poses
+    from google_nerf_tpu_torch.tools.exr_fixture import write_exr
+    os.makedirs(os.path.join(root, "images"))
+    views, wh = RTMV_VIEWS, RTMV_WH
+    K = np.float32([[RTMV_FOCAL, 0, wh / 2], [0, RTMV_FOCAL, wh / 2],
+                    [0, 0, 1]])
+    dirs = torch.as_tensor(directions_of(wh, wh, K), device=dev)
+    poses = _fibonacci_poses(views, RTMV_RADIUS, seed)[
+        np.random.RandomState(seed).permutation(views)]
+    shift = np.asarray(RTMV_SHIFT)
+    r = 0.5 / 1.05
+    box = dict(scene_center_3d_box=shift.tolist(),
+               scene_min_3d_box=(shift - r).tolist(),
+               scene_max_3d_box=(shift + r).tolist())
+    write_s = [0.0]
+
+    def write(path, rgba):
+        t0 = time.time()
+        a = np.clip(rgba[:, 3], 0.0, 1.0)
+        rgb = np.where(a[:, None] > 1 / 510, rgba[:, :3]
+                       / np.maximum(a[:, None], 1e-6), 0.0)
+        img = np.clip(np.concatenate([rgb, a[:, None]], -1), 0.0, 1.0
+                      ).reshape(wh, wh, 4).astype(np.float16)
+        write_exr(path, img, compression="ZIP", pixel_type="HALF")
+        write_s[0] += time.time() - t0
+        return img
+
+    render_s = 0.0
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        pending = []
+        for i in range(views):
+            t0 = time.time()
+            rgba = render_box_hits(dirs, poses[i], dev)
+            render_s += time.time() - t0
+            path = os.path.join(root, "images", f"{i:05d}.exr")
+            pending.append((path, writer.submit(write, path, rgba)))
+            gl = _homog(poses[i]).astype(np.float64)
+            gl[:3, 3] += shift
+            gl[:3, 1:3] *= -1                          # rdf -> OpenGL
+            cam = dict(cam2world=gl.T.tolist(), width=wh, height=wh,
+                       intrinsics=dict(fx=RTMV_FOCAL, fy=RTMV_FOCAL,
+                                       cx=wh / 2, cy=wh / 2), **box)
+            with open(os.path.join(root, f"{i:05d}.json"), "w") as f:
+                json.dump(dict(camera_data=cam), f)
+        written = {path: job.result() for path, job in pending}
+    return written, render_s, write_s[0]
+
+
+def decode_rtmv_frames(written):
+    """Every frame read back (8 threads) against the HALF samples
+    written, bit for bit; then one frame's decode timed (median of 3).
+    Returns (frames that differ, decode ms a frame)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from google_nerf_tpu_torch.utils.image import read_image
+
+    def same(path):
+        got = read_image(path)
+        want = written[path].astype(np.float32)
+        return got.shape == want.shape and np.array_equal(
+            got.view(np.uint32), want.view(np.uint32))
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        bad = [p for p, ok in zip(written, pool.map(same, written))
+               if not ok]
+    first = next(iter(written))
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        read_image(first)
+        times.append(1e3 * (time.time() - t0))
+    return bad, statistics.median(times)
+
+
+def phase20(seed, steps=DATA_STEPS):
+    """RTMV from OpenEXR frames through the CLIs, in a temporary
+    directory: write_rtmv_scene (RTMV_VIEWS views at RTMV_WH^2, cut in
+    depth only: RTMV has 150 a scene); every frame decoded back bit for
+    bit; train_torch.main --dataset_name rtmv at opt.py's defaults (full
+    width, --downsample 1.0) for `steps` steps with the kernel counters
+    at 0 just before (read just after); validate; test_torch.run's
+    default renderer on the slim checkpoint; one step from the trained
+    state on a batch of the test views with the kernels against the
+    plain step (phase 9's bounds, P3_SUM_C).  Checks: the decode exact; the logged losses finite;
+    validate PSNR >= 25 dB; P2 and P3 launched in training and P2 in
+    serving; test_torch's PSNR within 1 dB of validate's.  P2/P3 of the
+    last training step join the kernels line (request "rtmv").  Reports
+    the phase's seconds, the writer's share, the EXR decode ms of one
+    frame, ms a step, rays/s, and the peak host and device memory.
+    Returns (summary, kernels-line entries)."""
+    import os
+    import tempfile
+
+    import test_torch
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    cut = (f"depth cut: {RTMV_VIEWS} views at {RTMV_WH}^2 (RTMV: 150), 1 "
+           f"epoch of {steps} steps (opt.py: 30 x 1000); widths at opt.py's "
+           "defaults")
+    print(f"phase 20: {cut}", flush=True)
+    summary = dict(cut=cut)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, PeakRss() as rss:
+        os.chdir(tmp)
+        try:
+            root = os.path.join(tmp, "data", "rtmv", "bricks", "procedural")
+            t0 = time.time()
+            written, render_s, write_s = write_rtmv_scene(root, seed, dev)
+            scene_s = time.time() - t0
+            bad, decode_ms = decode_rtmv_frames(written)
+            frames = len(written)
+            del written
+            check(not bad, f"phase 20: {len(bad)} EXR frames decoded "
+                  f"otherwise than written: {bad[:3]}")
+            summary.update(frames=frames, scene_s=scene_s, render_s=render_s,
+                           write_s=write_s, exr_decode_ms=decode_ms)
+            print(f"phase 20: {frames} EXR frames written in {scene_s:.1f} s "
+                  f"(render {render_s:.1f} s on the card, writer thread "
+                  f"{write_s:.1f} s beside it), each decoded back bit "
+                  f"for bit; decode of one {RTMV_WH}^2 frame {decode_ms:.1f} "
+                  "ms", flush=True)
+
+            argv = ["--root_dir", root, "--dataset_name", "rtmv",
+                    "--exp_name", "rtmv", "--num_epochs", "1",
+                    "--steps_per_epoch", str(steps), "--seed", str(seed)]
+            reset_cli_counters(bf, probe)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            logs, kept = kept_training(
+                tsys, ph, lambda: train_torch.main(get_opts(argv)))
+            launches = cli_counters(bf, probe)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            for k in ("gather_rows_bf16", "scatter_add_rows"):
+                check(launches[k] > 0,
+                      f"phase 20: {k} not launched by the training")
+            recs = [json.loads(line) for line in
+                    open("results/rtmv/rtmv/logs/scalars.jsonl")]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            check(len(losses) == steps // 100 and all(
+                math.isfinite(v) for v in losses),
+                f"phase 20: logged losses {losses}")
+            check(logs["psnr"] >= 25.0,
+                  f"phase 20: validate psnr {logs['psnr']} < 25 dB")
+            print(f"phase 20: {steps} steps in {wall:.1f} s (with load and "
+                  f"validate); {logs.get('ms_per_step')} ms/step net of "
+                  f"warm-up, {logs.get('rays_per_sec')} rays/s; validate "
+                  f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; peak "
+                  f"{peak:.2f} GiB on the card; launches {launches}",
+                  flush=True)
+            entries = train_probe_entries(probe, kept, launches, "rtmv",
+                                          "phase 20")
+            del kept
+
+            reset_cli_counters(bf, probe)
+            served = test_torch.run(get_opts(
+                argv + ["--ckpt_path", "ckpts/rtmv/rtmv/epoch=0_slim"]))
+            torch.cuda.synchronize()
+            sl = cli_counters(bf, probe)
+            check(sl["gather_rows_bf16"] > 0,
+                  "phase 20: P2 not launched by test_torch")
+            gap = abs(served["psnr"] - logs["psnr"])
+            check(gap <= 1.0, f"phase 20: test_torch psnr {served['psnr']}, "
+                  f"{gap} dB from validate's")
+            print(f"phase 20: test_torch: mean psnr {served['psnr']:.3f} "
+                  f"({gap:.3f} dB from validate), fps {served['fps']:.2f}; "
+                  f"launches {sl}", flush=True)
+
+            # the step draws its batch from the 5 test views: the 3.1 GB
+            # of train rays are not loaded again
+            state, scene, cfg = restored_state(
+                argv, "ckpts/rtmv/rtmv/epoch=0", dev, "test")
+            draws = draws_of(torch.Generator(device=dev).manual_seed(
+                seed + 20), scene, cfg, dev)
+            step_errs, _ = kernel_vs_plain_step(
+                tsys, ph, probe, state, scene, cfg, draws, tag="phase 20")
+            del state, scene
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    summary.update(
+        train_wall_s=wall, ms_per_step=logs.get("ms_per_step"),
+        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
+        ssim=logs["ssim"], launches=launches, peak_gib=peak,
+        peak_host_gib=rss.peak, serve=dict(served, launches=sl, gap_db=gap),
+        kernel_vs_plain_step=step_errs, seconds=time.time() - t_phase)
+    summary["writer_share"] = summary["scene_s"] / summary["seconds"]
+    print(f"phase 20: kernel step vs plain step {step_errs}; phase "
+          f"{summary['seconds']:.1f} s, the scene's writing "
+          f"{summary['scene_s']:.1f} s of it "
+          f"({100 * summary['writer_share']:.1f}%); peak host memory "
+          f"{rss.peak:.2f} GiB (the process), card {peak:.2f} GiB",
+          flush=True)
+    return summary, entries
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3727,7 +4064,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.time()
+    started = {}        # phase -> seconds since the start, where it began
 
+    def begin(phase):
+        started[phase] = round(time.time() - t_start, 1)
+        print(f"phase {phase} begins at {started[phase]} s", flush=True)
+
+    begin(1)
     # ---- 1: card and build
     card = card_line()
     print(card, flush=True)            # name, power limit as nvidia-smi says
@@ -3742,11 +4085,13 @@ def main():
               + "; ".join(l.split("info    : ")[-1] for l in log.splitlines()
                           if "registers" in l or "spill" in l), flush=True)
 
+    begin(2)
     # ---- 2: kernels against plain versions at serving widths
     errs2 = phase2(bf, args.seed, dev)
     print(f"phase 2: kernels vs plain and golden at serving widths, max abs "
           f"err {errs2}", flush=True)
 
+    begin(3)
     # ---- 3: the wl256 request at full width
     cfg = bench_torch.model_config()          # bench.py:92-93
     params = init_ngp(torch.Generator().manual_seed(args.seed), cfg, dev)
@@ -3782,6 +4127,7 @@ def main():
     print(f"phase 3: wl256 {counters_of(frame)}; launches {launches_a}; "
           f"mean opacity {float(frame['opacity'].mean()):.4f}", flush=True)
 
+    begin(4)
     # ---- 4: the same frame through the plain versions
     plain = plain_frame(rbm, bf, ("brick_field_tiles_wl",
                                   "brick_field_tiles_tp"), serve)
@@ -3789,6 +4135,7 @@ def main():
     print(f"phase 4: plain frame rgb MAE {mae:.3e}, rgb max diff "
           f"{dmax:.3e}, opacity max diff {dop:.3e}", flush=True)
 
+    begin(5)
     # ---- 5: a budget cut below the segment load, so the drain runs
     real_groups = int((wl_calls[0][0][10] > 0).sum())
     cut = max(real_groups - 40, 1)
@@ -3804,6 +4151,7 @@ def main():
         frame_errors(drained, frame, "drained frame vs uncut",
                      counters=("pairs_rendered",))
 
+    begin(6)
     # ---- 6: wl256 timings; K1 on every call of the request
     torch.cuda.reset_peak_memory_stats()
     wl_ms = frame_ms(serve, 3)
@@ -3814,6 +4162,7 @@ def main():
     kernels = [measure(bf, "brick_field_tiles_wl", wl_calls, "wl256",
                        launches_a["brick_field_tiles_wl"], reps=20)]
 
+    begin(7)
     # ---- 7: the 512^3 bake and the per-chunk requests
     del baked, geo, plain, drained
     bcfg5 = BakedConfig(voxel_res=512, block=8, dtype="bfloat16")
@@ -3886,16 +4235,20 @@ def main():
     kernels = sorted(kernels, key=lambda e: KERNELS.index(e["name"]))
     kernels[KERNELS.index("brick_field_tiles_tp")]["launches_wl256"] = \
         launches_a["brick_field_tiles_tp"]
+    begin(8)
     kernels += phase8(args.seed)
     gt = torch.as_tensor(ds.rays[0], device=dev)
     del baked5, geo5, frames
     torch.cuda.empty_cache()
 
+    begin(9)
     # ---- 9: train bench.py's recipe; 10: serve the trained state
     state, tcfg, train, train_kernels = phase9(args.seed, dev)
     kernels += train_kernels
+    begin(10)
     served = phase10(state, tcfg, o, d, gt, dev)
 
+    begin(11)
     # ---- 11: bench.py's serving stages on the trained state
     stages, bench_keys, stage_kernels = phase11(state, tcfg, dev)
     kernels += stage_kernels
@@ -3903,10 +4256,12 @@ def main():
     del state
     torch.cuda.empty_cache()
 
+    begin(12)
     # ---- 12: train_torch.py -> test_torch.py at opt.py's defaults
     cli, cli_kernels = phase12(args.seed)
     kernels += cli_kernels
 
+    begin(13)
     # ---- 13: datasets on disk: NSVF and ScanNet through the CLIs
     scan_tmp = tempfile.TemporaryDirectory()     # phase 15 reads the scan
     t13 = time.time()
@@ -3914,30 +4269,42 @@ def main():
     data["seconds"] = time.time() - t13
     kernels += data_kernels
 
+    begin(14)
     # ---- 14: the other encoders and the block marcher through the CLIs
     t14 = time.time()
     encoders, encoder_kernels = phase14(args.seed)
     encoders["seconds"] = time.time() - t14
     kernels += encoder_kernels
 
+    begin(15)
     # ---- 15: the depth-prior path on phase 13's scan
     t15 = time.time()
     depth = phase15(args.seed, scan)
     depth["seconds"] = time.time() - t15
 
+    begin(16)
     # ---- 16: the cIMLE depth trainer on phase 13's scan
     depth_train = phase16(args.seed, scan)
 
+    begin(17)
     # ---- 17: phase 13's scan as a .sens through scannet_tools and
     # training; 18: the shape refiner on its frames
     sens_chain, sens_kernels = phase17(args.seed, scan)
     kernels += sens_kernels
+    begin(18)
     shape = phase18(args.seed, scan)
     scan_tmp.cleanup()
 
+    begin(19)
     # ---- 19: data-parallel training and serving on the one card
     dp_run, dp_kernels = phase19(args.seed, trained)
     kernels += dp_kernels
+
+    begin(20)
+    # ---- 20: an RTMV scene of OpenEXR frames through the CLIs
+    rtmv, rtmv_kernels = phase20(args.seed)
+    kernels += rtmv_kernels
+    begin("end")
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
               f"{r} median {statistics.median(s['frame_ms']):.2f} ms"
@@ -3980,7 +4347,10 @@ def main():
           f"plain {statistics.mean(dp_run['world1']['step_ms']['plain']):.3f}"
           f" ms, at world 2 on one card {dp_run['world2']['step_ms'][0]:.3f}"
           f" ms (not a scaling figure), phase 19 {dp_run['seconds']:.0f} s; "
-          "total "
+          f"rtmv: EXR decode {rtmv['exr_decode_ms']:.1f} ms a frame, "
+          f"{rtmv['ms_per_step']} ms/step, validate psnr {rtmv['psnr']:.2f}, "
+          f"served {rtmv['serve']['psnr']:.2f}, phase 20 "
+          f"{rtmv['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -3995,7 +4365,8 @@ def main():
                   bench_keys=bench_keys, cli=cli, datasets=data,
                   encoders=encoders, depth=depth,
                   depth_train=depth_train, sens_chain=sens_chain,
-                  shape=shape, dp=dp_run, kernels=kernels)
+                  shape=shape, dp=dp_run, rtmv=rtmv, phase_began_s=started,
+                  kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

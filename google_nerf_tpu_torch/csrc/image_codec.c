@@ -1,28 +1,44 @@
-/* Host image codec of the PyTorch port: PNG unfiltering, baseline JPEG
- * decoding and baseline JPEG encoding, behind a plain C interface that
- * utils/image.py loads with ctypes.
+/* Host image codec of the PyTorch port: PNG unfiltering, JPEG decoding
+ * (baseline and progressive), baseline JPEG encoding and OpenEXR
+ * decoding, behind a plain C interface that utils/image.py loads with
+ * ctypes.
  *
  * PNG: zlib inflation stays in Python; png_unfilter undoes the per-row
  * filters 0-4 (and the Adam7 interlace) of the inflated stream.
  *
  * JPEG decoding follows libjpeg(-turbo)'s default path so that the
- * samples equal what it gives: the integer "islow" IDCT (jidctint.c),
- * "fancy" triangle upsampling of 2h1v and 2h2v chroma (jdsample.c, with
- * the first and last sample rows repeated as context) and the fixed-point
- * YCbCr->RGB conversion of jdcolor.c.  Sequential Huffman scans only
- * (SOF0/SOF1, 8-bit, 1 or 3 components, interleaved or not, restart
- * intervals); progressive, lossless, hierarchical, arithmetic-coded and
- * 12-bit files are refused with the mode's name.
+ * samples equal what it gives: every scan's Huffman data lands in one
+ * int16 coefficient block per 8x8 block of each component (jdhuff.c for
+ * sequential scans, jdphuff.c's four progressive scan kinds: DC first,
+ * DC refinement, AC first and AC refinement, with EOB runs); after the
+ * last scan each block is dequantised by the table latched at its
+ * component's first scan and goes through the integer "islow" IDCT
+ * (jidctint.c), then "fancy" triangle upsampling of 2h1v and 2h2v chroma
+ * (jdsample.c, with the first and last sample rows repeated as context)
+ * and the fixed-point YCbCr->RGB conversion of jdcolor.c.  Huffman-coded
+ * 8-bit files of 1 or 3 components (SOF0, SOF1, SOF2; interleaved or
+ * not; restart intervals; tables redefined between scans).  Lossless,
+ * hierarchical, arithmetic-coded and 12-bit files are refused with the
+ * mode's name.
  *
  * JPEG encoding: baseline, 4:2:0 (or one gray component), the Annex K
  * quantisation tables scaled by libjpeg's quality rule and the Annex K
  * Huffman tables; a float DCT with rounding to the nearest level.
+ *
+ * OpenEXR: single-part scanline files (the OpenEXR file layout: magic and
+ * version, header attributes, offset table, chunks of y, size and data),
+ * HALF (widened exactly) or FLOAT channels R,G,B[,A] or Y, compressed
+ * NO, RLE, ZIPS or ZIP (zlib, then OpenEXR's byte predictor and the
+ * de-interleave of the two halves).  Other compressions, UINT or
+ * subsampled channels, and tiled, multi-part, deep or long-name files are
+ * refused with the mode's name.
  */
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <zlib.h>
 
 /* ------------------------------------------------------------------ PNG */
 
@@ -161,6 +177,9 @@ typedef struct {
   int bw, bh;         /* blocks per row and column of the padded plane */
   int dw, dh;         /* downsampled size (libjpeg's downsampled_width) */
   uint8_t *plane;     /* bw*8 x bh*8 samples */
+  int16_t *coef;      /* bw x bh blocks of 64 coefficients, natural order */
+  uint16_t q[64];     /* the table latched at the component's first scan */
+  int latched;
   int pred, td, ta;
 } Comp;
 
@@ -172,7 +191,7 @@ typedef struct {
 
 typedef struct {
   int w, h, nc, hmax, vmax, mcux, mcuy, restart, adobe, adobe_transform;
-  int jfif, have_frame;
+  int jfif, have_frame, progressive;
   Comp comp[4];
   uint16_t q[4][64]; /* natural order */
   Huff dc[4], ac[4];
@@ -448,7 +467,8 @@ static int parse_frame(Jpeg *j, const uint8_t *p, int len) {
     c->dw = (int)(((long)j->w * c->h + j->hmax - 1) / j->hmax);
     c->dh = (int)(((long)j->h * c->v + j->vmax - 1) / j->vmax);
     c->plane = calloc((size_t)c->bw * 8 * c->bh * 8, 1);
-    if (!c->plane) return fail(j, "out of memory");
+    c->coef = calloc((size_t)c->bw * c->bh * 64, sizeof(int16_t));
+    if (!c->plane || !c->coef) return fail(j, "out of memory");
   }
   j->have_frame = 1;
   return 0;
@@ -483,29 +503,117 @@ static int parse_dht(Jpeg *j, const uint8_t *p, int len) {
   return 0;
 }
 
-static int decode_block(Jpeg *j, Bits *b, Comp *c, uint8_t *out,
-                        int stride) {
-  int coef[64];
-  const uint16_t *q = j->q[c->tq];
-  memset(coef, 0, sizeof coef);
+/* The scan's successive-approximation parameters (Ss..Se, Ah, Al) and
+ * the EOB run that AC scans carry from block to block. */
+typedef struct {
+  int ss, se, ah, al, eobrun;
+} Scan;
+
+/* A sequential block (jdhuff.c decode_mcu): DC difference, then AC
+ * run/size pairs up to EOB. */
+static void block_seq(Jpeg *j, Bits *b, Comp *c, int16_t *blk) {
   int t = huff_decode(b, &j->dc[c->td]);
-  int diff = t ? extend(get_bits(b, t), t) : 0;
-  c->pred += diff;
-  coef[0] = c->pred * q[0];
+  c->pred += t ? extend(get_bits(b, t), t) : 0;
+  blk[0] = (int16_t)c->pred;
   const Huff *ac = &j->ac[c->ta];
   for (int k = 1; k < 64; k++) {
     int rs = huff_decode(b, ac), r = rs >> 4, s = rs & 15;
     if (s) {
       k += r;
-      int z = natural(k);
-      coef[z] = extend(get_bits(b, s), s) * q[z];
+      blk[natural(k)] = (int16_t)extend(get_bits(b, s), s);
     } else {
       if (r != 15) break;
       k += 15;
     }
   }
-  idct_islow(coef, out, stride);
-  return 0;
+}
+
+/* jdphuff.c decode_mcu_DC_first and decode_mcu_DC_refine */
+static void block_dc(Jpeg *j, Bits *b, Comp *c, int16_t *blk,
+                     const Scan *sc) {
+  if (sc->ah) {
+    if (get_bits(b, 1)) blk[0] |= (int16_t)(1 << sc->al);
+    return;
+  }
+  int t = huff_decode(b, &j->dc[c->td]);
+  c->pred += t ? extend(get_bits(b, t), t) : 0;
+  blk[0] = (int16_t)((unsigned)c->pred << sc->al);
+}
+
+/* jdphuff.c decode_mcu_AC_first: the band Ss..Se at point transform Al;
+ * an EOBn symbol ends this block and the next EOBRUN - 1. */
+static void block_ac_first(Jpeg *j, Bits *b, Comp *c, int16_t *blk,
+                           Scan *sc) {
+  if (sc->eobrun > 0) {
+    sc->eobrun--;
+    return;
+  }
+  const Huff *ac = &j->ac[c->ta];
+  for (int k = sc->ss; k <= sc->se; k++) {
+    int rs = huff_decode(b, ac), r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      blk[natural(k)] = (int16_t)((unsigned)extend(get_bits(b, s), s)
+                                  << sc->al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      sc->eobrun = (1 << r) - 1 + (r ? get_bits(b, r) : 0);
+      break;
+    }
+  }
+}
+
+/* One correction bit for a coefficient already nonzero: if set, and the
+ * bit at p1 is not yet in the magnitude, move it away from zero by p1. */
+static void refine_bit(Bits *b, int16_t *v, int p1) {
+  if (get_bits(b, 1) && !(*v & p1)) *v += (int16_t)(*v >= 0 ? p1 : -p1);
+}
+
+/* jdphuff.c decode_mcu_AC_refine: correction bits for the band's nonzero
+ * coefficients, and new coefficients of magnitude 1 << Al placed after
+ * `r` zero-history coefficients; within an EOB run only correction bits
+ * are read. */
+static void block_ac_refine(Jpeg *j, Bits *b, Comp *c, int16_t *blk,
+                            Scan *sc) {
+  int p1 = 1 << sc->al, k = sc->ss;
+  const Huff *ac = &j->ac[c->ta];
+  if (sc->eobrun == 0) {
+    for (; k <= sc->se; k++) {
+      int rs = huff_decode(b, ac), r = rs >> 4, s = rs & 15;
+      if (s) {
+        s = get_bits(b, 1) ? p1 : -p1;
+      } else if (r != 15) {
+        sc->eobrun = (1 << r) + (r ? get_bits(b, r) : 0);
+        break;
+      }
+      do {
+        int16_t *v = blk + natural(k);
+        if (*v) {
+          refine_bit(b, v, p1);
+        } else if (--r < 0) {
+          break;
+        }
+        k++;
+      } while (k <= sc->se);
+      if (s) blk[natural(k)] = (int16_t)s;
+    }
+  }
+  if (sc->eobrun > 0) {
+    for (; k <= sc->se; k++) {
+      int16_t *v = blk + natural(k);
+      if (*v) refine_bit(b, v, p1);
+    }
+    sc->eobrun--;
+  }
+}
+
+static void decode_block(Jpeg *j, Bits *b, Comp *c, int16_t *blk,
+                         Scan *sc) {
+  if (!j->progressive) block_seq(j, b, c, blk);
+  else if (sc->ss == 0) block_dc(j, b, c, blk, sc);
+  else if (sc->ah) block_ac_refine(j, b, c, blk, sc);
+  else block_ac_first(j, b, c, blk, sc);
 }
 
 /* Find the next marker at or after p (skipping fill bytes). */
@@ -525,6 +633,16 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
     fail(j, "bad SOS segment");
     return NULL;
   }
+  Scan scan = {p[1 + 2 * ns], p[2 + 2 * ns], p[3 + 2 * ns] >> 4,
+               p[3 + 2 * ns] & 15, 0};
+  int dc_scan = !j->progressive || scan.ss == 0;
+  int ac_scan = !j->progressive || scan.ss > 0;
+  if (j->progressive &&
+      (scan.se > 63 || scan.al > 13 || (scan.ss == 0 && scan.se != 0) ||
+       (scan.ss > 0 && (scan.se < scan.ss || ns != 1)))) {
+    fail(j, "bad progressive scan parameters");
+    return NULL;
+  }
   for (int i = 0; i < ns; i++) {
     int id = p[1 + 2 * i], k;
     for (k = 0; k < j->nc && j->comp[k].id != id; k++) {
@@ -537,8 +655,14 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
     sc[i]->td = p[2 + 2 * i] >> 4;
     sc[i]->ta = p[2 + 2 * i] & 15;
     sc[i]->pred = 0;
-    if (sc[i]->td > 3 || sc[i]->ta > 3 || !j->dc[sc[i]->td].defined ||
-        !j->ac[sc[i]->ta].defined) {
+    if (!sc[i]->latched) {
+      memcpy(sc[i]->q, j->q[sc[i]->tq], sizeof sc[i]->q);
+      sc[i]->latched = 1;
+    }
+    int need_dc = dc_scan && !(j->progressive && scan.ah);
+    if (sc[i]->td > 3 || sc[i]->ta > 3 ||
+        (need_dc && !j->dc[sc[i]->td].defined) ||
+        (ac_scan && !j->ac[sc[i]->ta].defined)) {
       fail(j, "scan uses an undefined Huffman table");
       return NULL;
     }
@@ -561,27 +685,41 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
       b.buf = 0;
       b.cnt = 0;
       b.marker = 0;
+      scan.eobrun = 0;
       for (int i = 0; i < ns; i++) sc[i]->pred = 0;
     }
     long mx = u % ux, my = u / ux;
     if (ns == 1) {
       Comp *c = sc[0];
-      int stride = c->bw * 8;
-      decode_block(j, &b, c, c->plane + (my * 8) * stride + mx * 8, stride);
+      decode_block(j, &b, c, c->coef + (my * c->bw + mx) * 64, &scan);
       continue;
     }
     for (int i = 0; i < ns; i++) {
       Comp *c = sc[i];
-      int stride = c->bw * 8;
       for (int v = 0; v < c->v; v++)
         for (int h = 0; h < c->h; h++) {
           long by = my * c->v + v, bx = mx * c->h + h;
-          decode_block(j, &b, c, c->plane + (by * 8) * stride + bx * 8,
-                       stride);
+          decode_block(j, &b, c, c->coef + (by * c->bw + bx) * 64, &scan);
         }
     }
   }
   return next_marker(b.p, end);
+}
+
+/* Every block of every component, dequantised and through the IDCT into
+ * its sample plane. */
+static void idct_planes(Jpeg *j) {
+  int coef[64];
+  for (int i = 0; i < j->nc; i++) {
+    Comp *c = &j->comp[i];
+    int stride = c->bw * 8;
+    for (long by = 0; by < c->bh; by++)
+      for (long bx = 0; bx < c->bw; bx++) {
+        const int16_t *blk = c->coef + (by * c->bw + bx) * 64;
+        for (int k = 0; k < 64; k++) coef[k] = blk[k] * c->q[k];
+        idct_islow(coef, c->plane + by * 8 * stride + bx * 8, stride);
+      }
+  }
 }
 
 /* Parse up to the first SOS (header only) or through EOI (decode). */
@@ -606,15 +744,15 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
     switch (m) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
+        j->progressive = m == 0xC2;
         if (parse_frame(j, seg, len)) return -1;
         break;
-      case 0xC2:
-      case 0xC6:
-        return fail(j, "progressive JPEG");
       case 0xC3:
       case 0xC7:
         return fail(j, "lossless JPEG");
       case 0xC5:
+      case 0xC6:
         return fail(j, "hierarchical JPEG");
       case 0xC9:
       case 0xCA:
@@ -655,11 +793,15 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
   }
   if (!j->have_frame) return fail(j, "JPEG without a frame header");
   if (decode && !scans) return fail(j, "JPEG without a scan");
+  if (decode) idct_planes(j);
   return 0;
 }
 
 static void free_jpeg(Jpeg *j) {
-  for (int i = 0; i < 4; i++) free(j->comp[i].plane);
+  for (int i = 0; i < 4; i++) {
+    free(j->comp[i].plane);
+    free(j->comp[i].coef);
+  }
 }
 
 /* jdsample.c's fancy upsamplers on one component, into a w x h plane.
@@ -1100,4 +1242,355 @@ size_t jpeg_encode(const uint8_t *img, int w, int h, int nc, int quality,
   put_byte(&wr, 0xFF);
   put_byte(&wr, 0xD9);
   return wr.overflow ? 0 : wr.n;
+}
+
+/* ------------------------------------------------------------- OpenEXR */
+
+enum { EXR_UINT, EXR_HALF, EXR_FLOAT };
+enum { EXR_NO, EXR_RLE, EXR_ZIPS, EXR_ZIP };
+#define EXR_MAX_CHANNELS 64
+
+static const char *const EXR_COMPRESSION[] = {
+    "NO", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A", "DWAA",
+    "DWAB"};
+
+typedef struct {
+  char name[256];
+  int type, xs, ys;
+} ExrChannel;
+
+typedef struct {
+  const uint8_t *data;
+  size_t size;
+  int nch, compression, have;  /* have: bit mask of required attributes */
+  ExrChannel ch[EXR_MAX_CHANNELS];
+  int xmin, ymin, xmax, ymax, w, h;
+  int slot[EXR_MAX_CHANNELS];  /* output channel of each file channel */
+  int nc;                      /* 4 (RGBA), 3 (RGB) or 1 (Y) */
+  size_t table;                /* offset of the line offset table */
+  char *err;
+  int errlen;
+} Exr;
+
+static int exr_fail(Exr *e, const char *msg) {
+  if (e->err && e->errlen > 0) snprintf(e->err, e->errlen, "%s", msg);
+  return -1;
+}
+
+static int32_t le32(const uint8_t *p) {
+  return (int32_t)((uint32_t)p[0] | (uint32_t)p[1] << 8 |
+                   (uint32_t)p[2] << 16 | (uint32_t)p[3] << 24);
+}
+
+static uint64_t le64(const uint8_t *p) {
+  return (uint64_t)(uint32_t)le32(p) | (uint64_t)(uint32_t)le32(p + 4) << 32;
+}
+
+/* A NUL-terminated string of at most `cap` bytes at data[*pos]; its
+ * length, or -1 if it runs past the end. */
+static int exr_string(const Exr *e, size_t *pos, const char **s, int cap) {
+  size_t p = *pos;
+  while (p < e->size && e->data[p] && p - *pos < (size_t)cap) p++;
+  if (p >= e->size || e->data[p]) return -1;
+  *s = (const char *)e->data + *pos;
+  int n = (int)(p - *pos);
+  *pos = p + 1;
+  return n;
+}
+
+static int exr_channels(Exr *e, const uint8_t *v, int size) {
+  int p = 0;
+  while (p < size && v[p]) {
+    int n = 0;
+    while (p + n < size && v[p + n]) n++;
+    if (p + n + 17 > size) return exr_fail(e, "corrupt OpenEXR channel list");
+    if (e->nch == EXR_MAX_CHANNELS)
+      return exr_fail(e, "OpenEXR with more than 64 channels");
+    ExrChannel *c = &e->ch[e->nch++];
+    memcpy(c->name, v + p, n < 255 ? n : 255);
+    c->name[n < 255 ? n : 255] = 0;
+    p += n + 1;
+    c->type = le32(v + p);
+    c->xs = le32(v + p + 8);
+    c->ys = le32(v + p + 12);
+    p += 16;
+  }
+  return 0;
+}
+
+/* Header and channel checks; fills e's window, channels and slots. */
+static int exr_header(Exr *e) {
+  char msg[512];
+  const uint8_t *d = e->data;
+  if (e->size < 8 || le32(d) != 20000630)
+    return exr_fail(e, "not an OpenEXR file");
+  uint32_t version = (uint32_t)le32(d + 4);
+  if ((version & 0xff) != 2) {
+    snprintf(msg, sizeof msg, "OpenEXR file format version %u",
+             version & 0xff);
+    return exr_fail(e, msg);
+  }
+  if (version & 0x1000) return exr_fail(e, "multi-part OpenEXR");
+  if (version & 0x800) return exr_fail(e, "deep OpenEXR (non-image parts)");
+  if (version & 0x200) return exr_fail(e, "tiled OpenEXR");
+  if (version & 0x400) return exr_fail(e, "long-name OpenEXR");
+  if (version & ~0x1effu) {
+    snprintf(msg, sizeof msg, "OpenEXR version flags 0x%x", version >> 8);
+    return exr_fail(e, msg);
+  }
+  size_t pos = 8;
+  e->compression = -1;
+  for (;;) {
+    const char *name, *type;
+    int n = exr_string(e, &pos, &name, 31);
+    if (n < 0) return exr_fail(e, "corrupt OpenEXR header");
+    if (n == 0) break;
+    if (exr_string(e, &pos, &type, 31) < 0 || pos + 4 > e->size)
+      return exr_fail(e, "corrupt OpenEXR header");
+    int32_t size = le32(d + pos);
+    pos += 4;
+    if (size < 0 || pos + (size_t)size > e->size)
+      return exr_fail(e, "corrupt OpenEXR header");
+    const uint8_t *v = d + pos;
+    pos += size;
+    if (!strcmp(name, "channels") && !strcmp(type, "chlist")) {
+      if (exr_channels(e, v, size)) return -1;
+      e->have |= 1;
+    } else if (!strcmp(name, "compression") && size == 1) {
+      e->compression = v[0];
+      e->have |= 2;
+    } else if (!strcmp(name, "dataWindow") && size == 16) {
+      e->xmin = le32(v);
+      e->ymin = le32(v + 4);
+      e->xmax = le32(v + 8);
+      e->ymax = le32(v + 12);
+      e->have |= 4;
+    } else if (!strcmp(name, "displayWindow") && size == 16) {
+      e->have |= 8;
+    } else if (!strcmp(name, "lineOrder") && size == 1) {
+      if (v[0] > 2) return exr_fail(e, "unknown OpenEXR line order");
+      e->have |= 16;
+    } else if (!strcmp(name, "type") && !strcmp(type, "string") &&
+               !(size == 13 && !memcmp(v, "scanlineimage", 13))) {
+      snprintf(msg, sizeof msg, "OpenEXR part type %.*s",
+               size < 64 ? size : 64, (const char *)v);
+      return exr_fail(e, msg);
+    }
+  }
+  if (e->have != 31)
+    return exr_fail(e, "OpenEXR header without channels, compression, "
+                       "dataWindow, displayWindow or lineOrder");
+  if (e->compression > EXR_ZIP) {
+    if (e->compression <= 9)
+      snprintf(msg, sizeof msg, "%s-compressed OpenEXR",
+               EXR_COMPRESSION[e->compression]);
+    else
+      snprintf(msg, sizeof msg, "OpenEXR compression %d", e->compression);
+    return exr_fail(e, msg);
+  }
+  if ((long)e->xmax - e->xmin < 0 || (long)e->ymax - e->ymin < 0 ||
+      (long)e->xmax - e->xmin >= (1 << 20) ||
+      (long)e->ymax - e->ymin >= (1 << 20))
+    return exr_fail(e, "OpenEXR data window out of range");
+  e->w = e->xmax - e->xmin + 1;
+  e->h = e->ymax - e->ymin + 1;
+  e->table = pos;
+  /* which of R, G, B, A, Y the file holds, and where each goes */
+  int seen[5] = {0, 0, 0, 0, 0};
+  int other = 0;
+  for (int i = 0; i < e->nch; i++) {
+    const ExrChannel *c = &e->ch[i];
+    static const char *const names[5] = {"R", "G", "B", "A", "Y"};
+    int k;
+    for (k = 0; k < 5 && strcmp(c->name, names[k]); k++) {
+    }
+    if (k < 5 && !seen[k]) {
+      seen[k] = 1;
+      e->slot[i] = k == 4 ? 0 : k;
+    } else {
+      other = 1;
+    }
+    if (c->type != EXR_HALF && c->type != EXR_FLOAT) {
+      snprintf(msg, sizeof msg, "OpenEXR channel %s of pixel type %s",
+               c->name, c->type == EXR_UINT ? "UINT" : "unknown");
+      return exr_fail(e, msg);
+    }
+    if (c->xs != 1 || c->ys != 1) {
+      snprintf(msg, sizeof msg, "subsampled OpenEXR channel %s (%d x %d)",
+               c->name, c->xs, c->ys);
+      return exr_fail(e, msg);
+    }
+  }
+  int rgb = seen[0] && seen[1] && seen[2];
+  if (!other && rgb && !seen[4]) e->nc = seen[3] ? 4 : 3;
+  else if (!other && e->nch == 1 && seen[4]) e->nc = 1;
+  else {
+    int n = snprintf(msg, sizeof msg, "OpenEXR channels ");
+    for (int i = 0; i < e->nch && n < (int)sizeof msg - 1; i++)
+      n += snprintf(msg + n, sizeof msg - n, "%s%s", i ? "," : "",
+                    e->ch[i].name);
+    if (n < (int)sizeof msg - 1)
+      snprintf(msg + n, sizeof msg - n, ": only R,G,B[,A] or Y are read");
+    return exr_fail(e, msg);
+  }
+  return 0;
+}
+
+/* OpenEXR's RLE: a negative count byte -n is followed by n literal bytes,
+ * a count byte n >= 0 by one byte repeated n + 1 times.  Returns the bytes
+ * written, or -1 if they would exceed cap. */
+static long exr_unrle(const uint8_t *in, long n, uint8_t *out, long cap) {
+  long o = 0;
+  while (n > 0) {
+    int c = (int8_t)*in++;
+    n--;
+    if (c < 0) {
+      if (-c > n || o - c > cap) return -1;
+      memcpy(out + o, in, -c);
+      o -= c;
+      in -= c;
+      n += c;
+    } else {
+      if (n < 1 || o + c + 1 > cap) return -1;
+      memset(out + o, *in, c + 1);
+      o += c + 1;
+      in++;
+      n--;
+    }
+  }
+  return o;
+}
+
+/* The ZIP and RLE filters' inverse: undo the byte predictor
+ * (t[i] += t[i-1] - 128), then interleave the two halves back. */
+static void exr_unpredict(uint8_t *t, uint8_t *out, size_t n) {
+  for (size_t i = 1; i < n; i++) t[i] = (uint8_t)(t[i - 1] + t[i] - 128);
+  const uint8_t *t1 = t, *t2 = t + (n + 1) / 2;
+  for (size_t i = 0; i < n; i++) out[i] = i & 1 ? *t2++ : *t1++;
+}
+
+static float half_to_float(uint16_t h) {
+  uint32_t s = (uint32_t)(h & 0x8000) << 16, e = (h >> 10) & 31,
+           m = h & 0x3ff, bits;
+  if (e == 31) {
+    bits = s | 0x7f800000u | m << 13;
+  } else if (e) {
+    bits = s | (e + 112) << 23 | m << 13;
+  } else if (m) {             /* subnormal: normalise the mantissa */
+    e = 113;
+    while (!(m & 0x400)) {
+      m <<= 1;
+      e--;
+    }
+    bits = s | e << 23 | (m & 0x3ff) << 13;
+  } else {
+    bits = s;
+  }
+  float f;
+  memcpy(&f, &bits, 4);
+  return f;
+}
+
+/* Returns 0 and the data window's width and height and the channel count
+ * (4 for R,G,B,A, 3 for R,G,B, 1 for Y), or -1 with a message in err. */
+int exr_info(const uint8_t *data, size_t size, int *w, int *h, int *nc,
+             char *err, int errlen) {
+  Exr e;
+  memset(&e, 0, sizeof e);
+  e.data = data;
+  e.size = size;
+  e.err = err;
+  e.errlen = errlen;
+  if (exr_header(&e)) return -1;
+  *w = e.w;
+  *h = e.h;
+  *nc = e.nc;
+  return 0;
+}
+
+/* Decodes into out (h x w x nc float32, as exr_info gives them): R, G, B,
+ * A in that order, or Y.  Every scanline must be present. */
+int exr_decode(const uint8_t *data, size_t size, float *out, char *err,
+               int errlen) {
+  Exr e;
+  memset(&e, 0, sizeof e);
+  e.data = data;
+  e.size = size;
+  e.err = err;
+  e.errlen = errlen;
+  if (exr_header(&e)) return -1;
+  int lpc = e.compression == EXR_ZIP ? 16 : 1;   /* lines a chunk */
+  long nchunks = (e.h + lpc - 1) / lpc;
+  size_t line_bytes = 0;
+  for (int i = 0; i < e.nch; i++)
+    line_bytes += (size_t)e.w * (e.ch[i].type == EXR_HALF ? 2 : 4);
+  if (e.table + 8 * (size_t)nchunks > size)
+    return exr_fail(&e, "truncated OpenEXR offset table");
+  size_t cap = line_bytes * lpc;
+  uint8_t *raw = malloc(cap), *tmp = malloc(cap);
+  uint8_t *done = calloc(nchunks, 1);
+  int rc = 0;
+  if (!raw || !tmp || !done) {
+    rc = exr_fail(&e, "out of memory");
+    goto out;
+  }
+  for (long c = 0; c < nchunks; c++) {
+    uint64_t off = le64(data + e.table + 8 * c);
+    if (off > size || size - off < 8) {
+      rc = exr_fail(&e, "OpenEXR chunk offset out of the file");
+      goto out;
+    }
+    int32_t y = le32(data + off), n = le32(data + off + 4);
+    long ly = (long)y - e.ymin;
+    if (ly < 0 || ly >= e.h || ly % lpc || done[ly / lpc] || n < 0 ||
+        (uint64_t)n > size - off - 8) {
+      rc = exr_fail(&e, "corrupt OpenEXR chunk");
+      goto out;
+    }
+    done[ly / lpc] = 1;
+    int lines = e.h - ly < lpc ? (int)(e.h - ly) : lpc;
+    size_t want = line_bytes * lines;
+    const uint8_t *src = data + off + 8;
+    if ((size_t)n == want) {           /* stored as is */
+      memcpy(raw, src, want);
+    } else if (e.compression == EXR_NO || (size_t)n > want) {
+      rc = exr_fail(&e, "corrupt OpenEXR chunk size");
+      goto out;
+    } else {
+      long got;
+      if (e.compression == EXR_RLE) {
+        got = exr_unrle(src, n, tmp, (long)want);
+      } else {
+        uLongf len = want;
+        got = uncompress(tmp, &len, src, n) == Z_OK ? (long)len : -1;
+      }
+      if (got != (long)want) {
+        rc = exr_fail(&e, "corrupt OpenEXR compressed chunk");
+        goto out;
+      }
+      exr_unpredict(tmp, raw, want);
+    }
+    const uint8_t *p = raw;
+    for (int l = 0; l < lines; l++) {
+      float *row = out + (size_t)(ly + l) * e.w * e.nc;
+      for (int i = 0; i < e.nch; i++) {
+        float *o = row + e.slot[i];
+        if (e.ch[i].type == EXR_HALF) {
+          for (int x = 0; x < e.w; x++, p += 2)
+            o[(size_t)x * e.nc] =
+                half_to_float((uint16_t)(p[0] | p[1] << 8));
+        } else {
+          for (int x = 0; x < e.w; x++, p += 4) {
+            int32_t bits = le32(p);
+            memcpy(o + (size_t)x * e.nc, &bits, 4);
+          }
+        }
+      }
+    }
+  }
+out:
+  free(raw);
+  free(tmp);
+  free(done);
+  return rc;
 }

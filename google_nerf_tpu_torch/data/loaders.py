@@ -6,8 +6,8 @@ google_nerf_tpu/data/loaders.py).
   * normalize_c2w: the [-0.5, 0.5]^3 pose renormalisation the loaders
     apply (translation -= shift; /= 2*scale).
 
-Frames decode through the port's own reader (utils/image.py: PNG and
-baseline JPEG) and resize with cv2.resize's INTER_LINEAR sample
+Frames decode through the port's own reader (utils/image.py: PNG, JPEG
+and OpenEXR) and resize with cv2.resize's INTER_LINEAR sample
 positions; the C decoder releases the GIL, so the threads overlap.
 """
 from __future__ import annotations

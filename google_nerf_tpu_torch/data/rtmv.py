@@ -1,7 +1,8 @@
 """RTMV dataset: per-frame json camera_data, the 100/5/45 split (port of
 google_nerf_tpu/data/rtmv.py), with the bricks-subset rescale into
-[-0.5, 0.5]^3.  Frames decode through the port's reader: PNG and JPEG
-frames load; an OpenEXR frame raises (ROADMAP item 28)."""
+[-0.5, 0.5]^3.  Frames decode through the port's reader: RTMV's own
+OpenEXR frames (HALF or FLOAT RGBA, ZIP-compressed as RTMV ships them,
+composited onto white like PNG frames), and PNG and JPEG frames."""
 from __future__ import annotations
 
 import glob

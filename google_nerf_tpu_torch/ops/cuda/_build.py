@@ -4,7 +4,8 @@ Each csrc/<name>.cu compiles with nvcc for sm_90a into its own library,
 build/kernels/lib<name>_<key>.so, where <key> hashes the source and the
 flags; the compiler's log (ptxas register and spill report) sits beside
 it as lib<name>_<key>.log.  The host C sources (csrc/<name>.c, the image
-codec) compile the same way with the host C compiler (`cc`, or $CC), and
+codec) compile the same way with the host C compiler (`cc`, or $CC),
+linked to zlib, and
 the host C++ sources (csrc/<name>.cpp, the .sens zlib decoder) with the
 host C++ compiler (`g++`, or $CXX), linked to zlib and pthreads.  A
 library of the same key is reused; each build writes a temporary file
@@ -69,7 +70,7 @@ def _command(src: Path, out: Path) -> list:
     if src.suffix == ".cu":
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
     if src.suffix == ".c":
-        return [_cc(), *CC_FLAGS, "-o", str(out), str(src), "-lm"]
+        return [_cc(), *CC_FLAGS, "-o", str(out), str(src), "-lz", "-lm"]
     return [_cxx(), *CXX_FLAGS, "-o", str(out), str(src), "-lz", "-lpthread"]
 
 

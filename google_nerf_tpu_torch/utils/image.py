@@ -1,8 +1,11 @@
 """Image input and output of the port, with no image library.
 
   * read_image: PNG (8- and 16-bit gray, gray+alpha, RGB, RGBA; 1- to
-    8-bit palette images, expanded to RGB as imageio gives them; Adam7)
-    and baseline JPEG, picked by the file's magic bytes as imageio does;
+    8-bit palette images, expanded to RGB as imageio gives them; Adam7),
+    JPEG (baseline and progressive Huffman-coded, 8-bit, gray or
+    three-component) and OpenEXR (single-part scanline files, HALF or
+    FLOAT R,G,B[,A] or Y, compressed NO, RLE, ZIPS or ZIP), picked by the
+    file's magic bytes as imageio does;
   * write_png (8-bit gray, RGB and RGBA; 16-bit gray) and write_jpeg
     (baseline 4:2:0 or gray, at a quality);
   * resize_linear / resize_nearest: cv2.resize's INTER_LINEAR and
@@ -11,12 +14,17 @@
   * colorize_rainbow: matplotlib's "rainbow" colour map, without
     matplotlib.
 
-zlib (inflate and deflate) is the standard library's.  The per-row PNG
-unfiltering and the JPEG codec are C (csrc/image_codec.c), built with the
-host C compiler at first use into build/kernels and loaded with ctypes;
-a failed build raises.  JPEG decoding reproduces libjpeg-turbo's default
-path (islow IDCT, fancy upsampling), so it gives what imageio (Pillow)
-gives.  16-bit colour PNGs keep their 16 bits (Pillow reads them as 8).
+PNG's zlib (inflate and deflate) is the standard library's.  The per-row
+PNG unfiltering, the JPEG codec and the OpenEXR reader are C
+(csrc/image_codec.c, linked to zlib), built with the host C compiler at
+first use into build/kernels and loaded with ctypes; a failed build
+raises, and so does a file the reader cannot read, with its path and
+the mode's name.  JPEG decoding reproduces libjpeg-turbo's default path
+(islow IDCT, fancy upsampling), so it gives what imageio (Pillow) gives.
+16-bit colour PNGs keep their 16 bits (Pillow reads them as 8).  Refused
+by name: arithmetic-coded, lossless, hierarchical, 12-bit and
+4-component (CMYK) JPEGs; PIZ, PXR24, B44/B44A and DWAA/DWAB OpenEXR
+compressions, and tiled, multi-part, deep and long-name OpenEXR files.
 """
 from __future__ import annotations
 
@@ -133,7 +141,10 @@ def _declare(lib):
     lib.jpeg_info.argtypes = [p, sz, ip, ip, ip, ctypes.c_char_p, i32]
     lib.jpeg_decode.argtypes = [p, sz, p, ctypes.c_char_p, i32]
     lib.jpeg_encode.argtypes = [p, i32, i32, i32, i32, p, sz]
-    for f in ("png_unfilter", "jpeg_info", "jpeg_decode"):
+    lib.exr_info.argtypes = [p, sz, ip, ip, ip, ctypes.c_char_p, i32]
+    lib.exr_decode.argtypes = [p, sz, p, ctypes.c_char_p, i32]
+    for f in ("png_unfilter", "jpeg_info", "jpeg_decode", "exr_info",
+              "exr_decode"):
         getattr(lib, f).restype = i32
     lib.jpeg_encode.restype = sz
 
@@ -198,7 +209,8 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> (H, W, 3) RGB or (H, W) gray uint8."""
+    """Baseline or progressive JPEG bytes -> (H, W, 3) RGB or (H, W) gray
+    uint8."""
     w, h, c = _jpeg_header(data)
     out = np.empty((h, w, c), np.uint8)
     err = ctypes.create_string_buffer(256)
@@ -208,8 +220,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out[..., 0] if c == 1 else out
 
 
+def decode_exr(data: bytes) -> np.ndarray:
+    """OpenEXR bytes -> (H, W, 3|4) float32 R,G,B[,A] or (H, W) float32
+    Y, the data window's samples (HALF widened exactly)."""
+    err = ctypes.create_string_buffer(512)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib = codec()
+    if lib.exr_info(_ptr(data), len(data), ctypes.byref(w), ctypes.byref(h),
+                    ctypes.byref(c), err, 512) != 0:
+        raise ValueError(f"unsupported or corrupt OpenEXR: "
+                         f"{err.value.decode()}")
+    out = np.empty((h.value, w.value, c.value), np.float32)
+    if lib.exr_decode(_ptr(data), len(data), _ptr(out), err, 512) != 0:
+        raise ValueError(f"unsupported or corrupt OpenEXR: "
+                         f"{err.value.decode()}")
+    return out[..., 0] if c.value == 1 else out
+
+
 def image_size(path: str):
-    """(width, height) of a PNG or JPEG file, from its header."""
+    """(width, height) of an image file: a PNG's or JPEG's from its
+    header, an OpenEXR's from its samples."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_MAGIC:
@@ -229,20 +259,23 @@ def _jpeg_header(data: bytes):
     return w.value, h.value, c.value
 
 
+_DECODERS = ((PNG_MAGIC, decode_png), (JPEG_MAGIC, decode_jpeg),
+             (EXR_MAGIC, decode_exr))
+
+
 def read_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file -> its samples (decode_png / decode_jpeg), the
-    format picked by its magic bytes."""
+    """A PNG, JPEG or OpenEXR file -> its samples (decode_png /
+    decode_jpeg / decode_exr), the format picked by its magic bytes; a
+    file none of them reads raises ValueError with its path."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == PNG_MAGIC:
-        return decode_png(data)
-    if data[:2] == JPEG_MAGIC:
-        return decode_jpeg(data)
-    if data[:4] == EXR_MAGIC:
-        raise NotImplementedError(
-            f"{path}: OpenEXR frames are not read by the port (ROADMAP "
-            "item 28); convert them to PNG")
-    raise ValueError(f"{path}: neither PNG nor JPEG")
+    for magic, decode in _DECODERS:
+        if data.startswith(magic):
+            try:
+                return decode(data)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from None
+    raise ValueError(f"{path}: neither PNG, JPEG nor OpenEXR")
 
 
 def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:

@@ -10,8 +10,8 @@ scalars land where train.py puts them; every other --xyz_encoder (hash,
 freq, packed2) and --march block train, checkpoint (the encoder's param
 keys round-trip) and serve; the CLIs refuse what the port does not run
 (no card without --platform cpu, several cards) and what JAX's loaders
-refuse (an NSVF root without bbox.txt), and an RTMV scene of OpenEXR
-frames names its ROADMAP item."""
+refuse (an NSVF root without bbox.txt), and an RTMV scene whose OpenEXR
+frame is corrupt raises with the frame's path."""
 import glob
 import json
 
@@ -147,7 +147,7 @@ def test_clis_refuse_what_the_port_does_not_run(monkeypatch, tmp_path):
         "intrinsics": {"fx": 10.0, "fy": 10.0, "cx": 4.0, "cy": 4.0},
         "scene_center_3d_box": [0, 0, 0], "scene_min_3d_box": [-1, -1, -1],
         "scene_max_3d_box": [1, 1, 1]}}))
-    with pytest.raises(NotImplementedError, match="item 28"):
+    with pytest.raises(ValueError, match="00000.exr: .*OpenEXR"):
         train_torch.main(get_opts(TINY + ["--root_dir", str(rtmv),
                                           "--dataset_name", "rtmv",
                                           "--platform", "cpu"]))

@@ -10,13 +10,14 @@ csrc/image_codec.c) against imageio/Pillow and cv2 on the CPU.
     qualities 75 and 95, with and without restart markers, against
     imageio.imread: max abs <= 2 (of 255) and mean <= 0.1 (equality is
     what the decoder's design gives: libjpeg's islow IDCT and fancy
-    upsampling); progressive files are refused by name;
+    upsampling; progressive files and the modes still refused are in
+    tests/test_torch_image_formats.py, beside OpenEXR);
   * JPEG encoding: Pillow reads the port's files as the port does, and
     the textured scene's round trip at quality 95 (324x242, a quarter
     of a ScanNet colour frame) scores >= 40 dB;
   * resize_linear and resize_nearest against cv2.resize at 1296x968 ->
     640x480, 800 -> 8 and 640x480 -> 64x48: 1e-5 and exact;
-  * a failed codec build raises; an OpenEXR file names ROADMAP item 28.
+  * a failed codec build raises.
 """
 import io
 import struct
@@ -187,13 +188,6 @@ def test_jpeg_decode_matches_pillow(sub, quality, restart):
     assert diff.max() <= 2 and diff.mean() <= 0.1
 
 
-def test_jpeg_refuses_progressive_by_name():
-    buf = io.BytesIO()
-    Image.fromarray(_scene_image(16, 16)).save(buf, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        im.decode_jpeg(buf.getvalue())
-
-
 def test_jpeg_encoder_round_trip(tmp_path, monkeypatch):
     from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     monkeypatch.setenv("GNT_TORCH_GT_CACHE", str(tmp_path / "gt"))
@@ -234,10 +228,3 @@ def test_codec_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CC", "false")
     with pytest.raises(RuntimeError, match="image_codec"):
         _build.build("image_codec")
-
-
-def test_exr_names_its_roadmap_item(tmp_path):
-    p = tmp_path / "f.exr"
-    p.write_bytes(b"\x76\x2f\x31\x01" + b"\0" * 32)
-    with pytest.raises(NotImplementedError, match="item 28"):
-        im.read_image(str(p))

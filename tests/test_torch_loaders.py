@@ -3,16 +3,19 @@ JAX package's on fixtures this file writes (the layouts of
 tests/test_loaders.py and tests/test_data.py): nsvf (the Synthetic
 family with RGBA frames resized on load, the Lego scale fix, trainval,
 the Jade black-to-white fix, a BlendedMVS test trajectory), nerfpp,
-rtmv (PNG frames; an EXR frame raises), colmap (the batched
-quaternions, the 360_v2 images_{n} folder, test_traj), scannet (JPEG
-frames resized from 1296x972 to the 640x480 grid, .npy and PNG depth
-priors, rot_transpose, scale_flip, the raw-scan root search), and the
-PFM/PLY/COLMAP parsers.
+rtmv (PNG frames; FLOAT RGBA OpenEXR frames holding the PNG frames' samples
+/ 255, against JAX on the PNG frames), colmap (the batched quaternions,
+the 360_v2 images_{n} folder, test_traj, progressive JPEG frames),
+scannet (JPEG frames resized from 1296x972 to the 640x480 grid, .npy and
+PNG depth priors, rot_transpose, scale_flip, the raw-scan root search,
+progressive JPEG frames), and the PFM/PLY/COLMAP parsers.
 
 Tolerances: K, img_wh, splits, the PLY/PFM/COLMAP parsers exact;
-directions 1e-7; poses 1e-6; rays 1e-6 from PNG frames and within the
-decoder's bound (2/255) from JPEG frames; priors 1e-6; scene() tensors
-equal to the numpy arrays."""
+directions 1e-7; poses 1e-6; rays 1e-6 from PNG and progressive JPEG
+frames (Pillow's own files, which the port decodes bit for bit as
+Pillow does), bit for bit from the OpenEXR frames, and within the
+decoder's bound (2/255) from the port's JPEG frames; priors 1e-6;
+scene() tensors equal to the numpy arrays."""
 import json
 import os
 import struct
@@ -31,7 +34,10 @@ from google_nerf_tpu_torch.data import colmap_utils as tcu
 from google_nerf_tpu_torch.data import depth_utils as tdu
 from google_nerf_tpu_torch.data import loaders as tl
 from google_nerf_tpu_torch.data import ply as tply
+from google_nerf_tpu_torch.tools.exr_fixture import write_exr
 from google_nerf_tpu_torch.utils.image import write_jpeg, write_png
+
+Image = pytest.importorskip("PIL.Image")
 
 JPEG_BOUND = 2 / 255
 
@@ -171,16 +177,18 @@ def test_nerfpp_matches_jax(tmp_path):
 
 # --------------------------------------------------------------- rtmv
 
-def _rtmv(root, n=8, ext=".png"):
+def _rtmv(root, n=8, ext=".png", c=3):
+    """An RTMV scene of n frames of c channels: PNGs, or FLOAT OpenEXRs
+    (ZIP) holding the same draws' samples / 255."""
     os.makedirs(os.path.join(root, "images"))
     rng = np.random.RandomState(0)
     for i in range(n):
         p = os.path.join(root, "images", f"{i:05d}{ext}")
+        img = _img(rng, (8, 10), c)
         if ext == ".png":
-            write_png(p, _img(rng, (8, 10)))
+            write_png(p, img)
         else:
-            with open(p, "wb") as f:
-                f.write(b"\x76\x2f\x31\x01" + b"\0" * 64)
+            write_exr(p, img.astype(np.float32) / 255, pixel_type="FLOAT")
         cam = {"camera_data": {
             "cam2world": _pose([0.1, 0.2, 3 + i], rng).T.tolist(),
             "intrinsics": {"fx": 100.0, "fy": 100.0, "cx": 5.0, "cy": 4.0},
@@ -200,15 +208,23 @@ def test_rtmv_matches_jax(tmp_path, scene):
     same_dataset(got, want)
 
 
-def test_rtmv_exr_frame_names_item_28(tmp_path):
-    root = _rtmv(str(tmp_path / "s"), n=2, ext=".exr")
-    with pytest.raises(NotImplementedError, match="item 28"):
-        tdata.dataset_dict["rtmv"](root, split="all", device="cpu")
+@pytest.mark.parametrize("scene", ["plain", "bricks"])
+def test_rtmv_exr_frames_match_jax_on_png_frames(tmp_path, scene):
+    """RTMV's own frame format: the port reads the OpenEXR frames, JAX
+    the PNG frames they were made from; the RGBA composite and the
+    [0, 1] rule give the same rays bit for bit."""
+    exr = _rtmv(str(tmp_path / "exr" / scene), ext=".exr", c=4)
+    png = _rtmv(str(tmp_path / "png" / scene), c=4)
+    got = tdata.dataset_dict["rtmv"](exr, split="all", device="cpu")
+    want = jdata.dataset_dict["rtmv"](png, split="all")
+    same_dataset(got, want)
+    np.testing.assert_array_equal(got.rays, want.rays)
 
 
 # ------------------------------------------------------------- colmap
 
-def _colmap(root, n=10, folder="images", hw=(8, 10)):
+def _colmap(root, n=10, folder="images", hw=(8, 10), progressive=False):
+    """A COLMAP scene of n frames: PNGs, or Pillow's progressive JPEGs."""
     sparse = os.path.join(root, "sparse/0")
     os.makedirs(sparse)
     os.makedirs(os.path.join(root, folder))
@@ -220,8 +236,14 @@ def _colmap(root, n=10, folder="images", hw=(8, 10)):
     with open(os.path.join(sparse, "images.bin"), "wb") as f:
         f.write(struct.pack("<Q", n))
         for i in range(n):
-            name = f"im{(7 * i) % n:03d}.png"              # unsorted ids
-            write_png(os.path.join(root, folder, name), _img(rng, hw))
+            name = f"im{(7 * i) % n:03d}.{'jpg' if progressive else 'png'}"
+            path = os.path.join(root, folder, name)         # unsorted ids
+            if progressive:
+                Image.fromarray(_img(rng, hw)).save(path, "JPEG",
+                                                    quality=90,
+                                                    progressive=True)
+            else:
+                write_png(path, _img(rng, hw))
             q = rng.randn(4)
             q /= np.linalg.norm(q)
             f.write(struct.pack("<i", i + 1))
@@ -249,6 +271,12 @@ def test_colmap_matches_jax(tmp_path, split):
     got, want = both("colmap", root, split=split, downsample=0.5)
     same_dataset(got, want)
     np.testing.assert_allclose(got.pts3d, want.pts3d, atol=1e-6)
+
+
+def test_colmap_progressive_jpeg_frames_match_jax(tmp_path):
+    root = _colmap(str(tmp_path / "scene"), hw=(16, 20), progressive=True)
+    got, want = both("colmap", root, split="train", downsample=0.5)
+    same_dataset(got, want)
 
 
 def test_colmap_360_v2_reads_the_downsampled_folder(tmp_path):
@@ -341,8 +369,10 @@ def test_shared_loaders_match_jax(tmp_path):
 
 # ------------------------------------------------------------ scannet
 
-def _scannet(root, n=4, layout="nested", priors="npy", hw=(972, 1296)):
-    """A ScanNet scene: JPEG frames of hw, a 640x480 intrinsic_depth K,
+def _scannet(root, n=4, layout="nested", priors="npy", hw=(972, 1296),
+             progressive=False):
+    """A ScanNet scene: JPEG frames of hw (the port's baseline encoder, or
+    Pillow's progressive one), a 640x480 intrinsic_depth K,
     poses, the split files, the mesh PLY in the raw-scan `layout`
     ("nested": <raw>/<scene>/<scene>_vh_clean_2.ply; "flat":
     <raw>/<scene>_vh_clean_2.ply; "root": in the scene folder), and depth
@@ -369,8 +399,13 @@ def _scannet(root, n=4, layout="nested", priors="npy", hw=(972, 1296)):
                    _pose([2 + 0.1 * i, 1.5, 1], rng))
         img = np.stack([np.sin(x / (9.0 + i)) * 100 + 120,
                         np.cos(y / 7.0) * 90 + 128, (x + 2 * y) % 256], -1)
-        write_jpeg(os.path.join(scene, "rgb", f"{i}.jpg"),
-                   np.clip(img, 0, 255).astype(np.uint8), quality=90)
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        path = os.path.join(scene, "rgb", f"{i}.jpg")
+        if progressive:
+            Image.fromarray(img).save(path, "JPEG", quality=90,
+                                      progressive=True)
+        else:
+            write_jpeg(path, img, quality=90)
         d_mm = rng.randint(500, 4000, (hw[0] // 2, hw[1] // 2))
         if priors == "npy":
             np.save(os.path.join(depth_dir, f"{i}.npy"),
@@ -405,6 +440,17 @@ def test_scannet_matches_jax(tmp_path, fixture, kw):
         assert got.img_wh == (64, 48)
         same_dataset(got, want, rays_atol=JPEG_BOUND)
         assert got.depths.shape == (len(got.poses), 64 * 48)
+
+
+def test_scannet_progressive_jpeg_frames_match_jax(tmp_path):
+    scene, raw, depth_dir = _scannet(str(tmp_path), hw=(96, 128),
+                                     progressive=True)
+    for split in ("train", "test"):
+        got, want = both("scannet", scene, split=split, downsample=0.1,
+                         test_skip=3, raw_scan_rootdir=raw,
+                         depth_dir=depth_dir)
+        assert got.img_wh == (64, 48)
+        same_dataset(got, want)
 
 
 def test_scannet_full_size_frames_match_jax(tmp_path):
