@@ -181,6 +181,20 @@ Phases:
      the plain step (phase 9's bounds); P2/P3 on the kernels line
      (request "rtmv"); the phase's seconds, the writer's share, peak host
      and card memory.
+ 21. COLMAP from JPEG frames of every mode (phase21's notes): a COLMAP
+     scene (sparse/0's cameras.bin, images.bin, points3D.bin on the
+     object's surface; tools/colmap_fixture.py) of 24 views at 1008x756
+     (LLFF's images_4) of the textured scene, the frames written by
+     tools/jpeg_fixture.py in turn as Huffman 4:4:0, arithmetic 4:2:0,
+     arithmetic progressive 4:2:0 and lossless; every arithmetic frame
+     decoded bit for bit to its Huffman twin, every lossless frame to
+     the pixels, one decode of each mode timed; then train_torch.main
+     --dataset_name colmap at opt.py's defaults (--downsample 1.0) for
+     COLMAP_STEPS steps (P2/P3), validate >= 25 dB, test_torch.run's
+     default renderer within 1 dB of validate, the kernel step against
+     the plain step (phase 9's bounds); P2/P3 on the kernels line
+     (request "colmap"); the phase's seconds, the writer's seconds, peak
+     host and card memory.
 
 Tolerances.  A kernel against its plain version on the same inputs
 (phases 2, 6 and 7): tau, rgb and depth atol 1e-4, n_pairs exact; both
@@ -205,9 +219,10 @@ table gradient within P3_SUM_C sqrt(n) 2^-24 x the sum of |payload| of
 each (row, column) of the float64 sum of the same payloads, for a row of
 n payloads (the plain step's table gradient is an atomic f32 sum too, in
 its own order: held against it, two roundings add up).  Phase 14's
-kernel steps (hash, packed2) and those of phases 17 and 20 are held to
-the same bounds.  Phase 20's frames decode to the HALF samples written,
-bit for bit.  Phase
+kernel steps (hash, packed2) and those of phases 17, 20 and 21 are held
+to the same bounds.  Phase 20's frames decode to the HALF samples
+written, bit for bit; phase 21's arithmetic frames to their Huffman
+twins' samples and its lossless frames to the pixels, bit for bit.  Phase
 10's frame against its plain frame: opacity 1e-4 per pixel and the
 counters equal; rgb 1e-4 per pixel on all but 0.01% of the pixels,
 which may differ by up to 2e-3
@@ -4039,6 +4054,297 @@ def phase20(seed, steps=DATA_STEPS):
     return summary, entries
 
 
+
+# ------------------ phase 21: a COLMAP scene of JPEG frames in every mode
+
+COLMAP_VIEWS = 24          # LLFF's scenes hold 20-62 views
+COLMAP_WH = (1008, 756)    # LLFF's images_4: a 4032x3024 frame quartered
+COLMAP_FOCAL = 815.0       # pixels at images_4 (LLFF's fern: 815.1)
+COLMAP_RADIUS = 1.2        # phase 13's cameras: the object fills a third
+COLMAP_QUALITY = 95
+COLMAP_POINTS = 4096       # surface points in points3D.bin
+COLMAP_DEPTH_STRIDE = 8    # every 8th pixel a way gives the surface points
+COLMAP_STEPS = 192         # a depth cut (DATA_STEPS: 512) to keep the phase
+                           # near 45 s: the COLMAP step takes the dense
+                           # exp-step marcher, 48-60 ms
+COLMAP_MIN_PSNR = 30.0     # a DCT frame against the pixels written: a
+                           # picture of the scene, not noise (the exact
+                           # checks are the twins and the lossless frames)
+COLMAP_MODES = (           # taken in turn, frame by frame
+    ("huffman 4:4:0", dict(sampling=((1, 2), (1, 1), (1, 1)))),
+    ("arithmetic 4:2:0", dict(sampling=((2, 2), (1, 1), (1, 1)),
+                              coding="arithmetic",
+                              restart=-(-COLMAP_WH[0] // 16))),
+    ("arithmetic progressive 4:2:0", dict(sampling=((2, 2), (1, 1), (1, 1)),
+                                          coding="arithmetic",
+                                          progressive=True)),
+    ("lossless", dict(colour="rgb", coding="lossless", jfif=False,
+                      predictor=1)))
+
+
+def surface_points(dirs, pose, w, dev, stride=COLMAP_DEPTH_STRIDE):
+    """Points on the textured scene's surface seen from `pose` (dirs: a
+    frame `w` wide): the integrator's expected distance along every
+    `stride`-th ray a way that ends opaque (alpha > 0.99), over
+    RTMV_MARCH's cube.  -> (n, 3) positions and their (n, 3) uint8
+    colours."""
+    from google_nerf_tpu_torch.core.rays import get_rays
+    from google_nerf_tpu_torch.data.synthetic import _integrate_gt
+    keep = torch.arange(dirs.shape[0], device=dev).reshape(-1, w)[
+        ::stride, ::stride].reshape(-1)
+    o, d = get_rays(dirs[keep], torch.as_tensor(pose, device=dev))
+    out = _integrate_gt(o, d, scale=RTMV_MARCH, style="textured",
+                        with_depth=True)
+    hit = out[:, 3] > 0.99
+    dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    xyz = o[hit] + dn[hit] * out[hit, 4:5]
+    rgb = (out[hit, :3].clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+    return xyz.cpu().numpy().astype(np.float64), rgb.cpu().numpy()
+
+
+def write_colmap_scene(root, seed, dev, views=COLMAP_VIEWS, wh=COLMAP_WH,
+                       focal=COLMAP_FOCAL):
+    """A COLMAP scene of the textured procedural scene, as a phone
+    capture reaches the trainer: images/<i>.jpg at wh (LLFF's images_4),
+    the integrator's premultiplied colour (a black background: the
+    trainer's for COLMAP's unbounded scenes, models/rendering.py
+    _background), each frame in one of COLMAP_MODES
+    taken in turn (tools/jpeg_fixture.py, quality COLMAP_QUALITY), and
+    sparse/0's cameras.bin (one PINHOLE camera), images.bin (OpenCV
+    world-to-camera poses) and points3D.bin (COLMAP_POINTS points on the
+    object's surface, from the integrator's depth;
+    tools/colmap_fixture.py).  Cameras at COLMAP_RADIUS on phase 13's
+    Fibonacci band, looking at the object.  One writer thread encodes a
+    frame while the card renders the next.  Returns ({path: (mode, the
+    frame's coefficients and samples, the pixels written)}, render
+    seconds, the writer thread's seconds)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from google_nerf_tpu_torch.data.base import directions_of
+    from google_nerf_tpu_torch.data.synthetic import _fibonacci_poses
+    from google_nerf_tpu_torch.tools.colmap_fixture import w2c_of, write_model
+    from google_nerf_tpu_torch.tools.jpeg_fixture import Frame, encode
+    os.makedirs(os.path.join(root, "images"))
+    w, h = wh
+    K = np.float32([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+    dirs = torch.as_tensor(directions_of(h, w, K), device=dev)
+    poses = _fibonacci_poses(views, COLMAP_RADIUS, seed)
+    rng = np.random.RandomState(seed)
+    images, xyz, rgb = [], [], []
+    render_s, write_s = 0.0, [0.0]
+
+    def write(path, rgba, mode, kw):
+        t0 = time.time()
+        img = (np.clip(rgba[:, :3], 0.0, 1.0) * 255 + 0.5).astype(
+            np.uint8).reshape(h, w, 3)
+        kw = dict(kw)
+        frame = Frame(img, COLMAP_QUALITY, kw.pop("sampling", None),
+                      kw.pop("colour", None))
+        with open(path, "wb") as f:
+            f.write(encode(frame, **kw))
+        write_s[0] += time.time() - t0
+        return mode, frame, img
+
+    # one writer thread encodes a frame while the card renders the next
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        pending = []
+        for i in range(views):
+            t0 = time.time()
+            rgba = render_box_hits(dirs, poses[i], dev)
+            p, c = surface_points(dirs, poses[i], w, dev)
+            render_s += time.time() - t0
+            name = f"{i:04d}.jpg"
+            path = os.path.join(root, "images", name)
+            pending.append((path, writer.submit(
+                write, path, rgba, *COLMAP_MODES[i % len(COLMAP_MODES)])))
+            images.append((i + 1, *w2c_of(poses[i]), 1, name, []))
+            xyz.append(p)
+            rgb.append(c)
+        written = {path: job.result() for path, job in pending}
+    xyz, rgb = np.concatenate(xyz), np.concatenate(rgb)
+    pick = rng.choice(len(xyz), min(COLMAP_POINTS, len(xyz)), replace=False)
+    write_model(os.path.join(root, "sparse", "0"),
+                [(1, 1, w, h, (focal, focal, w / 2, h / 2))], images,
+                [(k + 1, xyz[j], rgb[j], 0.5, [])
+                 for k, j in enumerate(pick)])
+    return written, render_s, write_s[0]
+
+
+def check_colmap_frames(written):
+    """Every frame decoded (8 threads): each arithmetic frame bit for bit
+    to its Huffman twin (the same coefficients, written sequential
+    Huffman in memory), each lossless frame to the pixels written, each
+    DCT frame within COLMAP_MIN_PSNR of them; then one frame of each
+    mode's decode timed (median of 3).  Returns (frames that failed,
+    {mode: decode ms}, {mode: lowest PSNR})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from google_nerf_tpu_torch.tools.jpeg_fixture import encode
+    from google_nerf_tpu_torch.utils.image import decode_jpeg, read_image
+
+    def one(path):
+        mode, frame, img = written[path]
+        got = read_image(path)
+        if got.shape != img.shape:
+            return False, None
+        if mode == "lossless":
+            return bool(np.array_equal(got, img)), None
+        ok = True
+        if mode.startswith("arithmetic"):
+            ok = bool(np.array_equal(got, decode_jpeg(encode(frame))))
+        mse = np.mean((got.astype(np.float64) - img) ** 2)
+        psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+        return ok and psnr >= COLMAP_MIN_PSNR, psnr
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        res = dict(zip(written, pool.map(one, written)))
+    bad = [p for p, (ok, _) in res.items() if not ok]
+    psnr, decode_ms = {}, {}
+    for path, (mode, _, _) in written.items():
+        if res[path][1] is not None:
+            psnr[mode] = min(psnr.get(mode, math.inf), res[path][1])
+        if mode in decode_ms:
+            continue
+        times = []
+        for _ in range(3):
+            t0 = time.time()
+            read_image(path)
+            times.append(1e3 * (time.time() - t0))
+        decode_ms[mode] = statistics.median(times)
+    return bad, decode_ms, psnr
+
+
+def phase21(seed, steps=COLMAP_STEPS):
+    """COLMAP from JPEG frames of every mode through the CLIs, in a
+    temporary directory: write_colmap_scene (COLMAP_VIEWS views at
+    COLMAP_WH, cut in depth only); check_colmap_frames; train_torch.main
+    --dataset_name colmap at opt.py's defaults (full width, --downsample
+    1.0) for `steps` steps with the kernel counters at 0 just before
+    (read just after); validate; test_torch.run's default renderer on
+    the slim checkpoint; one step from the trained state on a batch of
+    the test views with the kernels against the plain step (phase 9's
+    bounds, P3_SUM_C).  Checks: the frames as check_colmap_frames says;
+    the logged losses finite; validate PSNR >= 25 dB; P2 and P3 launched
+    in training and P2 in serving; test_torch's PSNR within 1 dB of
+    validate's.  P2/P3 of the last training step join the kernels line
+    (request "colmap").  Reports the phase's seconds, the writer's
+    seconds, decode ms a frame of each mode, ms a step, rays/s, and the
+    peak host and device memory.  Returns (summary, kernels-line
+    entries)."""
+    import os
+    import tempfile
+
+    import test_torch
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    cut = (f"depth cut: {COLMAP_VIEWS} views at {COLMAP_WH[0]}x"
+           f"{COLMAP_WH[1]} (LLFF's images_4; LLFF: 20-62 views), 1 epoch "
+           f"of {steps} steps (opt.py: 30 x 1000); widths at opt.py's "
+           "defaults")
+    print(f"phase 21: {cut}", flush=True)
+    summary = dict(cut=cut)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp, PeakRss() as rss:
+        os.chdir(tmp)
+        try:
+            root = os.path.join(tmp, "data", "colmap", "procedural")
+            t0 = time.time()
+            written, render_s, write_s = write_colmap_scene(root, seed, dev)
+            scene_s = time.time() - t0
+            bad, decode_ms, psnr = check_colmap_frames(written)
+            frames = len(written)
+            del written
+            check(not bad, f"phase 21: {len(bad)} JPEG frames failed their "
+                  f"decode checks: {bad[:3]}")
+            summary.update(frames=frames, scene_s=scene_s, render_s=render_s,
+                           write_s=write_s, decode_ms=decode_ms,
+                           dct_psnr_min=psnr)
+            print(f"phase 21: {frames} JPEG frames ("
+                  + ", ".join(m for m, _ in COLMAP_MODES)
+                  + f" in turn) written in {scene_s:.1f} s (render "
+                  f"{render_s:.1f} s on the card, the writer {write_s:.1f}"
+                  " s); arithmetic frames equal their Huffman twins, "
+                  "lossless frames the pixels; lowest PSNR of the DCT "
+                  f"frames {psnr}; decode ms a frame {decode_ms}",
+                  flush=True)
+
+            argv = ["--root_dir", root, "--dataset_name", "colmap",
+                    "--exp_name", "colmap", "--downsample", "1.0",
+                    "--num_epochs", "1", "--steps_per_epoch", str(steps),
+                    "--seed", str(seed)]
+            reset_cli_counters(bf, probe)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            logs, kept = kept_training(
+                tsys, ph, lambda: train_torch.main(get_opts(argv)))
+            launches = cli_counters(bf, probe)
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            for k in ("gather_rows_bf16", "scatter_add_rows"):
+                check(launches[k] > 0,
+                      f"phase 21: {k} not launched by the training")
+            recs = [json.loads(line) for line in
+                    open("results/colmap/colmap/logs/scalars.jsonl")]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            check(len(losses) == steps // 100 and all(
+                math.isfinite(v) for v in losses),
+                f"phase 21: logged losses {losses}")
+            check(logs["psnr"] >= 25.0,
+                  f"phase 21: validate psnr {logs['psnr']} < 25 dB")
+            print(f"phase 21: {steps} steps in {wall:.1f} s (with load and "
+                  f"validate); {logs.get('ms_per_step')} ms/step net of "
+                  f"warm-up, {logs.get('rays_per_sec')} rays/s; validate "
+                  f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; peak "
+                  f"{peak:.2f} GiB on the card; launches {launches}",
+                  flush=True)
+            entries = train_probe_entries(probe, kept, launches, "colmap",
+                                          "phase 21")
+            del kept
+
+            reset_cli_counters(bf, probe)
+            served = test_torch.run(get_opts(
+                argv + ["--ckpt_path", "ckpts/colmap/colmap/epoch=0_slim"]))
+            torch.cuda.synchronize()
+            sl = cli_counters(bf, probe)
+            check(sl["gather_rows_bf16"] > 0,
+                  "phase 21: P2 not launched by test_torch")
+            gap = abs(served["psnr"] - logs["psnr"])
+            check(gap <= 1.0, f"phase 21: test_torch psnr {served['psnr']}, "
+                  f"{gap} dB from validate's")
+            print(f"phase 21: test_torch: mean psnr {served['psnr']:.3f} "
+                  f"({gap:.3f} dB from validate), fps {served['fps']:.2f}; "
+                  f"launches {sl}", flush=True)
+
+            state, scene, cfg = restored_state(
+                argv, "ckpts/colmap/colmap/epoch=0", dev, "test")
+            draws = draws_of(torch.Generator(device=dev).manual_seed(
+                seed + 21), scene, cfg, dev)
+            step_errs, _ = kernel_vs_plain_step(
+                tsys, ph, probe, state, scene, cfg, draws, tag="phase 21")
+            del state, scene
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    summary.update(
+        train_wall_s=wall, ms_per_step=logs.get("ms_per_step"),
+        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
+        ssim=logs["ssim"], launches=launches, peak_gib=peak,
+        peak_host_gib=rss.peak, serve=dict(served, launches=sl, gap_db=gap),
+        kernel_vs_plain_step=step_errs, seconds=time.time() - t_phase)
+    print(f"phase 21: kernel step vs plain step {step_errs}; phase "
+          f"{summary['seconds']:.1f} s, the scene's writing "
+          f"{summary['scene_s']:.1f} s of it; peak host memory "
+          f"{rss.peak:.2f} GiB (the process), card {peak:.2f} GiB",
+          flush=True)
+    return summary, entries
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4077,7 +4383,8 @@ def main():
 
     t0 = time.time()
     libs = _build.build("brick_field_dense", "probe", "ladder",
-                        "image_codec", "sens_decode")  # nvcc, cc, g++ at once
+                        "image_codec", "jpeg_fixture",
+                        "sens_decode")  # nvcc, cc, g++ at once
     build_s = time.time() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text()
@@ -4304,6 +4611,11 @@ def main():
     # ---- 20: an RTMV scene of OpenEXR frames through the CLIs
     rtmv, rtmv_kernels = phase20(args.seed)
     kernels += rtmv_kernels
+
+    begin(21)
+    # ---- 21: a COLMAP scene of JPEG frames in every mode through the CLIs
+    colmap, colmap_kernels = phase21(args.seed)
+    kernels += colmap_kernels
     begin("end")
     print(f"card {card}; bake 256^3 {bake_s:.3f} s, 512^3 {bake5_s:.3f} s; "
           f"wl256 median {statistics.median(wl_ms):.2f} ms; " + "; ".join(
@@ -4350,7 +4662,11 @@ def main():
           f"rtmv: EXR decode {rtmv['exr_decode_ms']:.1f} ms a frame, "
           f"{rtmv['ms_per_step']} ms/step, validate psnr {rtmv['psnr']:.2f}, "
           f"served {rtmv['serve']['psnr']:.2f}, phase 20 "
-          f"{rtmv['seconds']:.0f} s; total "
+          f"{rtmv['seconds']:.0f} s; colmap: JPEG decode ms a frame "
+          f"{colmap['decode_ms']}, {colmap['ms_per_step']} ms/step, "
+          f"validate psnr {colmap['psnr']:.2f}, served "
+          f"{colmap['serve']['psnr']:.2f}, phase 21 "
+          f"{colmap['seconds']:.0f} s; total "
           f"{time.time() - t_start:.0f} s", flush=True)
 
     result = dict(card=card, seed=args.seed, bake_s=bake_s,
@@ -4365,7 +4681,8 @@ def main():
                   bench_keys=bench_keys, cli=cli, datasets=data,
                   encoders=encoders, depth=depth,
                   depth_train=depth_train, sens_chain=sens_chain,
-                  shape=shape, dp=dp_run, rtmv=rtmv, phase_began_s=started,
+                  shape=shape, dp=dp_run, rtmv=rtmv, colmap=colmap,
+                  phase_began_s=started,
                   kernels=kernels)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,25 +1,36 @@
 /* Host image codec of the PyTorch port: PNG unfiltering, JPEG decoding
- * (baseline and progressive), baseline JPEG encoding and OpenEXR
- * decoding, behind a plain C interface that utils/image.py loads with
- * ctypes.
+ * (every mode libjpeg-turbo decodes at 8 bits), baseline JPEG encoding
+ * and OpenEXR decoding, behind a plain C interface that utils/image.py
+ * loads with ctypes.
  *
  * PNG: zlib inflation stays in Python; png_unfilter undoes the per-row
  * filters 0-4 (and the Adam7 interlace) of the inflated stream.
  *
  * JPEG decoding follows libjpeg(-turbo)'s default path so that the
- * samples equal what it gives: every scan's Huffman data lands in one
- * int16 coefficient block per 8x8 block of each component (jdhuff.c for
- * sequential scans, jdphuff.c's four progressive scan kinds: DC first,
- * DC refinement, AC first and AC refinement, with EOB runs); after the
- * last scan each block is dequantised by the table latched at its
- * component's first scan and goes through the integer "islow" IDCT
- * (jidctint.c), then "fancy" triangle upsampling of 2h1v and 2h2v chroma
- * (jdsample.c, with the first and last sample rows repeated as context)
- * and the fixed-point YCbCr->RGB conversion of jdcolor.c.  Huffman-coded
- * 8-bit files of 1 or 3 components (SOF0, SOF1, SOF2; interleaved or
- * not; restart intervals; tables redefined between scans).  Lossless,
- * hierarchical, arithmetic-coded and 12-bit files are refused with the
- * mode's name.
+ * samples equal what it gives: every scan's entropy-coded data lands in
+ * one int16 coefficient block per 8x8 block of each component, by
+ * Huffman decoding (jdhuff.c for sequential scans, jdphuff.c's four
+ * progressive scan kinds: DC first, DC refinement, AC first and AC
+ * refinement, with EOB runs) or by the QM arithmetic decoder (jdarith.c:
+ * sequential and the same four progressive kinds, DAC conditioning,
+ * statistics reset at every restart); after the last scan each block is
+ * dequantised by the table latched at its component's first scan and
+ * goes through the integer "islow" IDCT (jidctint.c), then "fancy"
+ * triangle upsampling of 2h1v, 2h2v and 1h2v (4:4:0) chroma (jdsample.c,
+ * with the first and last sample rows repeated as context) and
+ * replication for other ratios.  Lossless files (SOF3, jdlhuff.c,
+ * jddiffct.c, jdlossls.c) decode Huffman-coded differences against the
+ * seven predictors and the point transform, with replication
+ * upsampling.  Three components are YCbCr or RGB by jdapimin.c's rule
+ * (JFIF, then an Adobe transform, then the component ids) and go
+ * through jdcolor.c's fixed-point YCbCr->RGB; four are CMYK or YCCK
+ * (Adobe transform), given inverted as Pillow reads them.  8-bit files of
+ * 1, 3 or 4 components (SOF0, SOF1, SOF2, SOF3, SOF9, SOF10; interleaved
+ * or not; restart intervals; tables redefined between scans).
+ * Arithmetic-coded lossless (SOF11), hierarchical and 12- or 16-bit
+ * files, lossless files in YCbCr or YCCK, lossless restart intervals
+ * that are not whole MCU rows and MCUs of more than 10 blocks are
+ * refused with the mode's name, as libjpeg-turbo refuses them.
  *
  * JPEG encoding: baseline, 4:2:0 (or one gray component), the Annex K
  * quantisation tables scaled by libjpeg's quality rule and the Annex K
@@ -174,13 +185,16 @@ typedef struct {
 
 typedef struct {
   int id, h, v, tq;
-  int bw, bh;         /* blocks per row and column of the padded plane */
+  int bw, bh;         /* blocks (lossless: samples) per row and column of
+                         the padded plane */
   int dw, dh;         /* downsampled size (libjpeg's downsampled_width) */
-  uint8_t *plane;     /* bw*8 x bh*8 samples */
+  int stride;         /* bytes per row of plane: bw*8 (lossless: bw) */
+  uint8_t *plane;     /* bw*8 x bh*8 samples (lossless: bw x bh) */
   int16_t *coef;      /* bw x bh blocks of 64 coefficients, natural order */
   uint16_t q[64];     /* the table latched at the component's first scan */
   int latched;
   int pred, td, ta;
+  int dc_context;     /* arithmetic: the previous DC difference's class */
 } Comp;
 
 typedef struct {
@@ -191,10 +205,11 @@ typedef struct {
 
 typedef struct {
   int w, h, nc, hmax, vmax, mcux, mcuy, restart, adobe, adobe_transform;
-  int jfif, have_frame, progressive;
+  int jfif, have_frame, progressive, arith, lossless, scans;
   Comp comp[4];
   uint16_t q[4][64]; /* natural order */
   Huff dc[4], ac[4];
+  uint8_t dc_L[16], dc_U[16], ac_K[16]; /* DAC conditioning (arithmetic) */
   char *err;
   int errlen;
 } Jpeg;
@@ -440,7 +455,7 @@ static int parse_frame(Jpeg *j, const uint8_t *p, int len) {
   j->w = u16(p + 3);
   j->nc = p[5];
   if (!j->w || !j->h) return fail(j, "JPEG with a zero dimension (DNL)");
-  if (j->nc != 1 && j->nc != 3) {
+  if (j->nc != 1 && j->nc != 3 && j->nc != 4) {
     char msg[64];
     snprintf(msg, sizeof msg, "%d-component JPEG", j->nc);
     return fail(j, msg);
@@ -458,17 +473,22 @@ static int parse_frame(Jpeg *j, const uint8_t *p, int len) {
     if (c->h > j->hmax) j->hmax = c->h;
     if (c->v > j->vmax) j->vmax = c->v;
   }
-  j->mcux = (j->w + 8 * j->hmax - 1) / (8 * j->hmax);
-  j->mcuy = (j->h + 8 * j->vmax - 1) / (8 * j->vmax);
+  /* a lossless data unit is one sample, a DCT one an 8x8 block */
+  int unit = j->lossless ? 1 : 8;
+  j->mcux = (j->w + unit * j->hmax - 1) / (unit * j->hmax);
+  j->mcuy = (j->h + unit * j->vmax - 1) / (unit * j->vmax);
   for (int i = 0; i < j->nc; i++) {
     Comp *c = &j->comp[i];
     c->bw = j->mcux * c->h;
     c->bh = j->mcuy * c->v;
     c->dw = (int)(((long)j->w * c->h + j->hmax - 1) / j->hmax);
     c->dh = (int)(((long)j->h * c->v + j->vmax - 1) / j->vmax);
-    c->plane = calloc((size_t)c->bw * 8 * c->bh * 8, 1);
-    c->coef = calloc((size_t)c->bw * c->bh * 64, sizeof(int16_t));
-    if (!c->plane || !c->coef) return fail(j, "out of memory");
+    c->stride = c->bw * unit;
+    c->plane = calloc((size_t)c->stride * c->bh * unit, 1);
+    if (!j->lossless)
+      c->coef = calloc((size_t)c->bw * c->bh * 64, sizeof(int16_t));
+    if (!c->plane || (!j->lossless && !c->coef))
+      return fail(j, "out of memory");
   }
   j->have_frame = 1;
   return 0;
@@ -616,6 +636,283 @@ static void decode_block(Jpeg *j, Bits *b, Comp *c, int16_t *blk,
   else block_ac_first(j, b, c, blk, sc);
 }
 
+/* ------------------------------------------- JPEG: arithmetic decoding */
+
+/* T.81 Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS; entry
+ * 113 is jdarith.c's fixed probability 0.5 state, never updated. */
+static const uint16_t QE[114][4] = {
+    {0x5a1d, 1, 1, 1},     {0x2586, 14, 2, 0},    {0x1114, 16, 3, 0},
+    {0x080b, 18, 4, 0},    {0x03d8, 20, 5, 0},    {0x01da, 23, 6, 0},
+    {0x00e5, 25, 7, 0},    {0x006f, 28, 8, 0},    {0x0036, 30, 9, 0},
+    {0x001a, 33, 10, 0},   {0x000d, 35, 11, 0},   {0x0006, 9, 12, 0},
+    {0x0003, 10, 13, 0},   {0x0001, 12, 13, 0},   {0x5a7f, 15, 15, 1},
+    {0x3f25, 36, 16, 0},   {0x2cf2, 38, 17, 0},   {0x207c, 39, 18, 0},
+    {0x17b9, 40, 19, 0},   {0x1182, 42, 20, 0},   {0x0cef, 43, 21, 0},
+    {0x09a1, 45, 22, 0},   {0x072f, 46, 23, 0},   {0x055c, 48, 24, 0},
+    {0x0406, 49, 25, 0},   {0x0303, 51, 26, 0},   {0x0240, 52, 27, 0},
+    {0x01b1, 54, 28, 0},   {0x0144, 56, 29, 0},   {0x00f5, 57, 30, 0},
+    {0x00b7, 59, 31, 0},   {0x008a, 60, 32, 0},   {0x0068, 62, 33, 0},
+    {0x004e, 63, 34, 0},   {0x003b, 32, 35, 0},   {0x002c, 33, 9, 0},
+    {0x5ae1, 37, 37, 1},   {0x484c, 64, 38, 0},   {0x3a0d, 65, 39, 0},
+    {0x2ef1, 67, 40, 0},   {0x261f, 68, 41, 0},   {0x1f33, 69, 42, 0},
+    {0x19a8, 70, 43, 0},   {0x1518, 72, 44, 0},   {0x1177, 73, 45, 0},
+    {0x0e74, 74, 46, 0},   {0x0bfb, 75, 47, 0},   {0x09f8, 77, 48, 0},
+    {0x0861, 78, 49, 0},   {0x0706, 79, 50, 0},   {0x05cd, 48, 51, 0},
+    {0x04de, 50, 52, 0},   {0x040f, 50, 53, 0},   {0x0363, 51, 54, 0},
+    {0x02d4, 52, 55, 0},   {0x025c, 53, 56, 0},   {0x01f8, 54, 57, 0},
+    {0x01a4, 55, 58, 0},   {0x0160, 56, 59, 0},   {0x0125, 57, 60, 0},
+    {0x00f6, 58, 61, 0},   {0x00cb, 59, 62, 0},   {0x00ab, 61, 63, 0},
+    {0x008f, 61, 32, 0},   {0x5b12, 65, 65, 1},   {0x4d04, 80, 66, 0},
+    {0x412c, 81, 67, 0},   {0x37d8, 82, 68, 0},   {0x2fe8, 83, 69, 0},
+    {0x293c, 84, 70, 0},   {0x2379, 86, 71, 0},   {0x1edf, 87, 72, 0},
+    {0x1aa9, 87, 73, 0},   {0x174e, 72, 74, 0},   {0x1424, 72, 75, 0},
+    {0x119c, 74, 76, 0},   {0x0f6b, 74, 77, 0},   {0x0d51, 75, 78, 0},
+    {0x0bb6, 77, 79, 0},   {0x0a40, 77, 48, 0},   {0x5832, 80, 81, 1},
+    {0x4d1c, 88, 82, 0},   {0x438e, 89, 83, 0},   {0x3bdd, 90, 84, 0},
+    {0x34ee, 91, 85, 0},   {0x2eae, 92, 86, 0},   {0x299a, 93, 87, 0},
+    {0x2516, 86, 71, 0},   {0x5570, 88, 89, 1},   {0x4ca9, 95, 90, 0},
+    {0x44d9, 96, 91, 0},   {0x3e22, 97, 92, 0},   {0x3824, 99, 93, 0},
+    {0x32b4, 99, 94, 0},   {0x2e17, 93, 86, 0},   {0x56a8, 95, 96, 1},
+    {0x4f46, 101, 97, 0},  {0x47e5, 102, 98, 0},  {0x41cf, 103, 99, 0},
+    {0x3c3d, 104, 100, 0}, {0x375e, 99, 93, 0},   {0x5231, 105, 102, 0},
+    {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0}, {0x415e, 103, 99, 0},
+    {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1},
+    {0x5522, 112, 109, 0}, {0x59eb, 112, 111, 1}, {0x5a1d, 113, 113, 0}};
+
+/* jdarith.c's decoder state: the C and A registers, the bit counter
+ * (-16 before the first two bytes; -1 once a code went bad, after which
+ * the scan's remaining blocks are left as they are), and the statistics
+ * bins (bit 7 the MPS, bits 0-6 the state) of each table number. */
+typedef struct {
+  const uint8_t *p, *end;
+  long c, a;
+  int ct, marker;
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed;
+} Arith;
+
+/* The next byte of entropy-coded data: a stuffed 0xFF 0x00 gives 0xFF;
+ * from a marker on, zeros (T.81 D.2.6 and jdarith.c). */
+static int arith_byte(Arith *d) {
+  if (d->marker || d->p >= d->end) return 0;
+  int data = *d->p++;
+  if (data != 0xFF) return data;
+  while (d->p < d->end && *d->p == 0xFF) d->p++;
+  if (d->p < d->end && *d->p == 0) {
+    d->p++;
+    return 0xFF;
+  }
+  d->marker = 1;
+  d->p--; /* left on the 0xFF before the marker code */
+  return 0;
+}
+
+/* jdarith.c arith_decode: one binary decision in bin st (D.2.2-D.2.6,
+ * with the estimation of Table D.2) */
+static int arith_decode(Arith *d, uint8_t *st) {
+  while (d->a < 0x8000) {
+    if (--d->ct < 0) {
+      d->c = (d->c << 8) | arith_byte(d);
+      if ((d->ct += 8) < 0 && ++d->ct == 0) d->a = 0x8000;
+    }
+    d->a <<= 1;
+  }
+  int sv = *st;
+  const uint16_t *q = QE[sv & 0x7F];
+  long qe = q[0], temp = d->a - qe;
+  int nl = q[1] | (q[3] << 7), nm = q[2];
+  d->a = temp;
+  temp <<= d->ct;
+  if (d->c >= temp) {
+    d->c -= temp;
+    if (d->a < qe) {
+      d->a = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    } else {
+      d->a = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (d->a < 0x8000) {
+    if (d->a < qe) {
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+/* Figures F.19-F.24: a DC difference in the component's conditioning
+ * class, which it then updates (F.1.4.4.1.2 with DAC's L and U) */
+static int arith_dc_diff(Jpeg *j, Arith *d, Comp *c) {
+  uint8_t *stats = d->dc_stats[c->td], *st = stats + c->dc_context;
+  if (!arith_decode(d, st)) {
+    c->dc_context = 0;
+    return 0;
+  }
+  int sign = arith_decode(d, st + 1), m, v;
+  st += 2 + sign;
+  if ((m = arith_decode(d, st)) != 0) {
+    st = stats + 20;
+    while (arith_decode(d, st)) {
+      if ((m <<= 1) == 0x8000) {
+        d->ct = -1; /* magnitude overflow */
+        return 0;
+      }
+      st++;
+    }
+  }
+  if (m < ((1 << j->dc_L[c->td]) >> 1)) c->dc_context = 0;
+  else if (m > ((1 << j->dc_U[c->td]) >> 1)) c->dc_context = 12 + sign * 4;
+  else c->dc_context = 4 + sign * 4;
+  v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(d, st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+/* Figures F.21-F.24 for the nonzero AC coefficient at band index k, st
+ * at its bin S0: the sign in the fixed bin, then the magnitude */
+static int arith_ac_value(Arith *d, uint8_t *stats, uint8_t *st, int k,
+                          int kx) {
+  int sign = arith_decode(d, &d->fixed), m, v;
+  st += 2;
+  if ((m = arith_decode(d, st)) != 0 && arith_decode(d, st)) {
+    m <<= 1;
+    st = stats + (k <= kx ? 189 : 217);
+    while (arith_decode(d, st)) {
+      if ((m <<= 1) == 0x8000) {
+        d->ct = -1; /* magnitude overflow */
+        return 0;
+      }
+      st++;
+    }
+  }
+  v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(d, st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+/* jdarith.c decode_mcu (sequential) and decode_mcu_DC_first: the DC
+ * difference; then, sequential, the AC coefficients up to EOB */
+static void ablock_seq(Jpeg *j, Arith *d, Comp *c, int16_t *blk,
+                       const Scan *sc) {
+  int diff = arith_dc_diff(j, d, c);
+  if (d->ct == -1) return;
+  c->pred = (c->pred + diff) & 0xffff;
+  blk[0] = (int16_t)((unsigned)c->pred << sc->al);
+  if (j->progressive) return;
+  uint8_t *stats = d->ac_stats[c->ta];
+  int k = 0;
+  do {
+    uint8_t *st = stats + 3 * k;
+    if (arith_decode(d, st)) break; /* EOB */
+    for (;;) {
+      k++;
+      if (arith_decode(d, st + 1)) break;
+      st += 3;
+      if (k >= 63) {
+        d->ct = -1; /* spectral overflow */
+        return;
+      }
+    }
+    int v = arith_ac_value(d, stats, st, k, j->ac_K[c->ta]);
+    if (d->ct == -1) return;
+    blk[natural(k)] = (int16_t)v;
+  } while (k < 63);
+}
+
+/* jdarith.c decode_mcu_AC_first: the band Ss..Se at point transform Al */
+static void ablock_ac_first(Jpeg *j, Arith *d, Comp *c, int16_t *blk,
+                            const Scan *sc) {
+  uint8_t *stats = d->ac_stats[c->ta];
+  for (int k = sc->ss; k <= sc->se; k++) {
+    uint8_t *st = stats + 3 * (k - 1);
+    if (arith_decode(d, st)) break; /* EOB */
+    while (!arith_decode(d, st + 1)) {
+      st += 3;
+      if (++k > sc->se) {
+        d->ct = -1; /* spectral overflow */
+        return;
+      }
+    }
+    int v = arith_ac_value(d, stats, st, k, j->ac_K[c->ta]);
+    if (d->ct == -1) return;
+    blk[natural(k)] = (int16_t)((unsigned)v << sc->al);
+  }
+}
+
+/* jdarith.c decode_mcu_AC_refine: past the previous stage's last
+ * nonzero coefficient an EOB decision comes first; a coefficient already
+ * nonzero takes a correction bit, a new one +-(1 << Al) */
+static void ablock_ac_refine(Arith *d, Comp *c, int16_t *blk,
+                             const Scan *sc) {
+  uint8_t *stats = d->ac_stats[c->ta];
+  int p1 = 1 << sc->al, m1 = -p1, kex;
+  for (kex = sc->se; kex > 0; kex--)
+    if (blk[natural(kex)]) break;
+  for (int k = sc->ss; k <= sc->se; k++) {
+    uint8_t *st = stats + 3 * (k - 1);
+    if (k > kex && arith_decode(d, st)) break; /* EOB */
+    for (;;) {
+      int16_t *v = blk + natural(k);
+      if (*v) {
+        if (arith_decode(d, st + 2)) *v += (int16_t)(*v < 0 ? m1 : p1);
+        break;
+      }
+      if (arith_decode(d, st + 1)) {
+        *v = (int16_t)(arith_decode(d, &d->fixed) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > sc->se) {
+        d->ct = -1; /* spectral overflow */
+        return;
+      }
+    }
+  }
+}
+
+static void arith_block(Jpeg *j, Arith *d, Comp *c, int16_t *blk,
+                        const Scan *sc) {
+  if (d->ct == -1) return;
+  if (!j->progressive || (sc->ss == 0 && !sc->ah))
+    ablock_seq(j, d, c, blk, sc);
+  else if (sc->ss == 0) {
+    if (arith_decode(d, &d->fixed)) blk[0] |= (int16_t)(1 << sc->al);
+  } else if (sc->ah) {
+    ablock_ac_refine(d, c, blk, sc);
+  } else {
+    ablock_ac_first(j, d, c, blk, sc);
+  }
+}
+
+/* jdarith.c start_pass and process_restart: the scan's statistics bins
+ * cleared, DC predictions and contexts zeroed, the registers reset */
+static void arith_reset(Jpeg *j, Arith *d, Comp **sc, int ns,
+                        const Scan *scan) {
+  for (int i = 0; i < ns; i++) {
+    if (!j->progressive || (scan->ss == 0 && scan->ah == 0)) {
+      memset(d->dc_stats[sc[i]->td], 0, 64);
+      sc[i]->pred = 0;
+      sc[i]->dc_context = 0;
+    }
+    if (!j->progressive || scan->ss)
+      memset(d->ac_stats[sc[i]->ta], 0, 256);
+  }
+  d->c = 0;
+  d->a = 0;
+  d->ct = -16;
+  d->marker = 0;
+}
+
 /* Find the next marker at or after p (skipping fill bytes). */
 static const uint8_t *next_marker(const uint8_t *p, const uint8_t *end) {
   while (p + 1 < end) {
@@ -623,6 +920,120 @@ static const uint8_t *next_marker(const uint8_t *p, const uint8_t *end) {
     p++;
   }
   return end;
+}
+
+/* Past the restart marker that ends an interval (jdmarker.c
+ * read_restart_marker: any data left before it is skipped). */
+static const uint8_t *past_restart(const uint8_t *p, const uint8_t *end) {
+  const uint8_t *m = next_marker(p, end);
+  if (m + 1 < end && m[1] >= 0xD0 && m[1] <= 0xD7) m += 2;
+  return m;
+}
+
+/* The lossless predictor of H.1.2.1 (jdlossls.c): on the first row of
+ * the scan or of a restart interval the left neighbour, 2^(P - Pt - 1)
+ * in the first column; elsewhere the one above in the first column and
+ * predictor `sel` of a (left), b (above) and c (above left). */
+static int lossless_predict(const int *cur, const int *prev, int x,
+                            int first, int sel, int init) {
+  if (first) return x ? cur[x - 1] : init;
+  int b = prev[x];
+  if (!x) return b;
+  int a = cur[x - 1], c = prev[x - 1];
+  switch (sel) {
+    case 1: return a;
+    case 2: return b;
+    case 3: return c;
+    case 4: return a + b - c;
+    case 5: return a + ((b - c) >> 1);
+    case 6: return b + ((a - c) >> 1);
+    default: return (a + b) >> 1;
+  }
+}
+
+/* jdlhuff.c decode_mcus, jddiffct.c and jdlossls.c: one lossless scan.
+ * Each sample's Huffman-coded difference (category 16: 32768) lands at
+ * its MCU position; then each component's rows are undifferenced
+ * (modulo 2^16) over its downsampled width, the predictors restarting
+ * with every restart interval, and scaled up by the point transform. */
+static const uint8_t *decode_lossless_scan(Jpeg *j, Comp **sc, int ns,
+                                           const Scan *scan,
+                                           const uint8_t *p,
+                                           const uint8_t *end) {
+  long per_row = ns == 1 ? sc[0]->dw : j->mcux;
+  long rows = ns == 1 ? sc[0]->dh : j->mcuy;
+  int sel = scan->ss, pt = scan->al;
+  if (sel < 1 || sel > 7 || scan->se || scan->ah || pt > 7) {
+    fail(j, "bad lossless scan parameters");
+    return NULL;
+  }
+  if (j->restart % per_row) {
+    char msg[128];
+    snprintf(msg, sizeof msg, "lossless JPEG with a restart interval of %d "
+             "MCUs, not whole MCU rows of %ld", j->restart, per_row);
+    fail(j, msg);
+    return NULL;
+  }
+  int *diff[4] = {0}, *rowbuf = NULL, ok = 1;
+  for (int i = 0; i < ns; i++) {
+    if (sc[i]->td > 3 || !j->dc[sc[i]->td].defined) {
+      fail(j, "scan uses an undefined Huffman table");
+      ok = 0;
+    } else if (!(diff[i] = calloc((size_t)sc[i]->bw * sc[i]->bh,
+                                  sizeof(int)))) {
+      fail(j, "out of memory");
+      ok = 0;
+    }
+  }
+  Bits b = {p, end, 0, 0, 0};
+  for (long u = 0; ok && u < per_row * rows; u++) {
+    if (j->restart && u && u % j->restart == 0) {
+      b.p = past_restart(b.p, end);
+      b.buf = 0;
+      b.cnt = 0;
+      b.marker = 0;
+    }
+    long mx = u % per_row, my = u / per_row;
+    for (int i = 0; i < ns; i++) {
+      Comp *c = sc[i];
+      int hh = ns == 1 ? 1 : c->h, vv = ns == 1 ? 1 : c->v;
+      for (int v = 0; v < vv; v++)
+        for (int h = 0; h < hh; h++) {
+          int s = huff_decode(&b, &j->dc[c->td]);
+          int d = s == 16 ? 32768 : s ? extend(get_bits(&b, s), s) : 0;
+          diff[i][(my * vv + v) * c->bw + mx * hh + h] = d;
+        }
+    }
+  }
+  long interval_rows = j->restart ? j->restart / per_row : 0;
+  for (int i = 0; ok && i < ns; i++) {
+    Comp *c = sc[i];
+    long vrows = ns == 1 ? 1 : c->v;
+    rowbuf = realloc(rowbuf, sizeof(int) * 2 * (size_t)c->dw);
+    if (!rowbuf) {
+      fail(j, "out of memory");
+      ok = 0;
+      break;
+    }
+    int *cur = rowbuf, *prev = rowbuf + c->dw;
+    for (long y = 0; y < c->dh; y++) {
+      int first = y == 0 || (interval_rows &&
+                             y % (interval_rows * vrows) == 0);
+      const int *dr = diff[i] + y * c->bw;
+      uint8_t *o = c->plane + y * c->stride;
+      for (int x = 0; x < c->dw; x++) {
+        cur[x] = (dr[x] + lossless_predict(cur, prev, x, first, sel,
+                                           1 << (7 - pt))) & 0xFFFF;
+        o[x] = (uint8_t)(cur[x] << pt);
+      }
+      int *t = cur;
+      cur = prev;
+      prev = t;
+    }
+  }
+  free(rowbuf);
+  for (int i = 0; i < ns; i++) free(diff[i]);
+  return ok ? next_marker(b.p, end) : NULL;
 }
 
 static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
@@ -643,6 +1054,7 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
     fail(j, "bad progressive scan parameters");
     return NULL;
   }
+  int mcu_blocks = 0;
   for (int i = 0; i < ns; i++) {
     int id = p[1 + 2 * i], k;
     for (k = 0; k < j->nc && j->comp[k].id != id; k++) {
@@ -652,22 +1064,36 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
       return NULL;
     }
     sc[i] = &j->comp[k];
+    mcu_blocks += sc[i]->h * sc[i]->v;
+    if (ns > 1 && mcu_blocks > 10) { /* jdinput.c D_MAX_BLOCKS_IN_MCU */
+      fail(j, "JPEG scan of more than 10 blocks an MCU");
+      return NULL;
+    }
     sc[i]->td = p[2 + 2 * i] >> 4;
     sc[i]->ta = p[2 + 2 * i] & 15;
     sc[i]->pred = 0;
+    if (j->lossless) continue;
     if (!sc[i]->latched) {
       memcpy(sc[i]->q, j->q[sc[i]->tq], sizeof sc[i]->q);
       sc[i]->latched = 1;
     }
     int need_dc = dc_scan && !(j->progressive && scan.ah);
-    if (sc[i]->td > 3 || sc[i]->ta > 3 ||
-        (need_dc && !j->dc[sc[i]->td].defined) ||
-        (ac_scan && !j->ac[sc[i]->ta].defined)) {
+    if (!j->arith && (sc[i]->td > 3 || sc[i]->ta > 3 ||
+                      (need_dc && !j->dc[sc[i]->td].defined) ||
+                      (ac_scan && !j->ac[sc[i]->ta].defined))) {
       fail(j, "scan uses an undefined Huffman table");
       return NULL;
     }
   }
+  if (j->lossless) return decode_lossless_scan(j, sc, ns, &scan, p + len, end);
   Bits b = {p + len, end, 0, 0, 0};
+  Arith d;
+  if (j->arith) {
+    d.p = p + len;
+    d.end = end;
+    d.fixed = 113;
+    arith_reset(j, &d, sc, ns, &scan);
+  }
   long units, ux;
   if (ns == 1) {
     Comp *c = sc[0];
@@ -679,31 +1105,32 @@ static const uint8_t *decode_scan(Jpeg *j, const uint8_t *p, int len,
   }
   for (long u = 0; u < units; u++) {
     if (j->restart && u && u % j->restart == 0) {
-      const uint8_t *m = next_marker(b.p, end);
-      if (m + 1 < end && m[1] >= 0xD0 && m[1] <= 0xD7) m += 2;
-      b.p = m;
-      b.buf = 0;
-      b.cnt = 0;
-      b.marker = 0;
-      scan.eobrun = 0;
-      for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+      if (j->arith) {
+        d.p = past_restart(d.p, end);
+        arith_reset(j, &d, sc, ns, &scan);
+      } else {
+        b.p = past_restart(b.p, end);
+        b.buf = 0;
+        b.cnt = 0;
+        b.marker = 0;
+        scan.eobrun = 0;
+        for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+      }
     }
     long mx = u % ux, my = u / ux;
-    if (ns == 1) {
-      Comp *c = sc[0];
-      decode_block(j, &b, c, c->coef + (my * c->bw + mx) * 64, &scan);
-      continue;
-    }
     for (int i = 0; i < ns; i++) {
       Comp *c = sc[i];
-      for (int v = 0; v < c->v; v++)
-        for (int h = 0; h < c->h; h++) {
-          long by = my * c->v + v, bx = mx * c->h + h;
-          decode_block(j, &b, c, c->coef + (by * c->bw + bx) * 64, &scan);
+      int hh = ns == 1 ? 1 : c->h, vv = ns == 1 ? 1 : c->v;
+      for (int v = 0; v < vv; v++)
+        for (int h = 0; h < hh; h++) {
+          long by = my * vv + v, bx = mx * hh + h;
+          int16_t *blk = c->coef + (by * c->bw + bx) * 64;
+          if (j->arith) arith_block(j, &d, c, blk, &scan);
+          else decode_block(j, &b, c, blk, &scan);
         }
     }
   }
-  return next_marker(b.p, end);
+  return next_marker(j->arith ? d.p : b.p, end);
 }
 
 /* Every block of every component, dequantised and through the IDCT into
@@ -728,7 +1155,11 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
   init_tables();
   if (size < 4 || p[0] != 0xFF || p[1] != 0xD8) return fail(j, "not a JPEG");
   p += 2;
-  int scans = 0;
+  for (int t = 0; t < 16; t++) { /* jdmarker.c's DAC defaults */
+    j->dc_L[t] = 0;
+    j->dc_U[t] = 1;
+    j->ac_K[t] = 5;
+  }
   while (p < end) {
     p = next_marker(p, end);
     if (p + 1 >= end) break;
@@ -745,24 +1176,38 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
       case 0xC0:
       case 0xC1:
       case 0xC2:
-        j->progressive = m == 0xC2;
-        if (parse_frame(j, seg, len)) return -1;
-        break;
       case 0xC3:
-      case 0xC7:
-        return fail(j, "lossless JPEG");
-      case 0xC5:
-      case 0xC6:
-        return fail(j, "hierarchical JPEG");
       case 0xC9:
       case 0xCA:
-      case 0xCB:
+        j->progressive = m == 0xC2 || m == 0xCA;
+        j->arith = m >= 0xC9;
+        j->lossless = m == 0xC3;
+        if (parse_frame(j, seg, len)) return -1;
+        break;
+      case 0xCB: /* libjpeg-turbo has no arithmetic lossless decoder */
+        return fail(j, "arithmetic-coded lossless JPEG");
+      case 0xC5:
+      case 0xC6:
+      case 0xC7:
       case 0xCD:
       case 0xCE:
       case 0xCF:
-        return fail(j, "arithmetic-coded JPEG");
+        return fail(j, "hierarchical JPEG");
       case 0xC4:
         if (parse_dht(j, seg, len)) return -1;
+        break;
+      case 0xCC: /* DAC: jdmarker.c get_dac */
+        for (int i = 0; i + 1 < len; i += 2) {
+          int tb = seg[i], val = seg[i + 1];
+          if (tb >= 32) return fail(j, "bad DAC segment");
+          if (tb >= 16) {
+            j->ac_K[tb - 16] = (uint8_t)val;
+          } else {
+            j->dc_L[tb] = (uint8_t)(val & 15);
+            j->dc_U[tb] = (uint8_t)(val >> 4);
+            if (j->dc_L[tb] > j->dc_U[tb]) return fail(j, "bad DAC segment");
+          }
+        }
         break;
       case 0xDB:
         if (parse_dqt(j, seg, len)) return -1;
@@ -771,11 +1216,14 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
         if (len < 2) return fail(j, "short DRI segment");
         j->restart = u16(seg);
         break;
+      /* jdmarker.c examine_app0 / examine_app14: a JFIF APP0 of 14 bytes
+       * or more, an Adobe APP14 of 12 or more; only those before the
+       * first scan count (jpeg_read_header fixes the colour space) */
       case 0xE0:
-        if (len >= 5 && !memcmp(seg, "JFIF", 5)) j->jfif = 1;
+        if (!j->scans && len >= 14 && !memcmp(seg, "JFIF", 5)) j->jfif = 1;
         break;
       case 0xEE:
-        if (len >= 12 && !memcmp(seg, "Adobe", 5)) {
+        if (!j->scans && len >= 12 && !memcmp(seg, "Adobe", 5)) {
           j->adobe = 1;
           j->adobe_transform = seg[11];
         }
@@ -785,15 +1233,15 @@ static int run(Jpeg *j, const uint8_t *data, size_t size, int decode) {
         if (!decode) return 0;
         p = decode_scan(j, seg, len, end);
         if (!p) return -1;
-        scans++;
+        j->scans++;
         break;
       default:
         break; /* APPn, COM, DNL... */
     }
   }
   if (!j->have_frame) return fail(j, "JPEG without a frame header");
-  if (decode && !scans) return fail(j, "JPEG without a scan");
-  if (decode) idct_planes(j);
+  if (decode && !j->scans) return fail(j, "JPEG without a scan");
+  if (decode && !j->lossless) idct_planes(j);
   return 0;
 }
 
@@ -804,12 +1252,16 @@ static void free_jpeg(Jpeg *j) {
   }
 }
 
-/* jdsample.c's fancy upsamplers on one component, into a w x h plane.
- * Rows past the component's last real row, and the row above its first,
- * repeat the nearest real row (jdmainct.c's context rows). */
+/* jdsample.c's upsamplers on one component, into a w x h plane: the
+ * "fancy" triangle filters for 2h1v and 2h2v chroma more than 2 samples
+ * wide and for 1h2v (4:4:0) chroma of any width; replication for every
+ * other integral ratio, and for all of them in lossless files (whose
+ * data unit of one sample turns fancy upsampling off).  Rows past the
+ * component's last real row, and the row above its first, repeat the
+ * nearest real row (jdmainct.c's context rows). */
 static int upsample(const Jpeg *j, const Comp *c, uint8_t *out) {
   int W = j->w, H = j->h, sx = j->hmax / c->h, sy = j->vmax / c->v;
-  int stride = c->bw * 8, dw = c->dw, dh = c->dh;
+  int stride = c->stride, dw = c->dw, dh = c->dh, fancy = !j->lossless;
   if (j->hmax % c->h || j->vmax % c->v)
     return -1;
   uint8_t *row = malloc((size_t)dw * 2 + 16);
@@ -821,9 +1273,15 @@ static int upsample(const Jpeg *j, const Comp *c, uint8_t *out) {
   }
   for (int y = 0; y < H; y++) {
     uint8_t *o = out + (size_t)y * W;
+    /* the nearest input row and the next nearest (above for an even
+       output row, below for an odd one), clamped to the real rows */
+    int iy = y >> 1, ny = (y & 1) ? iy + 1 : iy - 1;
+    if (iy > dh - 1) iy = dh - 1;
+    if (ny < 0) ny = 0;
+    if (ny > dh - 1) ny = dh - 1;
     if (sx == 1 && sy == 1) {
       memcpy(o, c->plane + (size_t)y * stride, W);
-    } else if (sx == 2 && sy == 1 && dw > 2) {
+    } else if (fancy && sx == 2 && sy == 1 && dw > 2) {
       const uint8_t *in = c->plane + (size_t)y * stride;
       row[0] = in[0];
       row[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
@@ -835,11 +1293,15 @@ static int upsample(const Jpeg *j, const Comp *c, uint8_t *out) {
       row[2 * dw - 2] = (uint8_t)((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
       row[2 * dw - 1] = in[dw - 1];
       memcpy(o, row, W);
-    } else if (sx == 2 && sy == 2 && dw > 2) {
-      int iy = y >> 1, ny = (y & 1) ? iy + 1 : iy - 1;
-      if (iy > dh - 1) iy = dh - 1;
-      if (ny < 0) ny = 0;
-      if (ny > dh - 1) ny = dh - 1;
+    } else if (fancy && sx == 1 && sy == 2) {
+      /* h1v2_fancy_upsample: 3/4 nearest + 1/4 next nearest, bias 1
+         above and 2 below */
+      const uint8_t *i0 = c->plane + (size_t)iy * stride;
+      const uint8_t *i1 = c->plane + (size_t)ny * stride;
+      int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < W; x++)
+        o[x] = (uint8_t)((i0[x] * 3 + i1[x] + bias) >> 2);
+    } else if (fancy && sx == 2 && sy == 2 && dw > 2) {
       const uint8_t *i0 = c->plane + (size_t)iy * stride;
       const uint8_t *i1 = c->plane + (size_t)ny * stride;
       for (int i = 0; i < dw; i++) cs[i] = i0[i] * 3 + i1[i];
@@ -853,11 +1315,11 @@ static int upsample(const Jpeg *j, const Comp *c, uint8_t *out) {
       row[2 * dw - 1] = (uint8_t)((cs[dw - 1] * 4 + 7) >> 4);
       memcpy(o, row, W);
     } else {
-      /* box replication (jdsample.c's int_upsample / h2v1 and h2v2 on
-         narrow components) */
-      int iy = y / sy;
-      if (iy > dh - 1) iy = dh - 1;
-      const uint8_t *in = c->plane + (size_t)iy * stride;
+      /* replication (jdsample.c's int_upsample, and h2v1 / h2v2 on
+         narrow components or without fancy upsampling) */
+      int ry = y / sy;
+      if (ry > dh - 1) ry = dh - 1;
+      const uint8_t *in = c->plane + (size_t)ry * stride;
       for (int x = 0; x < W; x++) o[x] = in[x / sx];
     }
   }
@@ -866,8 +1328,8 @@ static int upsample(const Jpeg *j, const Comp *c, uint8_t *out) {
   return 0;
 }
 
-/* Returns 0 and the image's width, height and component count (1 or 3),
- * or -1 with a message in err. */
+/* Returns 0 and the image's width, height and component count (1, 3 or
+ * 4), or -1 with a message in err. */
 int jpeg_info(const uint8_t *data, size_t size, int *w, int *h, int *nc,
               char *err, int errlen) {
   Jpeg j;
@@ -883,9 +1345,50 @@ int jpeg_info(const uint8_t *data, size_t size, int *w, int *h, int *nc,
   return 0;
 }
 
-/* Decodes into out (h x w x nc uint8, nc from jpeg_info): RGB for three
- * components (YCbCr converted unless an Adobe marker says RGB or the
- * component ids are 'R', 'G', 'B'), gray for one. */
+/* jdapimin.c default_decompress_parms: whether three components hold
+ * YCbCr.  A JFIF marker means YCbCr; otherwise an Adobe marker's
+ * transform 0 means RGB and any other YCbCr; otherwise component ids 1,
+ * 2, 3 mean YCbCr and 'R', 'G', 'B' RGB, and other ids YCbCr (RGB in a
+ * lossless file). */
+static int is_ycc(const Jpeg *j) {
+  if (j->jfif) return 1;
+  if (j->adobe) return j->adobe_transform != 0;
+  int c0 = j->comp[0].id, c1 = j->comp[1].id, c2 = j->comp[2].id;
+  if (c0 == 1 && c1 == 2 && c2 == 3) return !j->lossless;
+  if (c0 == 'R' && c1 == 'G' && c2 == 'B') return 0;
+  return !j->lossless;
+}
+
+/* jdcolor.c: SCALEBITS 16, tables over x = sample - 128 */
+static int CR_R[256], CB_B[256];
+static int64_t CR_G[256], CB_G[256];
+
+static void init_ycc_tables(void) {
+  static int init = 0;
+  if (init) return;
+  const int64_t one_half = (int64_t)1 << 15;
+  const int64_t f1402 = (int64_t)(1.40200 * 65536 + 0.5);
+  const int64_t f1772 = (int64_t)(1.77200 * 65536 + 0.5);
+  const int64_t f0714 = (int64_t)(0.71414 * 65536 + 0.5);
+  const int64_t f0344 = (int64_t)(0.34414 * 65536 + 0.5);
+  for (int i = 0; i < 256; i++) {
+    int64_t x = i - 128;
+    CR_R[i] = (int)((f1402 * x + one_half) >> 16);
+    CB_B[i] = (int)((f1772 * x + one_half) >> 16);
+    CR_G[i] = -f0714 * x;
+    CB_G[i] = -f0344 * x + one_half;
+  }
+  init = 1;
+}
+
+/* Decodes into out (h x w x nc uint8, nc from jpeg_info): gray for one
+ * component; RGB for three (YCbCr converted as is_ycc says; a lossless
+ * file in YCbCr is refused, as libjpeg-turbo does no colour conversion
+ * in lossless mode); for four, the CMYK samples as Pillow gives them,
+ * inverted (its "CMYK;I" rawmode, Adobe's convention), YCCK (Adobe
+ * transform other than 0) converted to CMYK first (jdcolor.c
+ * ycck_cmyk_convert: C, M, Y = 255 - R, G, B of the YCbCr part, K as
+ * stored). */
 int jpeg_decode(const uint8_t *data, size_t size, uint8_t *out, char *err,
                 int errlen) {
   Jpeg j;
@@ -897,59 +1400,68 @@ int jpeg_decode(const uint8_t *data, size_t size, uint8_t *out, char *err,
     return -1;
   }
   size_t n = (size_t)j.w * j.h;
-  if (j.nc == 1) {
+  int nc = j.nc;
+  if (nc == 1) {
     for (int y = 0; y < j.h; y++)
-      memcpy(out + (size_t)y * j.w,
-             j.comp[0].plane + (size_t)y * j.comp[0].bw * 8, j.w);
+      memcpy(out + (size_t)y * j.w, j.comp[0].plane + (size_t)y *
+             j.comp[0].stride, j.w);
     free_jpeg(&j);
     return 0;
   }
-  uint8_t *full = malloc(n * 3);
+  /* 4 components: YCCK unless an Adobe marker says transform 0 or there
+     is none (jdapimin.c) */
+  int ycc = nc == 3 ? is_ycc(&j) : (j.adobe && j.adobe_transform != 0);
+  if (ycc && j.lossless) {
+    free_jpeg(&j);
+    return fail(&j, nc == 3 ? "lossless JPEG in YCbCr (no colour "
+                              "conversion in lossless mode)"
+                            : "lossless JPEG in YCCK (no colour "
+                              "conversion in lossless mode)");
+  }
+  uint8_t *full = malloc(n * nc);
   if (!full) {
     free_jpeg(&j);
     return fail(&j, "out of memory");
   }
-  for (int i = 0; i < 3; i++)
+  for (int i = 0; i < nc; i++)
     if (upsample(&j, &j.comp[i], full + i * n)) {
       free(full);
       free_jpeg(&j);
       return fail(&j, "unsupported JPEG sampling factors");
     }
-  int rgb = (j.adobe && j.adobe_transform == 0) ||
-            (!j.jfif && !j.adobe && j.comp[0].id == 'R' &&
-             j.comp[1].id == 'G' && j.comp[2].id == 'B');
-  const uint8_t *Y = full, *Cb = full + n, *Cr = full + 2 * n;
-  if (rgb) {
+  init_ycc_tables();
+  const uint8_t *c0 = full, *c1 = full + n, *c2 = full + 2 * n;
+  if (nc == 3 && !ycc) {
     for (size_t i = 0; i < n; i++) {
-      out[3 * i] = Y[i];
-      out[3 * i + 1] = Cb[i];
-      out[3 * i + 2] = Cr[i];
+      out[3 * i] = c0[i];
+      out[3 * i + 1] = c1[i];
+      out[3 * i + 2] = c2[i];
+    }
+  } else if (nc == 3) {
+    for (size_t i = 0; i < n; i++) {
+      int y = c0[i], cb = c1[i], cr = c2[i];
+      out[3 * i] = CLAMP[256 + y + CR_R[cr]];
+      out[3 * i + 1] = CLAMP[256 + y + (int)((CB_G[cb] + CR_G[cr]) >> 16)];
+      out[3 * i + 2] = CLAMP[256 + y + CB_B[cb]];
     }
   } else {
-    /* jdcolor.c: SCALEBITS 16, tables over x = sample - 128 */
-    static int cr_r[256], cb_b[256];
-    static int64_t cr_g[256], cb_g[256];
-    static int init = 0;
-    if (!init) {
-      const int64_t one_half = (int64_t)1 << 15;
-      const int64_t f1402 = (int64_t)(1.40200 * 65536 + 0.5);
-      const int64_t f1772 = (int64_t)(1.77200 * 65536 + 0.5);
-      const int64_t f0714 = (int64_t)(0.71414 * 65536 + 0.5);
-      const int64_t f0344 = (int64_t)(0.34414 * 65536 + 0.5);
-      for (int i = 0; i < 256; i++) {
-        int64_t x = i - 128;
-        cr_r[i] = (int)((f1402 * x + one_half) >> 16);
-        cb_b[i] = (int)((f1772 * x + one_half) >> 16);
-        cr_g[i] = -f0714 * x;
-        cb_g[i] = -f0344 * x + one_half;
-      }
-      init = 1;
-    }
+    /* CMYK inverted, as Pillow reads it.  YCCK's C, M, Y are
+       range_limit[255 - (y + ...)], 255 minus the clamped R, G, B, so
+       inverted they are R, G, B. */
+    const uint8_t *c3 = full + 3 * n;
     for (size_t i = 0; i < n; i++) {
-      int y = Y[i], cb = Cb[i], cr = Cr[i];
-      out[3 * i] = CLAMP[256 + y + cr_r[cr]];
-      out[3 * i + 1] = CLAMP[256 + y + (int)((cb_g[cb] + cr_g[cr]) >> 16)];
-      out[3 * i + 2] = CLAMP[256 + y + cb_b[cb]];
+      if (ycc) {
+        int y = c0[i], cb = c1[i], cr = c2[i];
+        out[4 * i] = CLAMP[256 + y + CR_R[cr]];
+        out[4 * i + 1] =
+            CLAMP[256 + y + (int)((CB_G[cb] + CR_G[cr]) >> 16)];
+        out[4 * i + 2] = CLAMP[256 + y + CB_B[cb]];
+      } else {
+        out[4 * i] = (uint8_t)(255 - c0[i]);
+        out[4 * i + 1] = (uint8_t)(255 - c1[i]);
+        out[4 * i + 2] = (uint8_t)(255 - c2[i]);
+      }
+      out[4 * i + 3] = (uint8_t)(255 - c3[i]);
     }
   }
   free(full);

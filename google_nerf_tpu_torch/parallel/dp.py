@@ -37,17 +37,18 @@ from google_nerf_tpu_torch.train.system import (TrainConfig, apply_grads,
                                                 param_leaves, sample_batch)
 
 
-def init_distributed(backend=None, device_type=None):
+def init_distributed(backend=None, device_type="cuda"):
     """Join torchrun's world: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
     and MASTER_PORT from the environment (the reference's
     init_process_group, `LeReS Train/tools/train.py:462-465`).
-    device_type: "cuda" (the default where a card is there; the rank's
-    card is cuda:LOCAL_RANK, backend NCCL) or "cpu" (backend gloo);
-    `backend` overrides.  Without WORLD_SIZE in the environment there is
-    no group to join: a world of one, as JAX's single-host run.  A
-    failed join raises.  Returns (rank, device)."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type: "cuda" (the default: the rank's card is
+    cuda:LOCAL_RANK, backend NCCL; raises without a card) or "cpu"
+    (backend gloo); `backend` overrides.  Without WORLD_SIZE in the
+    environment there is no group to join: a world of one, as JAX's
+    single-host run.  A failed join raises.  Returns (rank, device)."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_distributed: no CUDA card; pass "
+                           "device_type='cpu' to join on the CPU (gloo)")
     if "WORLD_SIZE" not in os.environ and not comm.initialized():
         return 0, torch.device(device_type)
     if device_type == "cuda":

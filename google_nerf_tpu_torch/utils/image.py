@@ -2,8 +2,9 @@
 
   * read_image: PNG (8- and 16-bit gray, gray+alpha, RGB, RGBA; 1- to
     8-bit palette images, expanded to RGB as imageio gives them; Adam7),
-    JPEG (baseline and progressive Huffman-coded, 8-bit, gray or
-    three-component) and OpenEXR (single-part scanline files, HALF or
+    JPEG (8-bit: Huffman or arithmetic-coded, sequential or progressive,
+    and lossless; gray, three components as RGB, or four as Pillow's
+    inverted CMYK) and OpenEXR (single-part scanline files, HALF or
     FLOAT R,G,B[,A] or Y, compressed NO, RLE, ZIPS or ZIP), picked by the
     file's magic bytes as imageio does;
   * write_png (8-bit gray, RGB and RGBA; 16-bit gray) and write_jpeg
@@ -20,11 +21,13 @@ PNG unfiltering, the JPEG codec and the OpenEXR reader are C
 first use into build/kernels and loaded with ctypes; a failed build
 raises, and so does a file the reader cannot read, with its path and
 the mode's name.  JPEG decoding reproduces libjpeg-turbo's default path
-(islow IDCT, fancy upsampling), so it gives what imageio (Pillow) gives.
-16-bit colour PNGs keep their 16 bits (Pillow reads them as 8).  Refused
-by name: arithmetic-coded, lossless, hierarchical, 12-bit and
-4-component (CMYK) JPEGs; PIZ, PXR24, B44/B44A and DWAA/DWAB OpenEXR
-compressions, and tiled, multi-part, deep and long-name OpenEXR files.
+(islow IDCT, fancy upsampling, its colour rules), so it gives what
+imageio (Pillow) gives.  16-bit colour PNGs keep their 16 bits (Pillow
+reads them as 8).  Refused by name, as imageio refuses them:
+arithmetic-coded lossless, hierarchical and 12- or 16-bit JPEGs,
+lossless JPEGs in YCbCr or YCCK; PIZ, PXR24, B44/B44A and DWAA/DWAB
+OpenEXR compressions, and tiled, multi-part, deep and long-name OpenEXR
+files.
 """
 from __future__ import annotations
 
@@ -209,8 +212,9 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline or progressive JPEG bytes -> (H, W, 3) RGB or (H, W) gray
-    uint8."""
+    """JPEG bytes (Huffman or arithmetic-coded, sequential or
+    progressive, or lossless; 8-bit) -> (H, W) gray, (H, W, 3) RGB or
+    (H, W, 4) CMYK uint8, the CMYK inverted as Pillow gives it."""
     w, h, c = _jpeg_header(data)
     out = np.empty((h, w, c), np.uint8)
     err = ctypes.create_string_buffer(256)

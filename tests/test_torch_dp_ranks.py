@@ -332,6 +332,18 @@ def test_init_distributed_outside_torchrun(monkeypatch):
     assert not comm.initialized()
 
 
+def test_init_distributed_defaults_to_the_card(monkeypatch):
+    """device_type defaults to "cuda", and without a card that raises
+    rather than quietly joining on the CPU."""
+    from google_nerf_tpu_torch.parallel.dp import init_distributed
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        init_distributed()
+    assert init_distributed(device_type="cpu") == (0, torch.device("cpu"))
+    assert not comm.initialized()
+
+
 def test_comm_answers_for_a_world_of_one():
     """Without a process group: world 1, rank 0, the main process, no
     barrier, a one-element gather and reduce_dict's identity (JAX's

@@ -20,8 +20,10 @@ through utils/image.py) on the CPU.
     bit against the array written.  A 2x2 HALF RGB NO-compression file
     whose bytes this file lays out by hand catches a misreading that the
     writer and the reader would share;
-  * the modes still refused, each by its name: arithmetic-coded,
-    lossless, hierarchical and 12-bit JPEGs (headers crafted here), and
+  * the modes still refused, each by its name and by imageio too:
+    arithmetic-coded lossless, hierarchical, 12- and 16-bit JPEGs (files
+    crafted here; tests/test_torch_jpeg_modes.py holds the modes that
+    decode and the lossless files both readers refuse), and
     the PIZ, PXR24, B44, B44A, DWAA and DWAB compressions, tiled,
     multi-part, deep and long-name files, UINT and subsampled channels
     and channel sets other than R,G,B[,A] or Y; a file that cannot be
@@ -253,17 +255,42 @@ def test_exr_frame_through_decode_image(tmp_path):
 # ------------------------------------------------------ refused by name
 
 def _sof(marker, precision=8):
-    """SOI, one SOF segment of an 8x8 one-component frame, EOI."""
-    return (b"\xff\xd8" + bytes([0xFF, marker]) + struct.pack(
-        ">HBHHB", 11, precision, 8, 8, 1) + b"\x01\x11\x00" + b"\xff\xd9")
+    """SOI, one SOF segment of an 8x8 one-component frame, a DHT of
+    Annex K's luma DC table and an AC table of EOB alone, one SOS
+    (predictor 1 for the lossless frames, the full band otherwise) over
+    eight zero bytes, EOI: a file both readers decode when the marker is
+    SOF0 at 8 bits."""
+    lossless = marker in (0xC3, 0xC7, 0xCB, 0xCF)
+    dht = (b"\xff\xc4" + struct.pack(">H", 2 + 17 + 12 + 17 + 1) + b"\x00"
+           + bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0])
+           + bytes(range(12)) + b"\x10" + bytes([1] + [0] * 15) + b"\x00")
+    sos = (b"\xff\xda" + struct.pack(">HB", 8, 1) + b"\x01\x00"
+           + (b"\x01\x00\x00" if lossless else b"\x00\x3f\x00"))
+    dqt = b"\xff\xdb\x00\x43\x00" + bytes([1] * 64)
+    return (b"\xff\xd8" + dqt + bytes([0xFF, marker]) + struct.pack(
+        ">HBHHB", 11, precision, 8, 8, 1) + b"\x01\x11\x00" + dht + sos
+        + bytes(8) + b"\xff\xd9")
 
 
-JPEG_REFUSED = [(0xC9, 8, "arithmetic-coded"), (0xCA, 8, "arithmetic-coded"),
-                (0xCB, 8, "arithmetic-coded"), (0xCD, 8, "arithmetic-coded"),
-                (0xCE, 8, "arithmetic-coded"), (0xCF, 8, "arithmetic-coded"),
-                (0xC3, 8, "lossless"), (0xC7, 8, "lossless"),
+def test_the_crafted_frame_decodes_at_sof0(tmp_path):
+    """The refused cases below differ from this file in the SOF marker
+    and the precision alone."""
+    path = tmp_path / "f.jpg"
+    path.write_bytes(_sof(0xC0))
+    np.testing.assert_array_equal(im.read_image(str(path)),
+                                  imageio.imread(str(path)))
+
+
+# arithmetic sequential and progressive (SOF9, SOF10) and lossless SOF3
+# decode now (tests/test_torch_jpeg_modes.py); these stay refused, and
+# imageio refuses each file too
+JPEG_REFUSED = [(0xCB, 8, "arithmetic-coded lossless"),
+                (0xCD, 8, "hierarchical"), (0xCE, 8, "hierarchical"),
+                (0xCF, 8, "hierarchical"), (0xC7, 8, "hierarchical"),
                 (0xC5, 8, "hierarchical"), (0xC6, 8, "hierarchical"),
-                (0xC1, 12, "12-bit"), (0xC2, 12, "12-bit")]
+                (0xC1, 12, "12-bit"), (0xC2, 12, "12-bit"),
+                (0xC3, 12, "12-bit"), (0xC9, 12, "12-bit"),
+                (0xC3, 16, "16-bit")]
 
 
 @pytest.mark.parametrize("marker,precision,name", JPEG_REFUSED,
@@ -272,6 +299,8 @@ JPEG_REFUSED = [(0xC9, 8, "arithmetic-coded"), (0xCA, 8, "arithmetic-coded"),
 def test_jpeg_refuses_mode_by_name(tmp_path, marker, precision, name):
     path = tmp_path / "f.jpg"
     path.write_bytes(_sof(marker, precision))
+    with pytest.raises(Exception):
+        imageio.imread(str(path))
     with pytest.raises(ValueError, match=f"f.jpg: .*{name} JPEG"):
         im.read_image(str(path))
 

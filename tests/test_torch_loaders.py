@@ -18,7 +18,6 @@ decoder's bound (2/255) from the port's JPEG frames; priors 1e-6;
 scene() tensors equal to the numpy arrays."""
 import json
 import os
-import struct
 
 import numpy as np
 import pytest
@@ -34,6 +33,7 @@ from google_nerf_tpu_torch.data import colmap_utils as tcu
 from google_nerf_tpu_torch.data import depth_utils as tdu
 from google_nerf_tpu_torch.data import loaders as tl
 from google_nerf_tpu_torch.data import ply as tply
+from google_nerf_tpu_torch.tools.colmap_fixture import write_model
 from google_nerf_tpu_torch.tools.exr_fixture import write_exr
 from google_nerf_tpu_torch.utils.image import write_jpeg, write_png
 
@@ -224,44 +224,27 @@ def test_rtmv_exr_frames_match_jax_on_png_frames(tmp_path, scene):
 # ------------------------------------------------------------- colmap
 
 def _colmap(root, n=10, folder="images", hw=(8, 10), progressive=False):
-    """A COLMAP scene of n frames: PNGs, or Pillow's progressive JPEGs."""
-    sparse = os.path.join(root, "sparse/0")
-    os.makedirs(sparse)
+    """A COLMAP scene of n frames: PNGs, or Pillow's progressive JPEGs;
+    the model through tools/colmap_fixture.py."""
     os.makedirs(os.path.join(root, folder))
     rng = np.random.RandomState(0)
-    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
-        f.write(struct.pack("<Q", 1))
-        f.write(struct.pack("<iiQQ", 1, 1, 20, 16))         # PINHOLE 20x16
-        f.write(struct.pack("<dddd", 100.0, 90.0, 10.0, 8.0))
-    with open(os.path.join(sparse, "images.bin"), "wb") as f:
-        f.write(struct.pack("<Q", n))
-        for i in range(n):
-            name = f"im{(7 * i) % n:03d}.{'jpg' if progressive else 'png'}"
-            path = os.path.join(root, folder, name)         # unsorted ids
-            if progressive:
-                Image.fromarray(_img(rng, hw)).save(path, "JPEG",
-                                                    quality=90,
-                                                    progressive=True)
-            else:
-                write_png(path, _img(rng, hw))
-            q = rng.randn(4)
-            q /= np.linalg.norm(q)
-            f.write(struct.pack("<i", i + 1))
-            f.write(struct.pack("<dddd", *q))
-            f.write(struct.pack("<ddd", *(rng.randn(3) + [0, 0, -4])))
-            f.write(struct.pack("<i", 1))
-            f.write(name.encode() + b"\x00")
-            f.write(struct.pack("<Q", 2))
-            f.write(struct.pack("<ddqddq", 1.0, 2.0, 3, 4.0, 5.0, 5))
-    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
-        f.write(struct.pack("<Q", 20))
-        for i in range(20):
-            f.write(struct.pack("<Q", i))
-            f.write(struct.pack("<ddd", *rng.normal(0, 0.5, 3)))
-            f.write(struct.pack("<BBB", 100, 110, 120))
-            f.write(struct.pack("<d", 0.1))
-            f.write(struct.pack("<Q", 1))
-            f.write(struct.pack("<ii", 1, 0))
+    images = []
+    for i in range(n):
+        name = f"im{(7 * i) % n:03d}.{'jpg' if progressive else 'png'}"
+        path = os.path.join(root, folder, name)         # unsorted ids
+        if progressive:
+            Image.fromarray(_img(rng, hw)).save(path, "JPEG", quality=90,
+                                                progressive=True)
+        else:
+            write_png(path, _img(rng, hw))
+        q = rng.randn(4)
+        q /= np.linalg.norm(q)
+        images.append((i + 1, q, rng.randn(3) + [0, 0, -4], 1, name,
+                       [(1.0, 2.0, 3), (4.0, 5.0, 5)]))
+    points = [(i, rng.normal(0, 0.5, 3), (100, 110, 120), 0.1, [(1, 0)])
+              for i in range(20)]
+    write_model(os.path.join(root, "sparse/0"),              # PINHOLE 20x16
+                [(1, 1, 20, 16, (100.0, 90.0, 10.0, 8.0))], images, points)
     return root
 
 
