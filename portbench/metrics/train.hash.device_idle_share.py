@@ -1,0 +1,3 @@
+"""train.hash.device_idle_share: the share of the profiled slice in
+which nothing ran on the device, in the hash field's training cells."""
+from portbench.lib.readers import device_idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""train.hash.launches_per_step: launch calls in the profiled slice
+over its steps, in the hash field's training cells."""
+from portbench.lib.readers import launches_per_step as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""train.packed.enc_gather_roofline: the encoder forward's share of its
+bound, in the packed field's training cells."""
+from portbench.lib.readers import enc_gather_roofline as read  # noqa: F401
