@@ -32,6 +32,7 @@ from google_nerf_tpu_torch.ops.packed_pair import (
     PackedPairConfig, init_packed_pair, packed_pair_config_for_scale,
     packed_pair_encode)
 from google_nerf_tpu_torch.ops.trunc_exp import trunc_exp
+from google_nerf_tpu_torch.utils.logging import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +137,14 @@ def _encode_xyz(params, cfg: NGPConfig, x01):
 def ngp_density(params, cfg: NGPConfig, x, return_feat: bool = False):
     """x: (N, 3) world coords in [-scale, scale] -> sigmas (N,)
     (+ geometric features (N, geo_feat_dim) if return_feat)."""
+    count("field_points", x.numel() // 3)
     x01 = (x + cfg.scale) / (2 * cfg.scale)
-    enc = _encode_xyz(params, cfg, x01)
-    h = mlp_apply(params["sigma_mlp"], enc, compute_dtype=cfg.compute_dtype)
-    sigmas = trunc_exp(h[..., 0])
+    with span("ngp.encoder"):
+        enc = _encode_xyz(params, cfg, x01)
+    with span("ngp.mlp"):
+        h = mlp_apply(params["sigma_mlp"], enc,
+                      compute_dtype=cfg.compute_dtype)
+        sigmas = trunc_exp(h[..., 0])
     if return_feat:
         return sigmas, h
     return sigmas
@@ -149,8 +154,10 @@ def ngp_apply(params, cfg: NGPConfig, x, d):
     """x, d: (N, 3) positions and view directions -> sigmas (N,),
     rgbs (N, 3)."""
     sigmas, h = ngp_density(params, cfg, x, return_feat=True)
-    d = d / norm3(d, keepdim=True)
-    rgb_in = torch.cat([sh_encode_deg4(d), h], dim=-1)
-    logits = mlp_apply(params["rgb_mlp"], rgb_in,
-                       compute_dtype=cfg.compute_dtype)
-    return sigmas, torch.sigmoid(logits)
+    with span("ngp.mlp"):
+        d = d / norm3(d, keepdim=True)
+        rgb_in = torch.cat([sh_encode_deg4(d), h], dim=-1)
+        logits = mlp_apply(params["rgb_mlp"], rgb_in,
+                           compute_dtype=cfg.compute_dtype)
+        rgbs = torch.sigmoid(logits)
+    return sigmas, rgbs

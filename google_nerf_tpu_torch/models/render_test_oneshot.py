@@ -38,6 +38,7 @@ from google_nerf_tpu_torch.ops.march_block import (block2_group, block_group,
 from google_nerf_tpu_torch.ops.march_seg import _first_k, march_rays_train_seg
 from google_nerf_tpu_torch.ops.ray_aabb import clamp_near, ray_aabb_intersect
 from google_nerf_tpu_torch.ops.stream_composite import composite_stream_train
+from google_nerf_tpu_torch.utils.logging import count, span
 
 NEAR_DISTANCE = 0.05
 
@@ -75,37 +76,42 @@ def _render_pass(params, cfg: NGPConfig, occ_u8, rays_o, rays_d, t_cur, t2,
     pass's accumulations (already scaled by T_in) and the new carry."""
     field = apply_fn or ngp_apply
     R = rays_o.shape[0]
-    hits = torch.stack([torch.where(t_cur < t2, t_cur, -1.0), t2], 1)
-    m = _march(cfg, occ_u8, rays_o, rays_d, hits, k=k, n_keep=n_keep,
-               sup=sup, n_keep_sup=n_keep_sup, max_samples=max_samples,
-               march=march, n_keep_super=n_keep_super)
+    with span("ngp.march"):
+        hits = torch.stack([torch.where(t_cur < t2, t_cur, -1.0), t2], 1)
+        m = _march(cfg, occ_u8, rays_o, rays_d, hits, k=k, n_keep=n_keep,
+                   sup=sup, n_keep_sup=n_keep_sup, max_samples=max_samples,
+                   march=march, n_keep_super=n_keep_super)
     K = m["ts"].shape[1]
     if budget and budget < R * K:
-        plan = plan_packing(m["valid"], budget, sample_major=False)
-        processed = ~(m["valid"] & ~plan.keep.reshape(R, K)).any(-1)
-        sig_p, rgb_p = field(params, cfg, pack(m["xyzs"].reshape(-1, 3), plan),
-                             pack(m["dirs"].reshape(-1, 3), plan))
-        out = composite_stream_train(plan, sig_p, rgb_p,
-                                     pack(m["deltas"].reshape(-1), plan),
-                                     pack(m["ts"].reshape(-1), plan),
-                                     R, K, T_threshold)
+        with span("ngp.pack"):
+            plan = plan_packing(m["valid"], budget, sample_major=False)
+            processed = ~(m["valid"] & ~plan.keep.reshape(R, K)).any(-1)
+            xyz_p = pack(m["xyzs"].reshape(-1, 3), plan)
+            dir_p = pack(m["dirs"].reshape(-1, 3), plan)
+            dl_p = pack(m["deltas"].reshape(-1), plan)
+            ts_p = pack(m["ts"].reshape(-1), plan)
+        sig_p, rgb_p = field(params, cfg, xyz_p, dir_p)
+        with span("ngp.composite"):
+            out = composite_stream_train(plan, sig_p, rgb_p, dl_p, ts_p, R,
+                                         K, T_threshold)
     else:
         # dense pass: the field on every padded slot, composited row-wise
         # (the exclusive sum in JAX's form)
         sig, rgb_s = field(params, cfg, m["xyzs"].reshape(-1, 3),
                            m["dirs"].reshape(-1, 3))
-        sig = sig.reshape(R, K)
-        rgb_s = rgb_s.reshape(R, K, 3)
-        sd = torch.clamp_max(torch.where(m["valid"], sig * m["deltas"], 0.0),
-                             80.0)
-        T_before = torch.exp(-_exclusive_cumsum(sd))
-        alpha = 1.0 - torch.exp(-sd)
-        include = m["valid"] & (T_before > T_threshold)
-        w = torch.where(include, T_before * alpha, 0.0)
-        out = dict(opacity=torch.clamp(w.sum(-1), 0.0, 1.0),
-                   depth=(w * m["ts"]).sum(-1),
-                   rgb=(w[..., None] * rgb_s).sum(-2),
-                   tau=torch.where(include, sd, 0.0).sum(-1))
+        with span("ngp.composite"):
+            sig = sig.reshape(R, K)
+            rgb_s = rgb_s.reshape(R, K, 3)
+            sd = torch.clamp_max(
+                torch.where(m["valid"], sig * m["deltas"], 0.0), 80.0)
+            T_before = torch.exp(-_exclusive_cumsum(sd))
+            alpha = 1.0 - torch.exp(-sd)
+            include = m["valid"] & (T_before > T_threshold)
+            w = torch.where(include, T_before * alpha, 0.0)
+            out = dict(opacity=torch.clamp(w.sum(-1), 0.0, 1.0),
+                       depth=(w * m["ts"]).sum(-1),
+                       rgb=(w[..., None] * rgb_s).sum(-2),
+                       tau=torch.where(include, sd, 0.0).sum(-1))
         processed = torch.ones((R,), dtype=torch.bool, device=rays_o.device)
     # budget-dropped rays contribute nothing and retry from where they were
     sc = torch.where(processed, T_in, 0.0)
@@ -165,21 +171,26 @@ def _drain_pool(params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth, T,
     state = torch.cat([rgb, opacity[:, None], depth[:, None], T[:, None],
                        t_cur[:, None], alive.to(torch.float32)[:, None]], 1)
     trips = 0
-    while trips < max_passes and bool((state[:, 7] > 0.5).any()):
-        ridx, is_real = _first_k(state[:, 7] > 0.5, sr)
-        cg = const.index_select(0, ridx)
-        sg = state.index_select(0, ridx)
-        q = _render_pass(params, cfg, occ_u8, cg[:, 0:3], cg[:, 3:6],
-                         torch.where(is_real, sg[:, 6], math.inf),
-                         torch.where(is_real, cg[:, 6], 0.0),
-                         torch.where(is_real, sg[:, 5], 0.0), **kw)
-        new = torch.cat(
-            [sg[:, 0:3] + q["rgb"], (sg[:, 3] + q["opacity"])[:, None],
-             (sg[:, 4] + q["depth"])[:, None], q["T"][:, None],
-             q["t_next"][:, None],
-             (q["alive"] & is_real).to(torch.float32)[:, None]], 1)
-        state.index_copy_(0, ridx, torch.where(is_real[:, None], new, sg))
+    while trips < max_passes:
+        with span("ngp.serve.trip"):
+            if not bool((state[:, 7] > 0.5).any()):
+                break
+            ridx, is_real = _first_k(state[:, 7] > 0.5, sr)
+            cg = const.index_select(0, ridx)
+            sg = state.index_select(0, ridx)
+            q = _render_pass(params, cfg, occ_u8, cg[:, 0:3], cg[:, 3:6],
+                             torch.where(is_real, sg[:, 6], math.inf),
+                             torch.where(is_real, cg[:, 6], 0.0),
+                             torch.where(is_real, sg[:, 5], 0.0), **kw)
+            new = torch.cat(
+                [sg[:, 0:3] + q["rgb"], (sg[:, 3] + q["opacity"])[:, None],
+                 (sg[:, 4] + q["depth"])[:, None], q["T"][:, None],
+                 q["t_next"][:, None],
+                 (q["alive"] & is_real).to(torch.float32)[:, None]], 1)
+            state.index_copy_(0, ridx,
+                              torch.where(is_real[:, None], new, sg))
         trips += 1
+        count("drain_trips")
     return state[:, 0:3], state[:, 3], state[:, 4], trips
 
 
@@ -241,71 +252,77 @@ def render_test_oneshot(params, cfg: NGPConfig, occ_u8, rays_o, rays_d, *,
     drain): no main pass, the drain starts from the rays a super scan
     marks live.  Returns rgb (R, 3), opacity, depth (R,), and with drain
     also drain_trips (int) and alive_after_main (int32 count)."""
-    if drain and not pooled_stragglers:
-        raise ValueError("drain=True requires pooled_stragglers=True "
-                         "(the drain runs on the image-wide pool)")
-    dev = rays_o.device
-    R = rays_o.shape[0]
-    chunk = min(chunk, max(R, 1))
-    pad = (-R) % chunk
-    # pad rays start far outside the AABB: they never march content
-    ro = (torch.cat([rays_o, torch.full((pad, 3), 100.0, device=dev)])
-          if pad else rays_o)
-    rd = (torch.cat([rays_d, torch.ones((pad, 3), device=dev)])
-          if pad else rays_d)
-    bg = 1.0 if exp_step_factor == 0.0 else 0.0
-    kw = dict(T_threshold=T_threshold, k=k, n_keep=n_keep, sup=sup,
-              n_keep_sup=n_keep_sup, max_samples=max_samples,
-              apply_fn=apply_fn, march=march)
-    if not pooled_stragglers:
-        outs = [_render_chunk_oneshot(
-            params, cfg, occ_u8, ro[i:i + chunk], rd[i:i + chunk],
-            passes=passes, straggler_div=straggler_div,
-            budget_div=budget_div, **kw) for i in range(0, R + pad, chunk)]
-        cat = {kk: torch.cat([o[kk] for o in outs])[:R] for kk in outs[0]}
-        cat["rgb"] = cat["rgb"] + bg * (1.0 - cat["opacity"][:, None])
-        return cat
+    count("views")
+    with span("ngp.serve.view"):
+        if drain and not pooled_stragglers:
+            raise ValueError("drain=True requires pooled_stragglers=True "
+                             "(the drain runs on the image-wide pool)")
+        dev = rays_o.device
+        R = rays_o.shape[0]
+        chunk = min(chunk, max(R, 1))
+        pad = (-R) % chunk
+        # pad rays start far outside the AABB: they never march content
+        ro = (torch.cat([rays_o, torch.full((pad, 3), 100.0, device=dev)])
+              if pad else rays_o)
+        rd = (torch.cat([rays_d, torch.ones((pad, 3), device=dev)])
+              if pad else rays_d)
+        bg = 1.0 if exp_step_factor == 0.0 else 0.0
+        kw = dict(T_threshold=T_threshold, k=k, n_keep=n_keep, sup=sup,
+                  n_keep_sup=n_keep_sup, max_samples=max_samples,
+                  apply_fn=apply_fn, march=march)
+        if not pooled_stragglers:
+            outs = [_render_chunk_oneshot(
+                params, cfg, occ_u8, ro[i:i + chunk], rd[i:i + chunk],
+                passes=passes, straggler_div=straggler_div,
+                budget_div=budget_div, **kw) for i in range(0, R + pad, chunk)]
+            cat = {kk: torch.cat([o[kk] for o in outs])[:R] for kk in outs[0]}
+            cat["rgb"] = cat["rgb"] + bg * (1.0 - cat["opacity"][:, None])
+            return cat
 
-    norm = norm3(rd, keepdim=True)
-    rdu = rd / torch.where(norm > 0, norm, 1.0)
-    N = R + pad
-    sr = max(chunk // straggler_div, 1)
-    if compact_main:
-        # no main pass: the drain starts from every ray a phase-A super
-        # scan finds possible content on, so background rays never march
-        if march != "block2" or not drain:
-            raise ValueError("compact_main requires march='block2' and "
-                             "drain=True")
-        hits, t2, t_cur = _clip(cfg, ro, rdu)
-        alive = super_any_live(ro, rdu, hits, occ_u8, scale=cfg.scale,
-                               grid_size=cfg.grid_size,
-                               max_samples=max_samples) & (t_cur < t2)
-        rgb = torch.zeros((N, 3), device=dev)
-        opacity = torch.zeros((N,), device=dev)
-        depth, T = torch.zeros_like(opacity), torch.ones_like(opacity)
-    else:
-        parts = [_main_pass_chunk(
-            params, cfg, occ_u8, ro[i:i + chunk], rdu[i:i + chunk],
-            budget=(chunk * k // budget_div if budget_div else 0), **kw)
-            for i in range(0, N, chunk)]
-        acc = {kk: torch.cat([p[kk] for p in parts]) for kk in parts[0]}
-        rgb, opacity, depth = acc["rgb"], acc["opacity"], acc["depth"]
-        T, t_cur, alive, t2 = acc["T"], acc["t_next"], acc["alive"], acc["t2"]
-    out = {}
-    if drain:
-        rgb, opacity, depth, trips = _drain_pool(
-            params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth, T, t_cur,
-            alive, sr=sr, max_passes=max_passes, n_keep_super=n_keep_super,
-            budget=(sr * k // drain_budget_div if drain_budget_div else 0),
-            **kw)
-        out = dict(drain_trips=trips,
-                   alive_after_main=alive.sum().to(torch.int32))
-    else:
-        for _ in range(passes - 1):
-            rgb, opacity, depth, T, t_cur, alive = _straggler_pass(
+        norm = norm3(rd, keepdim=True)
+        rdu = rd / torch.where(norm > 0, norm, 1.0)
+        N = R + pad
+        sr = max(chunk // straggler_div, 1)
+        if compact_main:
+            # no main pass: the drain starts from every ray a phase-A super
+            # scan finds possible content on, so background rays never march
+            if march != "block2" or not drain:
+                raise ValueError("compact_main requires march='block2' and "
+                                 "drain=True")
+            with span("ngp.serve.scan"):
+                hits, t2, t_cur = _clip(cfg, ro, rdu)
+                alive = super_any_live(
+                    ro, rdu, hits, occ_u8, scale=cfg.scale,
+                    grid_size=cfg.grid_size,
+                    max_samples=max_samples) & (t_cur < t2)
+            rgb = torch.zeros((N, 3), device=dev)
+            opacity = torch.zeros((N,), device=dev)
+            depth, T = torch.zeros_like(opacity), torch.ones_like(opacity)
+        else:
+            parts = [_main_pass_chunk(
+                params, cfg, occ_u8, ro[i:i + chunk], rdu[i:i + chunk],
+                budget=(chunk * k // budget_div if budget_div else 0), **kw)
+                for i in range(0, N, chunk)]
+            acc = {kk: torch.cat([p[kk] for p in parts]) for kk in parts[0]}
+            rgb, opacity, depth = acc["rgb"], acc["opacity"], acc["depth"]
+            T, t_cur = acc["T"], acc["t_next"]
+            alive, t2 = acc["alive"], acc["t2"]
+        out = {}
+        if drain:
+            rgb, opacity, depth, trips = _drain_pool(
                 params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth, T,
-                t_cur, alive, sr=sr,
-                budget=(sr * k // max(budget_div // 2, 1) if budget_div
-                        else 0), **kw)
-    return dict(out, rgb=rgb[:R] + bg * (1.0 - opacity[:R, None]),
-                opacity=opacity[:R], depth=depth[:R])
+                t_cur, alive, sr=sr, max_passes=max_passes,
+                n_keep_super=n_keep_super,
+                budget=(sr * k // drain_budget_div if drain_budget_div else 0),
+                **kw)
+            out = dict(drain_trips=trips,
+                       alive_after_main=alive.sum().to(torch.int32))
+        else:
+            for _ in range(passes - 1):
+                rgb, opacity, depth, T, t_cur, alive = _straggler_pass(
+                    params, cfg, occ_u8, ro, rdu, t2, rgb, opacity, depth, T,
+                    t_cur, alive, sr=sr,
+                    budget=(sr * k // max(budget_div // 2, 1) if budget_div
+                            else 0), **kw)
+        return dict(out, rgb=rgb[:R] + bg * (1.0 - opacity[:R, None]),
+                    opacity=opacity[:R], depth=depth[:R])

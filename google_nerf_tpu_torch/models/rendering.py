@@ -29,6 +29,7 @@ from google_nerf_tpu_torch.ops.marching import (march_rays_test_round,
                                                 march_rays_train)
 from google_nerf_tpu_torch.ops.ray_aabb import clamp_near, ray_aabb_intersect
 from google_nerf_tpu_torch.ops.stream_composite import composite_stream_train
+from google_nerf_tpu_torch.utils.logging import span
 
 MAX_SAMPLES = 1024
 NEAR_DISTANCE = 0.05
@@ -75,92 +76,102 @@ def render_train(params, cfg: NGPConfig, occ_grid, rays_o, rays_d, *,
     if exclude_incomplete not in ("none", "hard", "floor", "backfill"):
         raise ValueError(f"exclude_incomplete={exclude_incomplete!r}")
     R = rays_o.shape[0]
-    rays_du, hits = _clip(cfg, rays_o, rays_d)
-    if occ_u8 is not None and constant and march == "block2":
-        # train keeps every supergroup (phase A's truncation flag has
-        # false positives that would poison backfill supervision)
-        g = block2_group(max_samples, cfg.scale, cfg.grid_size)
-        m = march_rays_train_block2(
-            rays_o, rays_du, hits, occ_u8, scale=cfg.scale,
-            grid_size=cfg.grid_size, max_samples=max_samples,
-            k_samples=k_samples, noise=noise,
-            n_keep_super=max(1, max_samples // (g * 8)),
-            n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
-    elif occ_u8 is not None and constant and march == "block":
-        # the default window budget is the seg marcher's reach (n_keep
-        # segments of seg candidates), not k_samples // g: a smaller one
-        # truncates content rays so often that training collapses (JAX's
-        # record: mask_frac 0.6)
-        g = block_group or auto_block_group(max_samples, cfg.scale,
-                                            cfg.grid_size)
-        m = march_rays_train_block(
-            rays_o, rays_du, hits, occ_u8, scale=cfg.scale,
-            grid_size=cfg.grid_size, max_samples=max_samples,
-            k_samples=k_samples, noise=noise, group=g,
-            n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
-    elif occ_u8 is not None and constant:
-        m = march_rays_train_seg(
-            rays_o, rays_du, hits, occ_u8, cascades=cfg.cascades,
-            scale=cfg.scale, grid_size=cfg.grid_size,
-            max_samples=max_samples, k_samples=k_samples, noise=noise,
-            seg=seg, n_keep=n_keep, sup=sup, n_keep_sup=n_keep_sup)
-    else:
-        m = march_rays_train(
-            rays_o, rays_du, hits, occ_grid, cascades=cfg.cascades,
-            scale=cfg.scale, exp_step_factor=exp_step_factor,
-            grid_size=cfg.grid_size, max_samples=max_samples,
-            k_samples=k_samples, noise=noise)
+    with span("ngp.march"):
+        rays_du, hits = _clip(cfg, rays_o, rays_d)
+        if occ_u8 is not None and constant and march == "block2":
+            # train keeps every supergroup (phase A's truncation flag has
+            # false positives that would poison backfill supervision)
+            g = block2_group(max_samples, cfg.scale, cfg.grid_size)
+            m = march_rays_train_block2(
+                rays_o, rays_du, hits, occ_u8, scale=cfg.scale,
+                grid_size=cfg.grid_size, max_samples=max_samples,
+                k_samples=k_samples, noise=noise,
+                n_keep_super=max(1, max_samples // (g * 8)),
+                n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
+        elif occ_u8 is not None and constant and march == "block":
+            # the default window budget is the seg marcher's reach (n_keep
+            # segments of seg candidates), not k_samples // g: a smaller one
+            # truncates content rays so often that training collapses (JAX's
+            # record: mask_frac 0.6)
+            g = block_group or auto_block_group(max_samples, cfg.scale,
+                                                cfg.grid_size)
+            m = march_rays_train_block(
+                rays_o, rays_du, hits, occ_u8, scale=cfg.scale,
+                grid_size=cfg.grid_size, max_samples=max_samples,
+                k_samples=k_samples, noise=noise, group=g,
+                n_keep_groups=n_keep_groups or max(1, (n_keep * seg) // g))
+        elif occ_u8 is not None and constant:
+            m = march_rays_train_seg(
+                rays_o, rays_du, hits, occ_u8, cascades=cfg.cascades,
+                scale=cfg.scale, grid_size=cfg.grid_size,
+                max_samples=max_samples, k_samples=k_samples, noise=noise,
+                seg=seg, n_keep=n_keep, sup=sup, n_keep_sup=n_keep_sup)
+        else:
+            m = march_rays_train(
+                rays_o, rays_du, hits, occ_grid, cascades=cfg.cascades,
+                scale=cfg.scale, exp_step_factor=exp_step_factor,
+                grid_size=cfg.grid_size, max_samples=max_samples,
+                k_samples=k_samples, noise=noise)
     K = m["ts"].shape[1]
     ray_mask = torch.ones((R,), dtype=torch.bool, device=rays_o.device)
-    if samples_budget and samples_budget < R * K:
+    packed = bool(samples_budget) and samples_budget < R * K
+    if packed:
         # the field runs only on (up to budget) real samples, ray-major,
         # so a ray whose samples did not all fit is masked out of the loss
-        plan = plan_packing(m["valid"], samples_budget, sample_major=False)
-        keep2d = plan.keep.reshape(R, K)
-        ray_mask = ~(m["valid"] & ~keep2d).any(-1)
-        feat = torch.cat([m["xyzs"].reshape(-1, 3), m["dirs"].reshape(-1, 3),
-                          m["deltas"].reshape(-1, 1),
-                          m["ts"].reshape(-1, 1)], 1)
-        fp = pack(feat, plan)
-        sig_p, rgb_p = ngp_apply(params, cfg, fp[:, :3], fp[:, 3:6])
-        if stream:
-            out = composite_stream_train(plan, sig_p, rgb_p, fp[:, 6],
-                                         fp[:, 7], R, K, T_threshold)
-        else:
-            out = composite_rays_train(
-                unpack(sig_p, plan).reshape(R, K),
-                unpack(rgb_p, plan).reshape(R, K, 3), m["deltas"], m["ts"],
-                m["valid"], T_threshold)
+        with span("ngp.pack"):
+            plan = plan_packing(m["valid"], samples_budget,
+                                sample_major=False)
+            keep2d = plan.keep.reshape(R, K)
+            ray_mask = ~(m["valid"] & ~keep2d).any(-1)
+            feat = torch.cat([m["xyzs"].reshape(-1, 3),
+                              m["dirs"].reshape(-1, 3),
+                              m["deltas"].reshape(-1, 1),
+                              m["ts"].reshape(-1, 1)], 1)
+            fp = pack(feat, plan)
+        sigmas, rgbs = ngp_apply(params, cfg, fp[:, :3], fp[:, 3:6])
     else:
         sigmas, rgbs = ngp_apply(params, cfg, m["xyzs"].reshape(-1, 3),
                                  m["dirs"].reshape(-1, 3))
-        out = composite_rays_train(sigmas.reshape(R, K),
-                                   rgbs.reshape(R, K, 3), m["deltas"],
-                                   m["ts"], m["valid"], T_threshold)
-    unconverged = out["opacity"] < 1.0 - T_threshold
-    if exclude_incomplete == "backfill":
-        # a truncated ray whose transmittance never converged composites
-        # its residual transmittance onto the ground-truth pixel instead of
-        # the background (no bias toward false content, no supervision
-        # dropped); off during grid warmup, when every ray truncates
-        fill = m["truncated"] & unconverged & backfill_enable
-        if backfill_rgb is not None:
-            bgb = (torch.broadcast_to(bg_color, backfill_rgb.shape)
-                   if bg_color is not None else
-                   torch.full_like(backfill_rgb, _background(exp_step_factor)))
-            bg_color = torch.where(fill[:, None], backfill_rgb, bgb)
-    elif exclude_incomplete != "none":
-        # a truncated, unconverged ray is left out of the loss; "floor"
-        # does so only while that keeps incomplete_floor of the rays the
-        # budget kept (decided on the device)
-        surv = ray_mask & ~(m["truncated"] & unconverged)
-        if exclude_incomplete == "hard":
-            ray_mask = surv
+    with span("ngp.composite"):
+        if packed and stream:
+            out = composite_stream_train(plan, sigmas, rgbs, fp[:, 6],
+                                         fp[:, 7], R, K, T_threshold)
+        elif packed:
+            out = composite_rays_train(
+                unpack(sigmas, plan).reshape(R, K),
+                unpack(rgbs, plan).reshape(R, K, 3), m["deltas"], m["ts"],
+                m["valid"], T_threshold)
         else:
-            frac = surv.sum() / torch.clamp_min(ray_mask.sum(), 1)
-            ray_mask = torch.where(frac >= incomplete_floor, surv, ray_mask)
-    bg = _background(exp_step_factor) if bg_color is None else bg_color
-    out["rgb"] = out["rgb"] + bg * (1.0 - out["opacity"][:, None])
+            out = composite_rays_train(sigmas.reshape(R, K),
+                                       rgbs.reshape(R, K, 3), m["deltas"],
+                                       m["ts"], m["valid"], T_threshold)
+        unconverged = out["opacity"] < 1.0 - T_threshold
+        if exclude_incomplete == "backfill":
+            # a truncated ray whose transmittance never converged
+            # composites its residual transmittance onto the ground-truth
+            # pixel instead of the background (no bias toward false
+            # content, no supervision dropped); off during grid warmup,
+            # when every ray truncates
+            fill = m["truncated"] & unconverged & backfill_enable
+            if backfill_rgb is not None:
+                bgb = (torch.broadcast_to(bg_color, backfill_rgb.shape)
+                       if bg_color is not None else
+                       torch.full_like(backfill_rgb,
+                                       _background(exp_step_factor)))
+                bg_color = torch.where(fill[:, None], backfill_rgb, bgb)
+        elif exclude_incomplete != "none":
+            # a truncated, unconverged ray is left out of the loss; "floor"
+            # does so only while that keeps incomplete_floor of the rays the
+            # budget kept (decided on the device)
+            surv = ray_mask & ~(m["truncated"] & unconverged)
+            if exclude_incomplete == "hard":
+                ray_mask = surv
+            else:
+                frac = surv.sum() / torch.clamp_min(ray_mask.sum(), 1)
+                ray_mask = torch.where(frac >= incomplete_floor, surv,
+                                       ray_mask)
+        bg = _background(exp_step_factor) if bg_color is None else bg_color
+        out["rgb"] = out["rgb"] + bg * (1.0 - out["opacity"][:, None])
     out["total_samples"] = m["total_samples"]
     out["valid"] = m["valid"]
     out["ray_mask"] = ray_mask

@@ -50,6 +50,7 @@ from google_nerf_tpu_torch.ops.grid import (mark_invisible_cells,
 from google_nerf_tpu_torch.ops.march_block import pack_occupancy_block2
 from google_nerf_tpu_torch.ops.march_seg import required_dilation_radius
 from google_nerf_tpu_torch.train.losses import NeRFLoss
+from google_nerf_tpu_torch.utils.logging import span
 
 SQRT3 = 3.0 ** 0.5
 _TABLE_KEYS = ("packed_table", "pair_table", "hash_table")
@@ -330,13 +331,14 @@ def apply_grads(state, grads, cfg: TrainConfig) -> float:
     Adam (AdamW on the table with weight_decay) at the cosine lr of the
     state's step, the params updated in place.  Returns the lr; the step
     count is the caller's to advance."""
-    leaves = param_leaves(state["params"])
-    for k, p in leaves.items():
-        p.grad = grads.get(k)
-    lr = set_lr(state["opt"], cfg, state["step"])
-    state["opt"].step()
-    for p in leaves.values():
-        p.grad = None
+    with span("ngp.adam"):
+        leaves = param_leaves(state["params"])
+        for k, p in leaves.items():
+            p.grad = grads.get(k)
+        lr = set_lr(state["opt"], cfg, state["step"])
+        state["opt"].step()
+        for p in leaves.values():
+            p.grad = None
     return lr
 
 
@@ -380,11 +382,12 @@ def fused_train_step(state, scene, cfg: TrainConfig, *, draws=None,
     """Sample a batch on the device, then train_step.  draws: optional
     img_idxs, pix_idxs, bg and noise."""
     draws = draws or {}
-    batch = sample_batch(scene, cfg.batch_size, generator=generator,
-                         img_idxs=draws.get("img_idxs"),
-                         pix_idxs=draws.get("pix_idxs"))
-    return train_step(state, scene, batch, cfg, draws=draws,
-                      generator=generator)
+    with span("ngp.train.step"):
+        batch = sample_batch(scene, cfg.batch_size, generator=generator,
+                             img_idxs=draws.get("img_idxs"),
+                             pix_idxs=draws.get("pix_idxs"))
+        return train_step(state, scene, batch, cfg, draws=draws,
+                          generator=generator)
 
 
 def fused_train_steps(state, scene, cfg: TrainConfig, *, n_steps: int,
@@ -413,14 +416,15 @@ def grid_update_step(state, cfg: TrainConfig, *, warmup: bool, draws=None,
     max-merged (ops.grid.update_density_grid)."""
     m = cfg.model
     params = state["params"]
-    new_grid, occ = update_density_grid(
-        state["density_grid"], lambda x: ngp_density(params, m, x),
-        scale=m.scale, density_threshold=cfg.density_threshold,
-        warmup=warmup, erode=cfg.erode, sample_div=cfg.grid_sample_div,
-        generator=generator, draws=draws, sharded=sharded, group=group)
-    state["density_grid"] = new_grid
-    state["occ"] = occ
-    state["occ_u8"] = pack_marching_grid(occ, cfg)
+    with span("ngp.grid_update"):
+        new_grid, occ = update_density_grid(
+            state["density_grid"], lambda x: ngp_density(params, m, x),
+            scale=m.scale, density_threshold=cfg.density_threshold,
+            warmup=warmup, erode=cfg.erode, sample_div=cfg.grid_sample_div,
+            generator=generator, draws=draws, sharded=sharded, group=group)
+        state["density_grid"] = new_grid
+        state["occ"] = occ
+        state["occ_u8"] = pack_marching_grid(occ, cfg)
     return state
 
 

@@ -1,13 +1,42 @@
 """Training telemetry (port of google_nerf_tpu/utils/logging.py):
-smoothed stats, scalar logging, profiler hooks and the NaN tripwire.
+smoothed stats, scalar logging, profiler hooks, spans and counters, and
+the NaN tripwire.
 
   * SmoothedValue / TrainingStats: median-smoothed windows and an ETA;
   * ScalarLogger: JSONL always (the durable record), TensorBoard too
     when torch.utils.tensorboard imports;
   * profile_trace: a torch.profiler trace of a step range, written as a
-    Chrome trace into log_dir; step_annotation: a record_function range;
+    Chrome trace into log_dir;
+  * span(name): a profiler range (a cpu_op event of that name) while a
+    torch.profiler records, a shared null context otherwise (0.2 us a
+    call), so the spans cost nothing when no one traces; count(name, n)
+    adds a host integer to a counter under the same gate, counters()
+    copies them;
   * debug_mode: torch.autograd.set_detect_anomaly, the port's
     jax_debug_nans.
+
+The spans mark the layers of the NGP training step and of the one-shot
+renderer; one step's or one view's spans nest under its root on one
+thread:
+
+  ngp.train.step     train/system.fused_train_step (root)
+  ngp.march          the ray clip and the marcher
+  ngp.pack           the budget plan, the sample table and its pack
+  ngp.encoder        the xyz encoder in models/ngp.ngp_density
+  ngp.mlp            the density MLP and trunc_exp; the direction's
+                     SH encoding, the colour MLP and the sigmoid
+  ngp.composite      the composite, the background and backfill tail
+  ngp.adam           train/system.apply_grads
+  ngp.grid_update    train/system.grid_update_step, all it calls
+  ngp.serve.view     models/render_test_oneshot (root)
+  ngp.serve.scan     the compact_main super scan
+  ngp.serve.trip     one drain trip, its any-alive read included
+
+and the counters field_points (rows the field evaluates, each
+ngp_density call), drain_trips and views (render_test_oneshot).  A
+backward kernel belongs to the span of its forward op: the profiler
+gives both the same autograd sequence number.  Spans and counters exist
+only while a profiler records: no flag, variable or key turns them on.
 """
 from __future__ import annotations
 
@@ -152,9 +181,33 @@ def profile_trace(log_dir: str, enabled: bool = True):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def step_annotation(name: str):
-    """A named profiler range for one step."""
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+_COUNTERS: Dict[str, int] = {}
+_recording = torch.autograd._profiler_enabled
+# a range made in C++, as torch's compiled kernels mark themselves: the
+# Python record_function's ranges slowed a traced training step on an
+# H100 by 3-6 ms (the launches inside them), this one by none measured
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A named profiler range while a torch.profiler records, else one
+    shared null context."""
+    if _recording():
+        return _range(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1):
+    """Add the host integer n to counter `name` while a torch.profiler
+    records (never a device value: that would synchronise)."""
+    if _recording():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters, {name: total since the process began}."""
+    return dict(_COUNTERS)
 
 
 def debug_mode(nans: bool = True):

@@ -27,8 +27,7 @@ from google_nerf_tpu_torch.utils import logging as tlog
 from google_nerf_tpu_torch.utils.image import TURBO, depth2img, write_png
 from google_nerf_tpu_torch.utils.logging import (ScalarLogger, SmoothedValue,
                                                  TrainingStats, debug_mode,
-                                                 profile_trace,
-                                                 step_annotation)
+                                                 profile_trace, span)
 
 @pytest.fixture(autouse=True)
 def _no_tensorboard(monkeypatch):
@@ -82,7 +81,7 @@ def test_scalar_logger_rank_gated(tmp_path):
 
 def test_profile_trace_annotation_and_debug_mode(tmp_path):
     with profile_trace(str(tmp_path / "prof")):
-        with step_annotation("step_0"):
+        with span("step_0"):
             torch.ones(8).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
     assert "step_0" in (tmp_path / "prof" / "trace.json").read_text()
