@@ -112,9 +112,9 @@ Phases:
      packed2, or --march block, then test_torch.py's oneshot on each
      checkpoint (block serving on the block rows); validate >= 25 dB
      (freq: above its train psnr at step 64); the kernel step against
-     the plain step for hash and packed2; P3 (hash) and P2/P3 (packed2,
-     P2 on the bf16 table padded to 72 columns) on the kernels line
-     (requests "hash", "packed2");
+     the plain step for hash and packed2; the hash-grid kernels (hash)
+     and P2/P3 (packed2, P2 on the bf16 table padded to 72 columns) on
+     the kernels line (requests "hash", "packed2");
  15. the depth-prior path (phase15's notes): depth_eval_scannet_torch.py
      at the CLIs' defaults (LeReS ResNeXt101-32x8d, encoder-site cIMLE at
      d_latent 32, crop 448; random weights from --seed saved as JAX's
@@ -1064,16 +1064,87 @@ def table_vs_sum64(g, sidx, vals, T, what, scale=1.0):
             "max_terms_a_row": int(n.max())}
 
 
+HASH_GRID_KERNELS = ("hash_grid_encode", "hash_grid_grads")
+
+
+def hash_grid_payloads(g, x, res, shape):
+    """The hash-grid backward's table payloads as P3 would take them:
+    (rows of the (L*T, F) view, int32; w_c * g, f32; L*T)."""
+    from google_nerf_tpu_torch.ops.hash_grid import corners
+    L, T, F = shape
+    idx, w, _ = corners(x, tuple(res), T)
+    rows = idx + torch.arange(L, device=x.device)[:, None, None] * T
+    vals = w[..., None] * g.reshape(-1, L, F).permute(1, 0, 2)[:, None]
+    return rows.reshape(-1).to(torch.int32), vals.reshape(-1, F), L * T
+
+
+def hash_grid_entries(kept, launches, request, tag, reps=50):
+    """The hash-grid kernels on the last training step's kept calls: the
+    forward equal to its plain version bit for bit, the table gradient
+    within P3_SUM_BOUND of the float64 sum of its payloads; device ms by
+    torch.profiler (the backward's memset and kernel), wrapper and plain
+    ms by CUDA events; the bound of the bytes each must move once (x, the
+    gather-dtype table and the features; or x, the features' gradient and
+    the f32 table gradient).
+    Returns the kernels-line entries."""
+    from google_nerf_tpu_torch.ops.cuda import hash_grid as hg
+    (tab, x, res), _ = kept["hash_grid_encode"][0]
+    (g, xb, _, resb, shape, tg, xg), _ = kept["hash_grid_grads"][0]
+    d = (hg.hash_grid_encode(tab, x, res)
+         - hg.hash_grid_encode_plain(tab, x, res)).abs()
+    err = float(d.max())
+    check(err == 0.0, f"{request}: hash_grid_encode vs plain: max abs "
+          f"{err}, expected bit for bit")
+    dt, _ = hg.hash_grid_grads(g, xb, None, resb, shape)
+    t_errs = table_vs_sum64(dt, *hash_grid_payloads(g, xb, resb, shape),
+                            f"{request}: hash_grid_grads vs the float64 sum")
+    n, (L, T, F) = x.shape[0], shape
+    feats = n * L * F * 4
+    runs = (("hash_grid_encode", lambda: hg.hash_grid_encode(tab, x, res),
+             lambda: hg.hash_grid_encode_plain(tab, x, res),
+             ("hash_grid_fwd_kernel",),
+             n * 12 + tab.numel() * tab.element_size() + feats, err),
+            ("hash_grid_grads",
+             lambda: hg.hash_grid_grads(g, xb, None, resb, shape),
+             lambda: hg.hash_grid_grads_plain(g, xb, None, resb, shape),
+             ("hash_grid_bwd_kernel", "Memset (Device)"),
+             n * 12 + feats + L * T * F * 4, t_errs[""]))
+    out = []
+    for name, fn, plain, knames, nbytes, e in runs:
+        ev = device_events(lambda: [fn() for _ in range(reps)])
+        ops = profiled_ms(ev, knames)
+        wrapper_ms = cuda_ms(fn, reps)
+        ms = None if any(v is None for v, _ in ops.values()) else sum(
+            v for v, _ in ops.values())
+        ms_by = ("profiler device time per call: " + ", ".join(
+            f"{k} ({c} of {reps} seen)" for k, (_, c) in ops.items()))
+        if ms is None:
+            ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
+        bound_ms, bound_by = bound_of(nbytes, 0, H100_F32_FLOPS)
+        out.append(dict(
+            name=name, id="HG", route="cuda", source=f"{CSRC}/hash_grid.cu",
+            replaces="none (XLA in google_nerf_tpu/models/encoders.py)",
+            launches=launches[name], max_abs_err=e, ms=ms,
+            plain_ms=cuda_ms(plain, 5), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, library=None,
+            request=request, ms_by=ms_by, wrapper_ms=wrapper_ms,
+            kernel_ms=ops[knames[0]][0],
+            call_device_ms=per_call_ms(ev, reps), rows=n * L * 8))
+        print_probe(out[-1], tag)
+    return out
+
+
 def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
                          names=("gather_rows", "scatter_add_rows"),
                          table="packed_table", tag="phase 9"):
     """One step's loss and gradients with the encoder's kernels (`names`
-    of module ph: P2 and P3, or P3 alone) and then with their plain
-    versions, from one state, batch and set of draws: loss within rtol
-    1e-6, every gradient but the table's within rtol 1e-6, the kernel
-    step's table gradient within P3_SUM_BOUND(n) x the sum of |payload|
-    of its (row, column) of the float64 sum of its payloads, for a row
-    that takes n payloads.  Returns (errors, the recorded calls)."""
+    of module ph: P2 and P3, P3 alone, or the hash-grid kernels) and then
+    with their plain versions, from one state, batch and set of draws:
+    loss within rtol 1e-6, every gradient but the table's within rtol
+    1e-6, the kernel step's table gradient within
+    P3_SUM_BOUND(n) x the sum of |payload| of its (row, column) of the
+    float64 sum of its payloads, for a row that takes n payloads.
+    Returns (errors, the recorded calls)."""
     batch = tsys.sample_batch(scene, cfg.batch_size,
                               img_idxs=draws["img_idxs"],
                               pix_idxs=draws["pix_idxs"])
@@ -1086,8 +1157,8 @@ def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
     finally:
         for n, r in rec.items():
             setattr(ph, n, r.fn)
-    for n in rec:
-        setattr(ph, n, getattr(probe, n + "_plain"))
+    for n, r in rec.items():     # the plain version beside the kernel's
+        setattr(ph, n, getattr(sys.modules[r.fn.__module__], n + "_plain"))
     try:
         lp, _, gp = tsys.loss_and_grads(state, scene, batch, cfg,
                                         draws=draws)
@@ -1108,7 +1179,11 @@ def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
         errs[k] = float((gk[k] - gp[k]).abs().max())
         check(ok, f"{tag}: gradient {k} kernel vs plain beyond rtol 1e-6"
               f" (max abs {errs[k]})")
-    sidx, vals, T = rec["scatter_add_rows"].calls[0][0]
+    if "hash_grid_grads" in rec:
+        g, x, _, res, shape = rec["hash_grid_grads"].calls[0][0][:5]
+        sidx, vals, T = hash_grid_payloads(g, x, res, shape)
+    else:
+        sidx, vals, T = rec["scatter_add_rows"].calls[0][0]
     t_errs = table_vs_sum64(gk[table], sidx, vals, T,
                             f"{tag}: table gradient kernel vs the float64 sum")
     errs.update({(k if k == "max_terms_a_row" else table + k): v
@@ -1515,16 +1590,21 @@ class synthetic_views:
 
 
 def reset_cli_counters(bf, probe):
+    from google_nerf_tpu_torch.ops.cuda import hash_grid
     for k in KERNELS:
         getattr(bf, k).launches = 0
     probe.gather_rows.launches = {"float32": 0, "bfloat16": 0}
     probe.scatter_add_rows.launches = 0
+    for k in HASH_GRID_KERNELS:
+        getattr(hash_grid, k).launches = 0
 
 
 def cli_counters(bf, probe):
+    from google_nerf_tpu_torch.ops.cuda import hash_grid
     out = {k: getattr(bf, k).launches for k in KERNELS}
     out["gather_rows_bf16"] = probe.gather_rows.launches["bfloat16"]
     out["scatter_add_rows"] = probe.scatter_add_rows.launches
+    out.update({k: getattr(hash_grid, k).launches for k in HASH_GRID_KERNELS})
     return out
 
 
@@ -2173,12 +2253,12 @@ def phase13(seed, steps=DATA_STEPS, scan_root=None):
 # (label, flags beyond opt.py's defaults, the module that calls the
 # encoder's kernels, the wrappers it calls, the table's param key)
 ENCODER_RUNS = (
-    ("hash", ["--xyz_encoder", "hash"], "table_gather",
-     ("scatter_add_rows",), "hash_table"),
+    ("hash", ["--xyz_encoder", "hash"], "models.encoders",
+     HASH_GRID_KERNELS, "hash_table"),
     ("freq", ["--xyz_encoder", "freq"], None, (), None),
-    ("packed2", ["--xyz_encoder", "packed2"], "packed_pair",
+    ("packed2", ["--xyz_encoder", "packed2"], "ops.packed_pair",
      ("gather_rows", "scatter_add_rows"), "pair_table"),
-    ("block", ["--march", "block"], "packed_hash",
+    ("block", ["--march", "block"], "ops.packed_hash",
      ("gather_rows", "scatter_add_rows"), "packed_table"))
 EARLY_STEP = 64             # the freq run's train psnr is compared here
 # the hash run keeps CLI_STEPS (it validated at 16.51 dB after 512); the
@@ -2275,7 +2355,7 @@ def phase14(seed, steps=DATA_STEPS):
                     "--seed", str(seed), "--exp_name", label,
                     "--no_save_test"]
                 mod = (importlib.import_module(
-                    f"google_nerf_tpu_torch.ops.{modname}") if modname
+                    f"google_nerf_tpu_torch.{modname}") if modname
                     else None)
                 reset_cli_counters(bf, probe)
                 torch.cuda.reset_peak_memory_stats()
@@ -2311,8 +2391,11 @@ def phase14(seed, steps=DATA_STEPS):
                             peak_gib=peak, train_psnr_early=early)
                 ckdir = f"ckpts/synthetic/{label}/epoch=0"
                 if label in ("hash", "packed2"):
-                    entries += train_probe_entries(probe, kept, launches,
-                                                   label, "phase 14")
+                    entries += (hash_grid_entries(kept, launches, label,
+                                                  "phase 14")
+                                if label == "hash" else train_probe_entries(
+                                    probe, kept, launches, label,
+                                    "phase 14"))
                     del kept
                     state, scene, cfg = restored_state(argv, ckdir, dev)
                     draws = draws_of(torch.Generator(device=dev).manual_seed(

@@ -3,28 +3,29 @@ frequency encoding (the fork's xyz encoder), spherical harmonics of
 degree 4 (directions) and the multiresolution hash grid (the reference's
 Instant-NGP path, `ngp_pl/models/networks.py:38-47`).
 
-The hash grid's dense levels ((r+1)^3 <= T) index vertices x-fastest,
-c0 + c1*(r+1) + c2*(r+1)^2; finer levels hash the vertex with the
-instant-ngp xor primes.  Corners are not clipped before hashing: only
-the final index is.  JAX hashes in uint32; here the products run in
-int64 masked to 32 bits, which gives the same bits.  Row traffic rides
+The hash grid's arithmetic is ops/hash_grid's (dense levels indexed
+x-fastest, finer ones hashed with the instant-ngp xor primes).  On the
+card its row traffic never leaves registers: CUDA tensors go through
+ops/cuda/hash_grid's two kernels (the features; the table gradient by
+atomics and, when x needs one, its gradient), with no (L, 8, N)
+intermediate in device memory; their wrappers refuse a table of a width
+or a gather dtype they have no instance for.  CPU tensors take the
+plain path: ops/hash_grid.encode, whose rows come through
 ops/table_gather.batched_table_gather (bf16 rows forward, the f32 table
-gradient on P3).
+gradient summed by row).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import numpy as np
 import torch
 
-from google_nerf_tpu_torch.ops.packed_hash import _corner_weights
-from google_nerf_tpu_torch.ops.table_gather import batched_table_gather
-
-_PRIMES = (1, 2654435761, 805459861)
-_U32 = 0xFFFFFFFF
+from google_nerf_tpu_torch.ops.cuda.hash_grid import (hash_grid_encode,
+                                                     hash_grid_grads)
+from google_nerf_tpu_torch.ops.hash_grid import encode
+from google_nerf_tpu_torch.utils.logging import count
 
 
 def frequency_encode(x: torch.Tensor, n_freqs: int = 12) -> torch.Tensor:
@@ -104,31 +105,26 @@ def init_hashgrid(generator: torch.Generator, cfg: HashGridConfig,
     return ((2.0 * u - 1.0) * 1e-4).to(device)
 
 
-@functools.lru_cache(maxsize=None)
-def _consts(cfg: HashGridConfig, device: str):
-    """Per-level resolutions (int64, f32), dense-level flags and the
-    corner offsets (8, 3) int64 on `device`, made once (a host-to-device
-    copy inside a train step would sync the host)."""
-    res = torch.tensor(cfg.resolutions, dtype=torch.int64, device=device)
-    dense = torch.tensor([(r + 1) ** 3 <= cfg.table_size
-                          for r in cfg.resolutions], device=device)
-    offs = torch.tensor([[(c >> k) & 1 for k in range(3)] for c in range(8)],
-                        dtype=torch.int64, device=device)
-    return res, res.to(torch.float32), dense, offs
+class _HashGrid(torch.autograd.Function):
+    """hash_encode on the card: ops/cuda/hash_grid's kernels, the
+    gather-dtype copy of the table made once a call.  The wrappers are
+    looked up on this module at call time, so a caller can swap in their
+    plain versions."""
 
+    @staticmethod
+    def forward(ctx, table, x, res, gather_dtype):
+        tab = table.to(gather_dtype).contiguous()
+        ctx.res, ctx.shape = res, table.shape
+        ctx.save_for_backward(x, tab if ctx.needs_input_grad[1] else None)
+        return hash_grid_encode(tab, x, res)
 
-def _corner_indices(c, level_dense, resolutions, T: int):
-    """c: (L, ..., 3) int64 corner coords -> (L, ...) table index per
-    level: dense (x-fastest) where level_dense, else the xor-prime hash;
-    clipped to [0, T)."""
-    shape = (-1,) + (1,) * (c.ndim - 2)
-    res1 = (resolutions + 1).reshape(shape)
-    dense_idx = c[..., 0] + c[..., 1] * res1 + c[..., 2] * res1 * res1
-    h = (((c[..., 0] * _PRIMES[0]) & _U32)
-         ^ ((c[..., 1] * _PRIMES[1]) & _U32)
-         ^ ((c[..., 2] * _PRIMES[2]) & _U32)) & (T - 1)
-    idx = torch.where(level_dense.reshape(shape), dense_idx, h)
-    return idx.clamp(0, T - 1)
+    @staticmethod
+    def backward(ctx, g):
+        x, tab = ctx.saved_tensors
+        dt, dx = hash_grid_grads(
+            g.float().contiguous(), x, tab, ctx.res, tuple(ctx.shape),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return dt, dx, None, None
 
 
 def hash_encode(table: torch.Tensor, x: torch.Tensor,
@@ -136,20 +132,11 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor,
     """table: (L, T, F) f32; x: (N, 3) in [0, 1] -> (N, L*F) features.
 
     Per level: x scaled by the level's resolution, the 8 surrounding
-    vertices trilinearly interpolated.  The gradient reaches the table
-    through batched_table_gather and x through the corner weights."""
-    L, T, F = table.shape
-    N = x.shape[0]
-    res_i, res_f, dense, offs = _consts(cfg, str(x.device))
-    res_f = res_f.to(x.dtype)[:, None, None]
-    pos = x[None] * res_f                                     # (L, N, 3)
-    c0f = torch.minimum(torch.clamp_min(torch.floor(pos), 0.0),
-                        res_f - 1).detach()
-    frac = pos - c0f
-    c = c0f.to(torch.int64)[:, None] + offs[None, :, None]    # (L, 8, N, 3)
-    idx = _corner_indices(c, dense, res_i, T).reshape(L, 8 * N)
-    w = _corner_weights(frac).permute(0, 2, 1)                # (L, 8, N)
-    feats = batched_table_gather(table, idx, cfg.table_dtype).reshape(
-        L, 8, N, F)
-    out = (w[..., None] * feats).sum(1)                       # (L, N, F)
-    return out.permute(1, 0, 2).reshape(N, L * F)
+    vertices trilinearly interpolated.  CUDA tensors take
+    ops/cuda/hash_grid's kernels, which give the table's gradient and
+    x's; CPU tensors take the plain path, ops/hash_grid.encode."""
+    if table.is_cuda or x.is_cuda:
+        count("enc_fused_points", x.shape[0])
+        return _HashGrid.apply(table, x.contiguous(), cfg.resolutions,
+                               getattr(torch, cfg.table_dtype))
+    return encode(table, x, cfg.resolutions, cfg.table_dtype)

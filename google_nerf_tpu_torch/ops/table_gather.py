@@ -3,12 +3,14 @@ google_nerf_tpu/ops/table_gather.py).
 
   * table_gather (M, F) -> (N, F): the forward is a plain row take (JAX's
     jnp.take); the table gradient sums g by index;
-  * batched_table_gather (L, T, F) -> (L, M, F) f32, the hash encoder's
-    row traffic: the forward takes each level's rows from a
-    `gather_dtype` (bf16 by default) copy of the table and casts them to
-    f32, as JAX does; JAX computes it in XLA, outside any Pallas kernel,
-    so it stays `index_select` here (P2 moves 16-byte words and a hash
-    row is 4 bytes).
+  * batched_table_gather (L, T, F) -> (L, M, F) f32, the row traffic of
+    the hash encoder's plain path (CPU tensors, and card inputs that
+    ops/cuda/hash_grid's kernels do not take; on the card the encoder's
+    rows otherwise never leave those kernels' registers): the forward
+    takes each level's rows from a `gather_dtype` (bf16 by default) copy
+    of the table and casts them to f32, as JAX does; JAX computes it in
+    XLA, outside any Pallas kernel, so it stays `index_select` here (P2
+    moves 16-byte words and a hash row is 4 bytes).
 
 Both gradients are the f32 segment sum of g by row (over the (L*T, F)
 view for the batched gather) through P3 (`scatter_add_rows`,

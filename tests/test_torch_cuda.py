@@ -791,28 +791,33 @@ def _pair_hash_inputs(encoder, device, n=5000, seed=0):
 @pytest.mark.parametrize("encoder", ["packed2", "hash"])
 def test_cuda_pair_and_hash_encoders_match_cpu(encoder):
     """packed2 (P2 on its bf16 table padded to 72 columns, P3) and the hash
-    grid (index_select forward, P3 for the table gradient) on the card
-    against their CPU runs (the plain versions): forward within 1e-6,
-    dtable within 1e-5 x its largest entry (f32 atomic sums in another
-    order), dx within 1e-5; P2 launched once for packed2, P3 once for
-    each."""
-    from google_nerf_tpu_torch.ops.cuda import probe
+    grid (its two kernels, csrc/hash_grid.cu) on the card against their
+    CPU runs (the plain versions): forward within 1e-6, dtable within
+    1e-5 x its largest entry (f32 atomic sums in another order), dx
+    within 1e-5; for packed2 P2 and P3 launched once each, for the hash
+    grid its forward and backward kernels once each and P3 never."""
+    from google_nerf_tpu_torch.ops.cuda import hash_grid, probe
+
+    def launches():
+        return (probe.gather_rows.launches["bfloat16"],
+                probe.scatter_add_rows.launches,
+                hash_grid.hash_grid_encode.launches,
+                hash_grid.hash_grid_grads.launches)
     dev = _card()
     outs = {}
     for d in ("cpu", dev):
         fn, cfg, table, x, gy = _pair_hash_inputs(encoder, d)
         table.requires_grad_(True)
         x.requires_grad_(True)
-        before = (probe.gather_rows.launches["bfloat16"],
-                  probe.scatter_add_rows.launches)
+        before = launches()
         y = fn(table, x, cfg)
         (y * gy).sum().backward()
-        after = (probe.gather_rows.launches["bfloat16"],
-                 probe.scatter_add_rows.launches)
+        after = launches()
         outs[str(d)] = (y.detach().cpu(), table.grad.cpu(), x.grad.cpu())
         if d != "cpu":
-            assert after == (before[0] + (encoder == "packed2"),
-                             before[1] + 1)
+            pair = encoder == "packed2"
+            assert after == (before[0] + pair, before[1] + pair,
+                             before[2] + (not pair), before[3] + (not pair))
     (y0, t0, x0), (y1, t1, x1) = outs["cpu"], outs["cuda"]
     torch.testing.assert_close(y1, y0, rtol=0, atol=1e-6)
     assert float((t1 - t0).abs().max()) <= 1e-5 * float(t0.abs().max())

@@ -17,6 +17,7 @@ import torch
 from google_nerf_tpu.models import encoders as je
 from google_nerf_tpu.ops import table_gather as jtg
 from google_nerf_tpu_torch.models import encoders as te
+from google_nerf_tpu_torch.ops import hash_grid as oh
 from google_nerf_tpu_torch.ops import table_gather as ttg
 
 T = torch.as_tensor
@@ -73,7 +74,7 @@ def test_corner_indices_equal_jax(kw):
     rng = np.random.RandomState(3)
     c = (rng.rand(L, 500, 3) * (res[:, None, None] + 1)).astype(np.int32)
     c[:, 0] = res[:, None]                              # the far corner
-    got = te._corner_indices(T(c).long(), T(dense), T(res).long(), Tn)
+    got = oh._corner_indices(T(c).long(), T(dense), T(res).long(), Tn)
     want = je._corner_indices(jnp.asarray(c), jnp.asarray(dense),
                               jnp.asarray(res, jnp.int32), Tn)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -111,13 +112,13 @@ def _f64_dtable(table, x, cot, cfg):
     """float64 sums of the table gradient's payloads w * g per (level,
     row), and the sums of their magnitudes."""
     L, Tn, F = table.shape
-    res_i, res_f, dense, offs = te._consts(cfg, "cpu")
+    res_i, res_f, dense, offs = oh.level_consts(cfg.resolutions, Tn, "cpu")
     pos = T(x)[None] * res_f[:, None, None]
     c0f = torch.minimum(torch.clamp_min(torch.floor(pos), 0.0),
                         res_f[:, None, None] - 1)
-    w = te._corner_weights(pos - c0f).double().numpy()        # (L, N, 8)
+    w = oh._corner_weights(pos - c0f).double().numpy()        # (L, N, 8)
     c = c0f.long()[:, None] + offs[None, :, None]
-    idx = te._corner_indices(c, dense, res_i, Tn).numpy()     # (L, 8, N)
+    idx = oh._corner_indices(c, dense, res_i, Tn).numpy()     # (L, 8, N)
     gl = cot.astype(np.float64).reshape(len(x), L, F).transpose(1, 0, 2)
     ref, mag = np.zeros(table.shape), np.zeros(table.shape)
     for l in range(L):
@@ -187,7 +188,8 @@ def test_hash_encode_grads_match_a_per_corner_version():
     x = T(np.random.RandomState(3).rand(5, 3).astype(np.float32))
 
     def per_corner(t):
-        res_i, res_f, dense, offs = te._consts(cfg, "cpu")
+        res_i, res_f, dense, offs = oh.level_consts(
+            cfg.resolutions, cfg.table_size, "cpu")
         pos = x[None] * res_f[:, None, None]
         c0f = torch.minimum(torch.clamp_min(torch.floor(pos), 0.0),
                             res_f[:, None, None] - 1)
@@ -195,7 +197,7 @@ def test_hash_encode_grads_match_a_per_corner_version():
         out = 0.0
         for c in range(8):
             cc = c0f.long() + offs[c]
-            idx = te._corner_indices(cc, dense, res_i, cfg.table_size)
+            idx = oh._corner_indices(cc, dense, res_i, cfg.table_size)
             w = torch.where(offs[c] == 1, frac, 1 - frac).prod(-1)
             rows = torch.stack([t[l][idx[l]] for l in range(2)])
             out = out + w[..., None] * rows
