@@ -2505,6 +2505,7 @@ def phase15(seed, scan=None):
     import depth_test_torch
     from google_nerf_tpu_torch.convert import save_depth_npz
     from google_nerf_tpu_torch.data import dataset_dict
+    from google_nerf_tpu_torch.depth import priors
     from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
                                                    depth_inference,
                                                    init_depth_model)
@@ -2532,10 +2533,10 @@ def phase15(seed, scan=None):
               f"and saved as .npz in {save_s:.1f} s", flush=True)
 
         mins, shapes = [], []
-        infer = depth_test_torch.depth_inference
+        infer = priors.depth_inference
 
-        def recording(m, rgb01, z=None):
-            out = infer(m, rgb01, z)
+        def recording(m, rgb01, z=None, *forward):
+            out = infer(m, rgb01, z, *forward)
             mins.append(out.amin())
             shapes.append(tuple(out.shape))
             check(out.is_cuda, "phase 15: the depth forward ran off the card")
@@ -2549,12 +2550,12 @@ def phase15(seed, scan=None):
                 "--seed", str(seed)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        depth_test_torch.depth_inference = recording
+        priors.depth_inference = recording
         t0 = time.time()
         try:
             run = depth_eval_scannet_torch.main(argv)
         finally:
-            depth_test_torch.depth_inference = infer
+            priors.depth_inference = infer
         torch.cuda.synchronize()
         wall = time.time() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3233,10 +3234,10 @@ def phase18(seed, scan):
     from contextlib import redirect_stdout
 
     import depth_shape_torch
-    from depth_test_torch import infer, read_rgb01
+    from depth_test_torch import depth_of, read_rgb01
     from google_nerf_tpu_torch.depth import spvcnn
     from google_nerf_tpu_torch.depth.model import DepthModelConfig
-    from google_nerf_tpu_torch.utils.image import read_image, resize_linear
+    from google_nerf_tpu_torch.utils.image import read_image
     dev = torch.device("cuda")
     t_phase = time.time()
     scene, _, _ = scan
@@ -3290,10 +3291,8 @@ def phase18(seed, scan):
                      for k, p in (("shift", shift_p), ("focal", focal_p))}
         heads_dev = {"shift": shift_p, "focal": focal_p}
         rgb01 = read_rgb01(os.path.join(imgs, names[0]))
-        h, w = rgb01.shape[:2]
-        pred = infer(model, rgb01, 448, dev)[0]
-        depth = resize_linear(pred, (w, h)).cpu().numpy()
-        del model, pred
+        depth = depth_of(model, rgb01, 448, dev)
+        del model
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     steps, shift, focal = refine_card_vs_cpu(depth, heads_cpu, heads_dev)

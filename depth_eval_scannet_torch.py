@@ -34,17 +34,15 @@ import time
 import numpy as np
 import torch
 
-from depth_test_torch import (BACKBONES, build_model, device_of, infer,
-                              read_rgb01)
+from depth_test_torch import BACKBONES, build_model, device_of, read_rgb01
 from google_nerf_tpu_torch.depth.metrics import evaluate_rel_err
 from google_nerf_tpu_torch.depth.model import DepthModelConfig
 from google_nerf_tpu_torch.depth.pointcloud import reconstruct_depth
+from google_nerf_tpu_torch.depth.priors import MINIBATCH, frame_priors
 from google_nerf_tpu_torch.utils.image import (colorize_rainbow, read_image,
-                                               resize_linear, resize_nearest,
-                                               write_png)
+                                               resize_nearest, write_png)
 
 SCANNET_FOCAL = 577.870605  # eval_scannet.py:405-406
-MINIBATCH = 5               # eval_scannet.py:374-380
 
 
 def get_args(argv=None):
@@ -108,19 +106,21 @@ def main(argv=None, latents=None):
                 path = cand
         rgb = read_rgb01(path)
         h, w = rgb.shape[:2]
-        preds = []
-        for start in range(0, n_z, MINIBATCH):
-            m = min(MINIBATCH, n_z - start)
-            z = None
-            if cfg.d_latent:
-                z = (latents(fi, start, m) if latents is not None
-                     else torch.randn((m, cfg.d_latent), generator=gen))
-                z = torch.tensor(np.asarray(z, np.float32)).to(device)
-            preds.append(infer(model, rgb, args.crop_size, device, z, m))
-        preds = torch.cat(preds)[:n_z]                 # (n_z, cs, cs)
+        z = None
+        if cfg.d_latent:
+            draws = []
+            for start in range(0, n_z, MINIBATCH):
+                m = min(MINIBATCH, n_z - start)
+                draws.append(np.asarray(
+                    latents(fi, start, m) if latents is not None
+                    else torch.randn((m, cfg.d_latent), generator=gen),
+                    np.float32))
+            z = torch.from_numpy(np.concatenate(draws)).to(device)
+        preds = frame_priors(model, torch.from_numpy(rgb).to(device), z,
+                             args.crop_size, (h, w), n_z=n_z)
 
         for k in range(n_z if args.all_samples else 1):
-            d = resize_linear(preds[k], (w, h)).cpu().numpy()
+            d = preds[k].cpu().numpy()
             suffix = "" if k == 0 else f"-sample{k}"
             np.save(os.path.join(args.out_dir, frame + suffix + ".npy"), d)
             if k == 0:

@@ -27,7 +27,7 @@ import sys
 import numpy as np
 import torch
 
-from depth_test_torch import (BACKBONES, IMAGE_EXTS, device_of, infer,
+from depth_test_torch import (BACKBONES, IMAGE_EXTS, depth_of, device_of,
                               read_rgb01)
 from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
                                                init_depth_model)
@@ -38,7 +38,7 @@ from google_nerf_tpu_torch.depth.spvcnn import (convert_spvcnn_state_dict,
                                                 refine_shift_spvcnn)
 from google_nerf_tpu_torch.depth.weights import (load_reference_state,
                                                  strip_prefix)
-from google_nerf_tpu_torch.utils.image import resize_linear, write_png
+from google_nerf_tpu_torch.utils.image import write_png
 
 
 def get_args(argv=None):
@@ -115,9 +115,7 @@ def main(argv=None):
     for name in names:
         print(f"processing {name}")
         rgb01 = read_rgb01(os.path.join(args.img_dir, name))
-        h, w = rgb01.shape[:2]
-        pred = infer(model, rgb01, args.crop_size, device)[0]
-        depth = resize_linear(pred, (w, h)).cpu().numpy()
+        depth = depth_of(model, rgb01, args.crop_size, device)
         rgb = (rgb01 * 255).astype(np.uint8)
         shift, focal, d_shifted = reconstruct3d_from_depth(
             rgb, depth, shift_params, focal_params)

@@ -23,12 +23,12 @@ import numpy as np
 import torch
 
 from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
-                                               depth_inference,
                                                init_depth_model)
 from google_nerf_tpu_torch.depth.pointcloud import reconstruct_depth
+from google_nerf_tpu_torch.depth.priors import frame_priors
 from google_nerf_tpu_torch.depth.weights import load_checkpoint
 from google_nerf_tpu_torch.utils.image import (colorize_rainbow, read_image,
-                                               resize_linear, write_png)
+                                               write_png)
 
 BACKBONES = {"resnet50": "resnet50", "resnext101": "resnext101_32x8d"}
 IMAGE_EXTS = (".jpg", ".png", ".jpeg")
@@ -83,14 +83,12 @@ def read_rgb01(path: str) -> np.ndarray:
     return img[..., :3].astype(np.float32) / 255.0
 
 
-def infer(model, rgb: np.ndarray, crop: int, device, z=None, n: int = 1):
-    """(H, W, 3) [0, 1] -> (n, crop, crop) depth (device tensor): the
-    image resized to crop x crop and repeated n times (one shift over the
-    batch)."""
-    img = torch.from_numpy(rgb).to(device)
-    inp = resize_linear(img, (crop, crop)).permute(2, 0, 1)[None]
-    return depth_inference(model, inp.expand(n, -1, -1, -1).contiguous(),
-                           z)[:, 0]
+def depth_of(model, rgb: np.ndarray, crop: int, device) -> np.ndarray:
+    """(H, W, 3) [0, 1] -> (H, W) depth of the plain model at crop x
+    crop, resized back (depth/priors.frame_priors)."""
+    h, w = rgb.shape[:2]
+    return frame_priors(model, torch.from_numpy(rgb).to(device), None, crop,
+                        (h, w))[0].cpu().numpy()
 
 
 def main(argv=None):
@@ -105,9 +103,7 @@ def main(argv=None):
     print(f"{len(names)} images")
     for name in names:
         rgb = read_rgb01(os.path.join(args.img_dir, name))
-        h, w = rgb.shape[:2]
-        pred = infer(model, rgb, args.crop_size, device)[0]
-        depth = resize_linear(pred, (w, h)).cpu().numpy()
+        depth = depth_of(model, rgb, args.crop_size, device)
         base = os.path.splitext(name)[0]
         write_png(os.path.join(args.out_dir, base + "-depth_rainbow.png"),
                   colorize_rainbow(depth))

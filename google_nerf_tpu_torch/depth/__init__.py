@@ -9,6 +9,9 @@ of google_nerf_tpu/depth/):
   decoder     FTB / ATA / FFM / AO decoder, decoder-site AdaIN, AuxiNetV2
   model       DepthNet, init_depth_model, depth_inference, AdaIN
               calibration helpers
+  priors      frame_priors: a frame's hypotheses at the crop, one shift a
+              minibatch, resized back (CUDA graphs of the forward on the
+              card)
   weights     reference torch checkpoints (res101.pth) loaded by name
   metrics     absRel/squaRel/rms/silog/log10/delta/WHDR battery (numpy)
   pointcloud  depth -> PLY

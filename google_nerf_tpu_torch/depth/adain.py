@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from google_nerf_tpu_torch.utils.logging import span
+
 
 def _per_channel(v: torch.Tensor, ndim: int) -> torch.Tensor:
     """(B, C) -> (B, C, 1, ...) against an ndim-D activation."""
@@ -75,8 +77,10 @@ class AdaInMod(nn.Module):
         self.register_buffer("var_shift", torch.zeros(channels))
 
     def forward(self, x, z):
-        scale, shift = self.mlp(z).chunk(2, dim=-1)
-        st = (1, -1) + (1,) * (x.ndim - 2)
-        var = _per_channel(scale, x.ndim) + 1.0 - self.var_shift.reshape(st)
-        mean = _per_channel(shift, x.ndim) - self.mean_shift.reshape(st)
-        return x * var + mean
+        with span("depth.adain"):
+            scale, shift = self.mlp(z).chunk(2, dim=-1)
+            st = (1, -1) + (1,) * (x.ndim - 2)
+            var = (_per_channel(scale, x.ndim) + 1.0
+                   - self.var_shift.reshape(st))
+            mean = _per_channel(shift, x.ndim) - self.mean_shift.reshape(st)
+            return x * var + mean

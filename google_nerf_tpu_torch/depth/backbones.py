@@ -24,6 +24,7 @@ from torch.nn import functional as F
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod
 from google_nerf_tpu_torch.parallel.comm import all_reduce_sum
+from google_nerf_tpu_torch.utils.logging import span
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -195,6 +196,10 @@ class LateralEncoder(nn.Module):
                 setattr(self, f"style_mod{i}", AdaInMod(d_latent, c))
 
     def forward(self, x, z=None, return_adain_acts: bool = False):
+        with span("depth.encoder"):
+            return self._forward(x, z, return_adain_acts)
+
+    def _forward(self, x, z, return_adain_acts):
         acts = []
 
         def style(i, h):

@@ -31,6 +31,7 @@ from torch.nn import functional as F
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod
 from google_nerf_tpu_torch.depth.backbones import BatchNorm2d
+from google_nerf_tpu_torch.utils.logging import span
 
 MIDCHANNELS = (256, 256, 256, 512)
 
@@ -139,6 +140,10 @@ class Decoder(nn.Module):
         return getattr(self, f"style_mod{i}")(h, z)
 
     def forward(self, features, z=None, return_auxi_input: bool = False):
+        with span("depth.decoder"):
+            return self._forward(features, z, return_auxi_input)
+
+    def _forward(self, features, z, return_auxi_input):
         x32x = self.conv(features[3])
         x32 = self._style(3, self.conv1(x32x), z)
         x16 = upsample_bilinear(x32, 2)
@@ -166,6 +171,10 @@ class AuxiNetV2(nn.Module):
         self.out = AO(mid, 1, 2)
 
     def forward(self, auxi_input):
+        with span("depth.decoder"):
+            return self._forward(auxi_input)
+
+    def _forward(self, auxi_input):
         x32, x8, x4, x2 = auxi_input
         x = upsample_bilinear(self.ftb32(x32), 4) + self.ftb8(x8)
         x = upsample_bilinear(x, 2) + self.ftb4(x4)

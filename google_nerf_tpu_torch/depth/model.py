@@ -24,6 +24,7 @@ from google_nerf_tpu_torch.depth.backbones import (BatchNorm2d,
                                                    LateralEncoder,
                                                    lateral_channels)
 from google_nerf_tpu_torch.depth.decoder import AuxiNetV2, Decoder
+from google_nerf_tpu_torch.utils.logging import span
 from google_nerf_tpu_torch.utils.precision import exact_f32
 
 # ImageNet normalisation of every LeReS CLI
@@ -137,14 +138,20 @@ def depth_forward(model: DepthNet, rgb: torch.Tensor,
 
 
 def depth_inference(model: DepthNet, rgb01: torch.Tensor,
-                    z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    z: Optional[torch.Tensor] = None,
+                    forward=depth_forward) -> torch.Tensor:
     """`RelDepthModel.inference` (`multi_depth_model_woauxi.py:16-21`):
     normalise, forward, then depth - depth.min() + 0.01, the minimum over
     the whole batch (the hypotheses of a minibatch share one shift).
-    rgb01: (B, 3, H, W) -> (B, 1, H, W)."""
-    out = depth_forward(model, normalize_rgb(rgb01), z)
+    rgb01: (B, 3, H, W) -> (B, 1, H, W).  `forward` computes the raw
+    logit as depth_forward does (depth/priors.py passes its CUDA graphs
+    of it)."""
+    with span("depth.resize"):
+        rgb = normalize_rgb(rgb01)
+    out = forward(model, rgb, z)
     logit = out[0] if model.cfg.with_auxi else out
-    return logit - logit.min() + 0.01
+    with span("depth.resize"):
+        return logit - logit.min() + 0.01
 
 
 @torch.no_grad()

@@ -15,9 +15,9 @@ the NaN tripwire.
   * debug_mode: torch.autograd.set_detect_anomaly, the port's
     jax_debug_nans.
 
-The spans mark the layers of the NGP training step and of the one-shot
-renderer; one step's or one view's spans nest under its root on one
-thread:
+The spans mark the layers of the NGP training step, of the one-shot
+renderer and of the depth priors of a frame; one step's, one view's or
+one frame's spans nest under its root on one thread:
 
   ngp.train.step     train/system.fused_train_step (root)
   ngp.march          the ray clip and the marcher
@@ -31,9 +31,18 @@ thread:
   ngp.serve.view     models/render_test_oneshot (root)
   ngp.serve.scan     the compact_main super scan
   ngp.serve.trip     one drain trip, its any-alive read included
+  depth.priors.frame depth/priors.frame_priors (root)
+  depth.resize       the frame's resize to the crop and its ImageNet
+                     normalisation; each minibatch's shift and the
+                     priors' resize back
+  depth.encoder      depth/backbones.LateralEncoder: stem and stages
+  depth.adain        each depth/adain.AdaInMod: its MLP and modulation
+  depth.decoder      depth/decoder.Decoder (and AuxiNetV2)
 
 and the counters field_points (rows the field evaluates, each
-ngp_density call), drain_trips and views (render_test_oneshot).  A
+ngp_density call), drain_trips and views (render_test_oneshot),
+depth_frames and depth_hypotheses (frame_priors: a frame, and the rows
+of each minibatch's forward).  A
 backward kernel belongs to the span of its forward op: the profiler
 gives both the same autograd sequence number.  Spans and counters exist
 only while a profiler records: no flag, variable or key turns them on.
@@ -188,11 +197,18 @@ _recording = torch.autograd._profiler_enabled
 # Python record_function's ranges slowed a traced training step on an
 # H100 by 3-6 ms (the launches inside them), this one by none measured
 _range = torch._C._profiler._RecordFunctionFast
+# while depth/priors.py captures a forward in CUDA graphs: name -> the
+# context that ends the graph being captured and begins the next
+_cut = None
 
 
 def span(name: str):
     """A named profiler range while a torch.profiler records, else one
-    shared null context."""
+    shared null context.  While a forward is captured in CUDA graphs
+    (depth/priors.py), a cut of the capture at the span's two ends, so
+    that each replay can run inside the spans its kernels belong to."""
+    if _cut is not None:
+        return _cut(name)
     if _recording():
         return _range(name)
     return _OFF

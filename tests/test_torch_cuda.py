@@ -11,6 +11,9 @@ depth atol 3e-2, n_pairs exact (the golden rounds nothing to bf16).  A
 kernel against its plain version, and the card's frame against the
 CPU's, compute one function with the same roundings: atol 1e-4 and
 equal n_pairs and counters."""
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -1061,6 +1064,60 @@ def test_depth_forward_on_the_card_matches_the_cpu():
     assert rel <= 1e-4, rel
     assert float(got.min()) == pytest.approx(0.01, abs=1e-6)
     assert not torch.allclose(got[0], got[1])      # the latents differ
+
+
+@pytest.mark.cuda
+def test_depth_priors_graphs_equal_the_eager_frame():
+    """depth/priors.frame_priors on the card, whose network forward runs
+    as CUDA graphs cut at its spans (ResNeXt101-32x8d, encoder-site
+    cIMLE at d_latent 32, 10 hypotheses in minibatches of 5 at 128x128
+    of a 96x128 frame), against the eager forward of the same
+    minibatches: bit for bit, twice (the second call replays); under
+    the profiler each layer's span holds device time; and a parameter
+    moved to new memory gets new graphs that match it."""
+    from google_nerf_tpu_torch.depth import priors
+    from google_nerf_tpu_torch.depth.model import (DepthModelConfig,
+                                                   depth_inference,
+                                                   init_depth_model)
+    from google_nerf_tpu_torch.utils.image import resize_linear
+    from portbench.lib import depth_spans, trace
+    dev = _card()
+    cfg = DepthModelConfig(backbone="resnext101_32x8d", d_latent=32)
+    model = init_depth_model(torch.Generator().manual_seed(2), cfg, dev)
+    gen = torch.Generator().manual_seed(3)
+    rgb = torch.rand((96, 128, 3), generator=gen).to(dev)
+    z = torch.randn((10, 32), generator=gen).to(dev)
+
+    def eager():
+        inp = resize_linear(rgb, (128, 128)).permute(2, 0, 1)[None]
+        d = torch.cat([depth_inference(model, inp.expand(5, -1, -1, -1)
+                                       .contiguous(), z[s:s + 5])[:, 0]
+                       for s in (0, 5)])
+        out = resize_linear(d.permute(1, 2, 0), (128, 96))
+        return out.permute(2, 0, 1).contiguous()
+
+    want = eager()
+    for _ in range(2):
+        assert torch.equal(priors.frame_priors(model, rgb, z, 128, (96, 128)),
+                           want)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.autograd.profiler.record_function("window"):
+            priors.frame_priors(model, rgb, z, 128, (96, 128))
+            torch.cuda.synchronize()
+    path = os.path.join(tempfile.mkdtemp(), "trace.json")
+    prof.export_chrome_trace(path)
+    red = depth_spans.reduce(trace.Trace(trace.load(path), "window"))
+    own = {n: v["fwd_s"] for n, v in red["spans"].items()}
+    assert all(own.get(n, 0) > 0 for n in (
+        "depth.encoder", "depth.adain", "depth.decoder")), own
+    assert red["coverage"] > 0.9, red["coverage"]
+    w = model.decoder_modules.conv1.weight
+    w.data = w.data * 1.5
+    want = eager()
+    assert torch.equal(priors.frame_priors(model, rgb, z, 128, (96, 128)),
+                       want)
 
 
 @pytest.mark.cuda
