@@ -123,8 +123,12 @@ Phases:
      minima, a card forward against the CPU's (norm-relative 1e-4), the
      latents' spread, the priors read by ScannetDataset, the metric
      battery; ms a frame, images/s, GFLOP an image and its share of the
-     f32 peak, peak memory.  No kernel of the repo's own runs here: the
-     network is cuDNN's convolutions in f32 with TF32 off, as JAX's
+     f32 peak, peak memory.  The decoder's 3x3s run the repo's f32
+     implicit-GEMM kernels (ops/cuda/conv3x3; the CLI's frames must
+     launch them), timed at two shapes split over K (14^2, 28^2), the
+     1/4 FFMs' and the AO head's beside cuDNN's F.conv2d (library_ms),
+     held to their plain version, C3 on the kernels line; the rest of
+     the network is cuDNN's convolutions in f32 with TF32 off, as JAX's
      reference leaves it to XLA;
  16. the cIMLE depth trainer (phase16's notes): depth_train_torch.py at
      the CLI's defaults (ResNeXt101-32x8d, encoder-site AdaIN at d_latent
@@ -132,7 +136,9 @@ Phases:
      frames of phase 13's scan for 2 epochs, --resume from epoch 1, one
      full-width step on the card against the CPU (and float64), and
      depth_eval_torch.py --num_samples 10 --select loss on its final.npz
-     over 2 more frames; ms a step, recache ms, GFLOP, peak memory;
+     over 2 more frames; ms a step, recache ms, GFLOP, peak memory; the
+     recache and the evaluation (no gradient) must launch the decoder's
+     3x3 kernels, the step keeps nn.Conv2d;
  17. the .sens chain (phase17's notes): phase 13's 28 frames packed into
      a v4 .sens by the port's write_sens (1296x968 colour JPEGs, 640x480
      zlib depth in mm, depth_shift 1000), decoded (the header; the
@@ -149,7 +155,8 @@ Phases:
      from the CLI's seeds) on two of phase 13's 1296x968 frames; then
      the refinement's three SPVCNN calls on the card against the CPU,
      both in exact_f32, on the same voxelized clouds (rel 1e-4); active
-     sites per level, ms per spvcnn_apply, peak memory.
+     sites per level, ms per spvcnn_apply, peak memory; the CLI's priors
+     must launch the decoder's 3x3 kernels.
  19. data parallel (parallel/, phase19's notes) at bench.py's recipe
      from phase 9's trained state: NCCL at a world of one in this
      process (the DP step against the fused step on the same draws:
@@ -2481,6 +2488,86 @@ def forward_flops(model, rgb, z):
     return total[0]
 
 
+# the decoder's 3x3s timed in phase 15, (Cin, Cout, side) at a minibatch
+# of 5 and a 448^2 crop: the FTB's first at 14^2 and the 1/2 FFM's at
+# 28^2 (both split over K: 8 and 4 ways on 132 SMs), the 1/4 FFMs' and
+# the AO head's
+C3_SHAPES = ((2048, 512, 14), (1024, 256, 28), (256, 256, 112),
+             (256, 128, 224), (128, 1, 224))
+C3_MINIBATCH = 5
+C3_REL = 1e-4        # kernel vs plain (cuDNN f32, TF32 off), norm-relative
+C3_REPS = 20
+
+
+def conv3x3_entries(seed, launches, shapes=C3_SHAPES):
+    """The decoder's 3x3 kernels (ops/cuda/conv3x3) at each (Cin, Cout,
+    side): the output held to the plain version (cuDNN's F.conv2d in f32
+    with TF32 off on the card) within C3_REL, norm-relative; the device
+    ms of each kernel a call launches (torch.profiler: the weights'
+    pack, the GEMM and, where `plan` splits K, the fixed-order sum; or
+    the Cout-1 kernel) and the wrapper's ms (CUDA events); the bound,
+    the larger of the bytes' (input, weights, bias and output once) and
+    the operations' (2 x MACs at the f32 peak); the plain version's ms,
+    which is also library_ms.  A split shape must launch the sum.
+    `launches` is the CLI run's count, on every row.  Returns the
+    kernels-line entries."""
+    from google_nerf_tpu_torch.ops.conv3x3 import conv3x3_plain
+    from google_nerf_tpu_torch.ops.cuda.conv3x3 import _sms, conv3x3, plan
+    from google_nerf_tpu_torch.tools.kernel_probe import device_ms
+    from google_nerf_tpu_torch.utils.precision import exact_f32
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for cin, cout, side in shapes:
+        x = torch.randn((C3_MINIBATCH, cin, side, side), generator=gen,
+                        device=dev)
+        w = torch.randn((cout, cin, 3, 3), generator=gen,
+                        device=dev) / (3 * cin ** 0.5)
+        b = torch.randn((cout,), generator=gen, device=dev)
+        request = f"{cin}->{cout} at {side}^2 x{C3_MINIBATCH}"
+        splits = 1 if cout == 1 else plan(C3_MINIBATCH, cin, side, side,
+                                          cout, _sms(0))["splits"]
+        with exact_f32():
+            got, want = conv3x3(x, w, b), conv3x3_plain(x, w, b)
+            rel = float((got - want).norm() / want.norm())
+            err = float((got - want).abs().max())
+            check(rel <= C3_REL, f"conv3x3 {request}: {rel:.2e} from the "
+                  f"plain version")
+            wrapper_ms = cuda_ms(lambda: conv3x3(x, w, b), C3_REPS)
+            plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, b), C3_REPS)
+            _, ops = device_ms(lambda: conv3x3(x, w, b), C3_REPS)
+        ops = {k: v for k, v in ops.items() if "conv3x3" in k}
+        reduced = any("conv3x3_reduce" in k for k in ops)
+        check(reduced == (splits > 1), f"conv3x3 {request}: {splits} "
+              f"splits over K, the sum launched: {reduced}")
+        ms = sum(v for v, _ in ops.values())
+        macs = C3_MINIBATCH * side * side * cout * cin * 9
+        nbytes = 4 * (C3_MINIBATCH * (cin + cout) * side * side
+                      + cout * cin * 9 + cout)
+        bound_ms, bound_by = bound_of(nbytes, 2 * macs, H100_F32_FLOPS)
+        gemm = [v for k, (v, _) in ops.items()
+                if "conv3x3_gemm" in k or "conv3x3_cout1" in k]
+        out.append(dict(
+            name="conv3x3", id="C3", route="cuda",
+            source=f"{CSRC}/conv3x3.cu",
+            replaces="none (XLA in google_nerf_tpu/depth/decoder.py)",
+            launches=launches, max_abs_err=err, rel_to_plain=rel, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=plain_ms, library="cuDNN F.conv2d, f32, TF32 off",
+            request=request, wrapper_ms=wrapper_ms,
+            kernel_ms=gemm[0] if gemm else None, splits=splits,
+            launches_a_call=len(ops), tflops=2e-9 * macs / ms,
+            ms_by="profiler device time per call: " + ", ".join(
+                f"{k[:48]} {v:.5f} ms ({c} of {C3_REPS} seen)"
+                for k, (v, c) in ops.items())))
+        print_probe(out[-1], "phase 15")
+        print(f"phase 15: C3 {request}: {out[-1]['tflops']:.1f} TFLOP/s, "
+              f"{100 * bound_ms / ms:.1f}% of its bound; {splits} "
+              f"split(s) over K; {rel:.2e} from the plain version",
+              flush=True)
+    return out
+
+
 def phase15(seed, scan=None):
     """The depth-prior path: depth_eval_scannet_torch.main at the CLIs'
     defaults (ResNeXt101-32x8d, encoder-site cIMLE at d_latent 32, crop
@@ -2497,7 +2584,11 @@ def phase15(seed, scan=None):
     the card against the same model and latents on the CPU
     (norm-relative DEPTH_CPU_REL); its five latents give five different
     priors; the priors load through ScannetDataset(depth_dir=...) at
-    640x480, finite; the metric battery finite.  Returns the summary."""
+    640x480, finite; the metric battery finite; the CLI's frames
+    launched the decoder's 3x3 kernels (ops/cuda/conv3x3: their count
+    set to 0 just before the CLI runs), which conv3x3_entries then times
+    and holds to their plain version.  Returns the summary and the
+    kernels-line entries."""
     import os
     import tempfile
 
@@ -2510,6 +2601,7 @@ def phase15(seed, scan=None):
                                                    depth_inference,
                                                    init_depth_model)
     from google_nerf_tpu_torch.depth.weights import load_checkpoint
+    from google_nerf_tpu_torch.ops.cuda.conv3x3 import conv3x3
     from google_nerf_tpu_torch.utils.image import resize_linear
     dev = torch.device("cuda")
     arch = depth_test_torch.BACKBONES[DEPTH_BACKBONE]
@@ -2551,6 +2643,7 @@ def phase15(seed, scan=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         priors.depth_inference = recording
+        conv3x3.launches = 0
         t0 = time.time()
         try:
             run = depth_eval_scannet_torch.main(argv)
@@ -2559,6 +2652,9 @@ def phase15(seed, scan=None):
         torch.cuda.synchronize()
         wall = time.time() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        c3_launches = conv3x3.launches
+        check(c3_launches > 0, "phase 15: the decoder's 3x3s never ran "
+              "the conv3x3 kernels")
         frames = sorted(f[:-4] for f in os.listdir(out_dir)
                         if f.endswith(".npy"))
         check(run["frames"] == len(frames) == sum(SCANNET_FRAMES),
@@ -2628,6 +2724,7 @@ def phase15(seed, scan=None):
         frame_ms = [1e3 * s for s in run["frame_s"]]
         med = statistics.median(frame_ms)
         share = flops * DEPTH_SAMPLES / (fwd_ms * 1e-3) / H100_F32_FLOPS
+    c3_entries = conv3x3_entries(seed, c3_launches)
     out = dict(arch=arch, d_latent=DEPTH_LATENT, crop=DEPTH_CROP,
                samples=DEPTH_SAMPLES, frames=len(frames),
                n_params=n_params, cli_wall_s=wall,
@@ -2639,7 +2736,8 @@ def phase15(seed, scan=None):
                peak_gib=peak_gib, build_s=run["build_s"],
                load_s=run["load_s"], save_s=save_s, card_vs_cpu_rel=rel,
                cpu_forward_s=cpu_s, latent_spread=spread,
-               prior_range=[float(lo), float(hi)], metrics=metrics)
+               prior_range=[float(lo), float(hi)], metrics=metrics,
+               conv3x3_launches=c3_launches)
     print(f"phase 15: depth_eval_scannet_torch on {len(frames)} frames of "
           f"{cw}x{ch}, {DEPTH_SAMPLES} hypotheses a frame: {wall:.1f} s "
           f"(model build {run['build_s']:.2f} s, weight load "
@@ -2650,8 +2748,9 @@ def phase15(seed, scan=None):
           f"{flops / 1e9:.1f} GFLOP an image, {100 * share:.1f}% of the "
           f"f32 peak; peak memory {peak_gib:.2f} GiB; card vs CPU "
           f"{rel:.2e}; prior range {lo:.4f}..{hi:.4f}; metrics "
-          f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
-    return out
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }; conv3x3 "
+          f"launches {c3_launches}", flush=True)
+    return out, c3_entries
 
 
 # ------------------------------ phase 16: the cIMLE depth trainer, LeReS
@@ -2734,9 +2833,13 @@ def phase16(seed, scan):
     image-hypothesis, train ms a step (median after the first) and
     images/s, GFLOP a step (3 x the forward's convolution and linear
     multiply-adds x 2 per image) and its share of the f32 peak, peak
-    memory, the phase's seconds.  No kernel of the repo's own runs: the
-    network is cuDNN's convolutions in f32 with TF32 off, as JAX leaves
-    it to XLA."""
+    memory, the phase's seconds; the decoder's 3x3 kernel launches
+    (ops/cuda/conv3x3) of the first training run and of the evaluation,
+    each count set to 0 just before, both above 0: the recache
+    (trainer.zcache_losses) and the evaluation record no gradient and so
+    run the kernel, the step's forward and backward keep nn.Conv2d.  The
+    rest of the network is cuDNN's convolutions in f32 with TF32 off, as
+    JAX leaves it to XLA."""
     import os
     import tempfile
 
@@ -2746,6 +2849,7 @@ def phase16(seed, scan):
     from google_nerf_tpu_torch.depth.data import (DepthAnnotationDataset,
                                                   MultiDatasetSampler)
     from google_nerf_tpu_torch.depth.losses import loss_draws
+    from google_nerf_tpu_torch.ops.cuda.conv3x3 import conv3x3
     dev = torch.device("cuda")
     t_phase = time.time()
     scene, _, priors = scan
@@ -2763,8 +2867,12 @@ def phase16(seed, scan):
         argv = argv_to(out)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        conv3x3.launches = 0
         run = depth_train_torch.main(argv)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_c3 = conv3x3.launches
+        check(train_c3 > 0, "phase 16: the recache never ran the conv3x3 "
+              "kernels")
         args = depth_train_torch.get_args(argv)
         cfg = depth_train_torch.build_cfg(args)
         t = cfg.train
@@ -2786,7 +2894,8 @@ def phase16(seed, scan):
         print(f"phase 16: {n_steps} steps, losses "
               f"{[round(h['total_loss'], 4) for h in steps]}; step ms "
               f"{[round(x, 1) for x in step_ms]}; recache "
-              f"{recache[0]['seconds']:.2f} s", flush=True)
+              f"{recache[0]['seconds']:.2f} s; conv3x3 launches "
+              f"{train_c3}", flush=True)
         model = run["state"].model
         del run
 
@@ -2824,6 +2933,7 @@ def phase16(seed, scan):
         torch.cuda.empty_cache()
 
         # the evaluation CLI on final.npz over the test frames
+        conv3x3.launches = 0
         ev = depth_eval_torch.main(
             ["--dataroot", root, "--dataset", "scannet_frames",
              "--load_ckpt", os.path.join(out, "final.npz"), "--backbone",
@@ -2831,6 +2941,9 @@ def phase16(seed, scan):
              "--d_latent", str(cfg.model.d_latent), "--num_samples",
              str(DEPTH_EVAL_SAMPLES), "--select", "loss", "--seed",
              str(seed), "--platform", "cuda"])
+        eval_c3 = conv3x3.launches
+        check(eval_c3 > 0, "phase 16: the evaluation never ran the conv3x3 "
+              "kernels")
         metrics = ev["metrics"]
         check(ev["images"] == DEPTH_TRAIN_FRAMES[1] and len(metrics) == 10
               and all(math.isfinite(v) for v in metrics.values()),
@@ -2847,6 +2960,7 @@ def phase16(seed, scan):
                gflop_per_step=flops / 1e9, f32_peak_share=share,
                peak_gib=peak_gib, card_vs_cpu=step, eval_metrics=metrics,
                eval_image_ms=[1e3 * s for s in ev["image_s"]],
+               conv3x3_launches=dict(train=train_c3, eval=eval_c3),
                seconds=seconds)
     f64, f32, cpu = step["card_f64"], step["card"], step["cpu"]
     print(f"phase 16: depth_train_torch {cfg.model.encoder} cIMLE d_latent "
@@ -2867,7 +2981,8 @@ def phase16(seed, scan):
           f"card {f32['traces']:.2e} ({f32['traces_tensor_max']:.2e})"
           f"; eval --select loss over "
           f"{DEPTH_TRAIN_FRAMES[1]} frames "
-          f"{ {k: round(v, 4) for k, v in metrics.items()} }; phase "
+          f"{ {k: round(v, 4) for k, v in metrics.items()} }; conv3x3 "
+          f"launches: training run {train_c3}, evaluation {eval_c3}; phase "
           f"{seconds:.1f} s", flush=True)
     return out
 
@@ -3225,8 +3340,11 @@ def phase18(seed, scan):
     from them.  Reported: the active sites per level of each cloud, the
     points the voxelizer kept, its voxels before and after the n_cap
     draw, the sites past 10 bits, ms per spvcnn_apply (card, CPU), the
-    CLI's seconds a frame, peak memory.  No kernel of the repo's own
-    runs: searchsorted, row gathers, index_add_ and f32 products."""
+    CLI's seconds a frame, peak memory.  The CLI's priors (depth_of, no
+    gradient) run the decoder's 3x3 kernels (ops/cuda/conv3x3; their
+    count set to 0 just before, above 0 after); the refinement runs no
+    kernel of the repo's own: searchsorted, row gathers, index_add_ and
+    f32 products."""
     import io
     import os
     import shutil
@@ -3237,6 +3355,7 @@ def phase18(seed, scan):
     from depth_test_torch import depth_of, read_rgb01
     from google_nerf_tpu_torch.depth import spvcnn
     from google_nerf_tpu_torch.depth.model import DepthModelConfig
+    from google_nerf_tpu_torch.ops.cuda.conv3x3 import conv3x3
     from google_nerf_tpu_torch.utils.image import read_image
     dev = torch.device("cuda")
     t_phase = time.time()
@@ -3252,11 +3371,15 @@ def phase18(seed, scan):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
+        conv3x3.launches = 0
         t0 = time.time()
         with redirect_stdout(buf):
             depth_shape_torch.main(["--img_dir", imgs, "--out_dir", out])
         torch.cuda.synchronize()
         cli_s = time.time() - t0
+        c3_launches = conv3x3.launches
+        check(c3_launches > 0, "phase 18: the CLI's priors never ran the "
+              "conv3x3 kernels")
         cli_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         printed = [l.split() for l in buf.getvalue().splitlines()
                    if "shift=" in l]
@@ -3280,7 +3403,8 @@ def phase18(seed, scan):
                   f"phase 18: {base}-pcd.ply holds {xyz.shape} points")
         print(f"phase 18: depth_shape_torch on {SHAPE_FRAMES} frames "
               f"(1296x968, crop 448) in {cli_s:.1f} s, peak {cli_peak:.2f} "
-              f"GiB; shift {shifts}, focal {focals}", flush=True)
+              f"GiB; shift {shifts}, focal {focals}; conv3x3 launches "
+              f"{c3_launches}", flush=True)
 
         # ---- card vs CPU on frame 0, the CLI's heads
         cfg = DepthModelConfig(backbone=depth_shape_torch.BACKBONES[
@@ -3300,7 +3424,7 @@ def phase18(seed, scan):
     summary.update(cli_s=cli_s, cli_s_per_frame=cli_s / SHAPE_FRAMES,
                    cli_peak_gib=cli_peak, shifts=shifts, focals=focals,
                    refine=steps, shift=shift, focal=focal,
-                   refine_peak_gib=peak,
+                   refine_peak_gib=peak, conv3x3_launches=c3_launches,
                    seconds=time.time() - t_phase)
     print(f"phase 18: frame 0 shift {summary['shift']:.4f}, focal "
           f"{summary['focal']:.1f}; spvcnn peak {peak:.2f} GiB; phase "
@@ -4668,8 +4792,9 @@ def main():
     begin(15)
     # ---- 15: the depth-prior path on phase 13's scan
     t15 = time.time()
-    depth = phase15(args.seed, scan)
+    depth, depth_kernels = phase15(args.seed, scan)
     depth["seconds"] = time.time() - t15
+    kernels += depth_kernels
 
     begin(16)
     # ---- 16: the cIMLE depth trainer on phase 13's scan

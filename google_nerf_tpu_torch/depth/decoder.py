@@ -19,7 +19,10 @@ reference's `Minist_Test/lib/network_auxi.py` and
   * AuxiNetV2 (`Train/lib/models/network_auxi.py:126-172`).
 
 Decoder convolutions carry a bias; BatchNorm is flax's (backbones.BatchNorm2d).
-NCHW.
+NCHW.  Every 3x3 is a Conv3x3: an nn.Conv2d whose forward, when no
+gradient is recorded, runs ops/cuda/conv3x3 (on the card the
+hand-written f32 implicit GEMM, on the CPU the plain F.conv2d), and
+when one is, nn.Conv2d's own forward (the depth trainer's step).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from torch.nn import functional as F
 
 from google_nerf_tpu_torch.depth.adain import AdaInMod
 from google_nerf_tpu_torch.depth.backbones import BatchNorm2d
+from google_nerf_tpu_torch.ops.cuda.conv3x3 import conv3x3
 from google_nerf_tpu_torch.utils.logging import span
 
 MIDCHANNELS = (256, 256, 256, 512)
@@ -46,8 +50,25 @@ def upsample_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
                          align_corners=True)
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+class Conv3x3(nn.Conv2d):
+    """nn.Conv2d(cin, cout, 3, padding=1), its parameters and state dict
+    unchanged, routed by the call: a call that records a gradient (grad
+    mode on, and x or the weight requiring one) takes nn.Conv2d's
+    forward; any other takes ops/cuda/conv3x3, the kernel on CUDA
+    tensors and its plain version on CPU ones.  That takes NCHW only, so
+    an input in another memory format (a channels_last one, from NHWC
+    data on the CPU) is copied to NCHW first; the priors path's already
+    is, and is not copied."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, padding=1)
+
+    def forward(self, x):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad):
+            return super().forward(x)
+        return conv3x3(x.contiguous(), self.weight, self.bias, self.stride,
+                       self.padding)
 
 
 class FTB(nn.Module):
@@ -55,10 +76,10 @@ class FTB(nn.Module):
 
     def __init__(self, inchannels: int, mid: int):
         super().__init__()
-        self.conv1 = _conv3(inchannels, mid)
+        self.conv1 = Conv3x3(inchannels, mid)
         self.conv_branch = nn.Sequential(
-            nn.ReLU(), _conv3(mid, mid), BatchNorm2d(mid),
-            nn.ReLU(), _conv3(mid, mid))
+            nn.ReLU(), Conv3x3(mid, mid), BatchNorm2d(mid),
+            nn.ReLU(), Conv3x3(mid, mid))
 
     def forward(self, x):
         x = self.conv1(x)
@@ -101,9 +122,9 @@ class AO(nn.Module):
     def __init__(self, inchannels: int, out: int = 1, upfactor: int = 2):
         super().__init__()
         self.adapt_conv = nn.Sequential(
-            _conv3(inchannels, inchannels // 2),
+            Conv3x3(inchannels, inchannels // 2),
             BatchNorm2d(inchannels // 2), nn.ReLU(),
-            _conv3(inchannels // 2, out))
+            Conv3x3(inchannels // 2, out))
         self.upfactor = upfactor
 
     def forward(self, x):
@@ -124,7 +145,7 @@ class Decoder(nn.Module):
         mc = tuple(midchannels)
         self.d_latent = d_latent
         self.conv = FTB(lateral[3], mc[3])
-        self.conv1 = _conv3(mc[3], mc[2])
+        self.conv1 = Conv3x3(mc[3], mc[2])
         self.ffm2 = FFM(lateral[2], mc[2], mc[2])
         self.ffm1 = FFM(lateral[1], mc[1], mc[1])
         self.ffm0 = FFM(lateral[0], mc[0], mc[0])

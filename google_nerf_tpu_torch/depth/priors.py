@@ -16,7 +16,9 @@ which left the card waiting on the host for most of an eager frame
 (815 ms eager against 311 ms replayed on an H100, the priors bit for
 bit the same).  The capture is cut at each span inside the network
 (utils/logging.span), so that a replay runs each piece inside the spans
-its kernels belong to and a profiler still sees the layers.
+its kernels belong to and a profiler still sees the layers.  The
+counters counted while a piece was captured (utils/logging.count) are
+kept with it and counted again each time it replays.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ MINIBATCH = 5               # eval_scannet.py:374-380
 
 class _Cut:
     """A capture cut at span boundaries: the graphs in order, each with
-    the spans open while it was captured."""
+    the spans open while it was captured and the counters it counted."""
 
     def __init__(self):
         self.pool = torch.cuda.graph_pool_handle()
@@ -47,11 +49,15 @@ class _Cut:
 
     def begin(self):
         self.graph = torch.cuda.CUDAGraph()
+        self.tally = {}
         self.graph.capture_begin(pool=self.pool)
 
     def end(self):
         self.graph.capture_end()
-        self.graphs.append((tuple(self.stack), self.graph))
+        self.graphs.append((tuple(self.stack), self.graph, self.tally))
+
+    def add(self, name, n):
+        self.tally[name] = self.tally.get(name, 0) + n
 
     @contextlib.contextmanager
     def __call__(self, name):
@@ -88,11 +94,12 @@ class _Graphs:
 
 
 def replay(graphs):
-    """Replay [(spans, graph)] in order, each inside its spans: a span
-    open across consecutive pieces stays one range."""
+    """Replay [(spans, graph, tally)] in order, each inside its spans (a
+    span open across consecutive pieces stays one range), counting each
+    piece's tally of counters again."""
     names, opened = [], []
     try:
-        for stack, graph in graphs:
+        for stack, graph, tally in graphs:
             n = 0
             while n < min(len(names), len(stack)) and names[n] == stack[n]:
                 n += 1
@@ -104,6 +111,8 @@ def replay(graphs):
                 opened.append(span(name))
                 opened[-1].__enter__()
             graph.replay()
+            for name, n in tally.items():
+                count(name, n)
     finally:
         while opened:
             opened.pop().__exit__(None, None, None)

@@ -9,13 +9,15 @@ minibatches of 5 hypotheses, random weights from --seed.
 Variants, each timed by CUDA events over --reps frames after a warm-up
 and in turns (the first one again last, to show the spread):
 
-  nchw              the port's path: NCHW, f32, TF32 off (exact_f32)
-  channels_last     the model and input in channels_last, otherwise the
-                    same
-  nchw+benchmark,   cudnn.benchmark on (cuDNN times its algorithms for
-  channels_last+benchmark   each shape at the first call)
-  tf32              NCHW with TF32 allowed: not the port's path (JAX's
-                    reference is f32); what TF32 would give
+  nchw              the port's path: NCHW, f32, TF32 off (exact_f32);
+                    the decoder's 3x3s on ops/cuda/conv3x3's kernel
+  nchw+benchmark    cudnn.benchmark on (cuDNN times its algorithms for
+                    each shape at the first call)
+  tf32              TF32 allowed in cuDNN: not the port's path (JAX's
+                    reference is f32); what TF32 would give the encoder
+                    (the decoder's kernel is f32 whatever the flags)
+
+The decoder's kernel takes NCHW only, so channels_last is no variant.
 
 Each line: ms a frame, images/s, peak memory (max_memory_allocated
 over the timed frames, cuDNN's workspaces included) and the output's
@@ -85,20 +87,12 @@ def main(argv=None):
         MINIBATCH, -1, -1, -1).contiguous().to(dev)
     zs = [torch.randn((MINIBATCH, LATENT), generator=gen).to(dev)
           for _ in range(2)]
-    nchw = (model, rgb)
-    cl = (model, rgb.contiguous(memory_format=torch.channels_last))
 
-    def variant(inputs, bench=False, tf32=False, layout="nchw"):
-        m, x = inputs
-
+    def variant(bench=False, tf32=False):
         def frame():
-            return [depth_inference(m, x, z) for z in zs]
+            return [depth_inference(model, rgb, z) for z in zs]
 
         def run():
-            if layout == "channels_last":
-                m.to(memory_format=torch.channels_last)
-            else:
-                m.to(memory_format=torch.contiguous_format)
             with _cudnn_benchmark(bench), \
                     (_tf32() if tf32 else contextlib.nullcontext()):
                 out = frame()                         # warm-up, output
@@ -108,13 +102,10 @@ def main(argv=None):
             return out, ms, torch.cuda.max_memory_allocated() / 2 ** 30
         return run
 
-    variants = [("nchw", variant(nchw)),
-                ("channels_last", variant(cl, layout="channels_last")),
-                ("channels_last+benchmark", variant(cl, bench=True,
-                                                    layout="channels_last")),
-                ("nchw+benchmark", variant(nchw, bench=True)),
-                ("tf32", variant(nchw, tf32=True)),
-                ("nchw (again)", variant(nchw))]
+    variants = [("nchw", variant()),
+                ("nchw+benchmark", variant(bench=True)),
+                ("tf32", variant(tf32=True)),
+                ("nchw (again)", variant())]
     card = torch.cuda.get_device_name(0)
     results, ref = [], None
     for name, run in variants:
@@ -133,7 +124,6 @@ def main(argv=None):
     prof = None
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
-        model.to(memory_format=torch.contiguous_format)
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             for z in zs:
                 depth_inference(model, rgb, z)

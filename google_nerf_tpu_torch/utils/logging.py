@@ -42,7 +42,8 @@ one frame's spans nest under its root on one thread:
 and the counters field_points (rows the field evaluates, each
 ngp_density call), drain_trips and views (render_test_oneshot),
 depth_frames and depth_hypotheses (frame_priors: a frame, and the rows
-of each minibatch's forward).  A
+of each minibatch's forward), depth_conv3_macs (the multiply-adds of
+the 3x3 convolutions that ops/cuda/conv3x3's kernels computed).  A
 backward kernel belongs to the span of its forward op: the profiler
 gives both the same autograd sequence number.  Spans and counters exist
 only while a profiler records: no flag, variable or key turns them on.
@@ -198,7 +199,8 @@ _recording = torch.autograd._profiler_enabled
 # H100 by 3-6 ms (the launches inside them), this one by none measured
 _range = torch._C._profiler._RecordFunctionFast
 # while depth/priors.py captures a forward in CUDA graphs: name -> the
-# context that ends the graph being captured and begins the next
+# context that ends the graph being captured and begins the next; its
+# add(name, n) tallies a counter in the graph being captured
 _cut = None
 
 
@@ -216,8 +218,13 @@ def span(name: str):
 
 def count(name: str, n: int = 1):
     """Add the host integer n to counter `name` while a torch.profiler
-    records (never a device value: that would synchronise)."""
-    if _recording():
+    records (never a device value: that would synchronise).  While a
+    forward is captured in CUDA graphs, n goes to the tally of the graph
+    being captured instead, which each replay of it adds here again
+    (depth/priors.replay): no Python runs inside a replayed graph."""
+    if _cut is not None:
+        _cut.add(name, int(n))
+    elif _recording():
         _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
 
 

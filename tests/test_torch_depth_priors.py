@@ -299,14 +299,14 @@ def test_replay_runs_each_piece_inside_its_spans():
     opens a span once across consecutive pieces inside it and nests the
     pieces' work as the capture saw it."""
     e, a = "depth.encoder", "depth.adain"
-    pieces = [((), _Piece("p0")), ((e,), _Piece("p1")),
-              ((e, a), _Piece("p2")), ((e,), _Piece("p3")),
-              ((e, a), _Piece("p4")), ((), _Piece("p5")),
-              (("depth.decoder",), _Piece("p6"))]
+    pieces = [((), _Piece("p0"), {}), ((e,), _Piece("p1"), {}),
+              ((e, a), _Piece("p2"), {}), ((e,), _Piece("p3"), {}),
+              ((e, a), _Piece("p4"), {}), ((), _Piece("p5"), {}),
+              (("depth.decoder",), _Piece("p6"), {})]
     _, events, _ = _traced(lambda: priors.replay(pieces))
     names = [x.name for x in events]
     assert names.count(e) == 1 and names.count(a) == 2
-    parents = _nested(events, others={p.tag for _, p in pieces})
+    parents = _nested(events, others={p.tag for _, p, _ in pieces})
     assert parents["p0"] == parents["p5"] == {None}
     assert parents["p1"] == parents["p3"] == {e}
     assert parents["p2"] == parents["p4"] == {a}
