@@ -246,12 +246,14 @@ launched there).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
 import sys
 import tempfile
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -259,11 +261,11 @@ import torch
 import bench_torch
 from bench_torch import card_line
 from google_nerf_tpu_torch.tools.brick_inputs import serving_width_inputs
-from google_nerf_tpu_torch.tools.kernel_probe import cuda_ms
+from google_nerf_tpu_torch.tools.kernel_probe import (P3_SUM_C, cuda_ms,
+                                                      device_ms, named_ms,
+                                                      p3_sum_bound)
+from portbench.lib.work import PEAKS, bound_s
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA H100 SXM data sheet
-H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak
-H100_F32_FLOPS = 67e12          # fp32 outside the tensor cores
 PALLAS = "google_nerf_tpu/ops/pallas/brick_field.py"
 CSRC = "google_nerf_tpu_torch/csrc"
 SERVE_KW = bench_torch.SETTINGS["v256"]     # bench.py:327-330
@@ -585,7 +587,8 @@ def call_work(bf, args, kw, out, rows, tiles, index_bytes, rgba=False,
         # 1) + 64x64 + 64x3 MACs, composite ~10; per ray: the 16x64 sh half
         flops = (samples * (2 * (8 * 16 + 16 * 64 + 64 * 64 + 64 * 3) + 10)
                  + n_tiles * 64 * 2 * 16 * 64)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+    t_bytes = nbytes / PEAKS["hbm_bytes_per_s"]
+    t_ops = flops / PEAKS["flops_per_s"]["bfloat16"]
     work = dict(bytes=nbytes, flops=flops, samples=samples,
                 live_slots=int(slots.sum()), distinct_voxels=voxels,
                 bound_ms=1e3 * max(t_bytes, t_ops),
@@ -686,57 +689,18 @@ def time_calls(fn, calls, reps):
     return total / len(calls)
 
 
-def device_events(run):
-    """{device kernel name: (total ms, launches seen)} by torch.profiler
-    while run() runs.  The profiler can miss launches (PERF.md), so a
-    kernel's time is its mean over the launches seen."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run()
-        torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
-
-
-def profiled_ms(ev, kernels):
-    """Each named kernel's own device time per launch in device_events'
-    ev: {name: (ms or None if the profiler saw no launch of it, launches
-    seen)}.  A name matches every device kernel whose name contains it."""
-    seen = {}
-    for name in kernels:
-        mine = [v for key, v in ev.items() if name in key]
-        n = sum(c for _, c in mine)
-        seen[name] = (sum(t for t, _ in mine) / n if n else None, n)
-    return seen
-
-
-def per_call_ms(ev, reps):
-    """Device ms of one of the reps identical calls device_events saw:
-    each kernel's mean per launch times its launches per call (its count
-    over reps, rounded, at least 1)."""
-    if not ev:
-        return None
-    return sum(t / n * max(1, round(n / reps)) for t, n in ev.values())
-
-
 def kernel_device_ms(fn, calls, reps, kernel):
     """The kernel's own device time per launch, by torch.profiler, over
     reps runs of each recorded call: the wrapper's checks, the copy of
     init into the output and the launch gaps are not in it.  Returns
     (ms or None if the profiler saw no launch of it, launches seen)."""
     outs = [torch.empty_like(a[2][:, :8]) for a, _ in calls]
-    for (a, k), o in zip(calls, outs):
-        fn(*a, **k, out=o)                                  # warm
 
     def run():
         for (a, k), o in zip(calls, outs):
             for _ in range(reps):
                 fn(*a, **k, out=o)
-    return profiled_ms(device_events(run), [kernel])[kernel]
+    return named_ms(device_ms(run, 1)[1], [kernel])[kernel]
 
 
 def profile_frame(serve):
@@ -859,13 +823,6 @@ PROBE_SPECS = {
                          "tools/pallas_probe.py:168")}
 
 
-def bound_of(nbytes, ops, peak):
-    """(bound ms, what binds it) of nbytes moved and ops done at peak."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def rung_bound(ladder, k):
     """Rung k's bound on the tool's operands: the operand bytes it reads
     once and its (8, 64) f32 output written once; its elementwise
@@ -882,49 +839,74 @@ def rung_bound(ladder, k):
             13: (0, 2 * ROWW * N), 14: (4 * (TPX + 1), 3 * N), 15: (12, 9),
             16: (0, 14 * N), 17: (2 * VOX * N, 2 * VOX * N)}
     nbytes, ops = work[k]
-    return bound_of(nbytes + 4 * 8 * TPX, ops, H100_BF16_FLOPS
-                    if k in (8, 10) else H100_F32_FLOPS)
+    t, by = bound_s(nbytes + 4 * 8 * TPX, ops,
+                    "bfloat16" if k in (8, 10) else "float32")
+    return 1e3 * t, by
 
 
-def measure_probe(p, pid, launches, request, reps):
-    """One probe (kernel_probe.Probe) on its inputs: held against its plain
-    version, its device time (torch.profiler; P3's memset and kernel),
-    wrapper time (CUDA events), plain time, the one-call PyTorch versions'
-    times (CUDA events and profiler) and its bound.  Returns the
-    kernels-line entry."""
+def kernel_row(tag, fn, plain, kernels, work, *, reps, plain_reps=None,
+               libraries=None, **row):
+    """One per-call row of the kernels line, printed under `tag`: fn()
+    (the wrapper call) and plain() (its plain version) on the inputs the
+    caller has held them to.  wrapper_ms: fn by CUDA events over reps
+    calls; ms: the device time of one call by torch.profiler over reps
+    calls, each of `kernels` (device-op name fragments, the kernel first)
+    its mean per launch, summed, or wrapper_ms where the profiler saw one
+    of them not at all (ms_by says which); kernel_ms: the first's;
+    call_device_ms: every device op of one call (a fill included);
+    plain_ms by CUDA events over plain_reps (default reps) calls; the
+    bound of work, (bytes, f32 operations), at portbench/peaks.json's
+    rates.  libraries, {name: one-call PyTorch version}: each one's ms by
+    CUDA events, device ms and device kernels, the fastest as
+    library_ms; without them library_ms is plain_ms where `row` names
+    the library the plain version calls, else None.  `row`: the row's
+    own keys (name, id, source, replaces, launches, max_abs_err,
+    request, ...).  Returns (the row, device_ms' ops of fn)."""
+    call_ms, ops = device_ms(fn, reps)
+    each = named_ms(ops, kernels)
+    wrapper_ms = cuda_ms(fn, reps)
+    if all(v is not None for v, _ in each.values()):
+        ms = sum(v for v, _ in each.values())
+        ms_by = "profiler device time per call: " + ", ".join(
+            f"{k} ({n} of {reps} seen)" for k, (_, n) in each.items())
+    else:                       # no device trace: the whole call
+        ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
+    if libraries:
+        libs = {}
+        for name, call in libraries.items():
+            lib_call_ms, lib_ops = device_ms(call, reps)
+            libs[name] = dict(ms=cuda_ms(call, reps),
+                              device_ms=lib_call_ms if lib_ops else None,
+                              device_kernels={k[:96]: n for k, (_, n)
+                                              in lib_ops.items()})
+        fastest = min(libs, key=lambda n: libs[n]["ms"])
+        row.update(libraries=libs, library=fastest,
+                   library_ms=libs[fastest]["ms"])
+    plain_ms = cuda_ms(plain, plain_reps or reps)
+    row.setdefault("library", None)
+    row.setdefault("library_ms", plain_ms if row["library"] else None)
+    bound, bound_by = bound_s(*work)
+    row.update(route="cuda", ms=ms, plain_ms=plain_ms, bound_ms=1e3 * bound,
+               bound_by=bound_by, ms_by=ms_by, wrapper_ms=wrapper_ms,
+               kernel_ms=each[kernels[0]][0],
+               call_device_ms=call_ms if ops else None)
+    print_probe(row, tag)
+    return row, ops
+
+
+def measure_probe(p, pid, launches, request, tag, reps):
+    """One probe (kernel_probe.Probe) on its inputs: held against its
+    plain version (p.agrees), then its kernel_row (the device ops of
+    PROBE_SPECS, the bound of p.work(), its one-call PyTorch versions as
+    the libraries).  Returns the kernels-line entry."""
     knames, src = PROBE_SPECS[p.name]
     ok, err = p.agrees(p.fn(*p.args), p.plain(*p.args))
     check(ok, f"{request}: {p.name} vs plain, max abs err {err}")
-    ev = device_events(lambda: [p.fn(*p.args) for _ in range(reps)])
-    ops = profiled_ms(ev, knames)
-    wrapper_ms = cuda_ms(lambda: p.fn(*p.args), reps)
-    # a call's device time: each of its ops' mean per launch, summed
-    ms = None if any(v is None for v, _ in ops.values()) else sum(
-        v for v, _ in ops.values())
-    ms_by = ("profiler device time per call: " + ", ".join(
-        f"{k} ({n} of {reps} seen)" for k, (_, n) in ops.items()))
-    if ms is None:              # no device trace: the whole call
-        ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
-    # each one-call PyTorch version: CUDA events around the call, its
-    # device time per call and the device kernels the profiler saw
-    libraries = {}
-    for lname, call in p.library_calls().items():
-        lev = device_events(lambda: [call() for _ in range(reps)])
-        libraries[lname] = dict(
-            ms=cuda_ms(call, reps), device_ms=per_call_ms(lev, reps),
-            device_kernels={k[:96]: n for k, (_, n) in lev.items()})
-    library = min(libraries, key=lambda n: libraries[n]["ms"])
-    bound_ms, bound_by = bound_of(*p.work(), H100_F32_FLOPS)
-    return dict(
-        name=p.name, id=pid, route="cuda", source=f"{CSRC}/probe.cu",
-        replaces=src, launches=launches, max_abs_err=err, ms=ms,
-        plain_ms=cuda_ms(lambda: p.plain(*p.args), reps),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=libraries[library]["ms"], library=library,
-        libraries=libraries, request=request, ms_by=ms_by,
-        wrapper_ms=wrapper_ms, kernel_ms=ops[knames[0]][0],
-        # every device kernel of one call (P3's zero fill included)
-        call_device_ms=per_call_ms(ev, reps), rows=p.rows)
+    return kernel_row(
+        tag, lambda: p.fn(*p.args), lambda: p.plain(*p.args), knames,
+        p.work(), reps=reps, libraries=p.library_calls(), name=p.name,
+        id=pid, source=f"{CSRC}/probe.cu", replaces=src, launches=launches,
+        max_abs_err=err, request=request, rows=p.rows)[0]
 
 
 def print_probe(e, tag):
@@ -965,7 +947,8 @@ def phase8(seed, reps=50):
         check(n > 0, f"phase 8: {name} not launched on the tool path")
     print(f"phase 8: tool path launches {launches}", flush=True)
 
-    entries = [measure_probe(p, pid, launches[p.name], "kernel_probe", reps)
+    entries = [measure_probe(p, pid, launches[p.name], "kernel_probe",
+                             "phase 8", reps)
                for pid, p in zip(("P1", "P2", "P3", "P4"),
                                  kernel_probe.probes("cuda", seed))]
 
@@ -989,8 +972,8 @@ def phase8(seed, reps=50):
             args = ladder.rung_operands(k, ops)
             for _ in range(reps):
                 ladder.rung(k, *args)
-    seen = profiled_ms(device_events(every_rung),
-                       [f"k{k}_kernel(" for k in ladder.RUNGS])
+    seen = named_ms(device_ms(every_rung, 1)[1],
+                    [f"k{k}_kernel(" for k in ladder.RUNGS])
     for r in rungs:
         r["ms"] = seen[f"k{r['k']}_kernel("][0]
         if r["ms"] is None:
@@ -1009,8 +992,7 @@ def phase8(seed, reps=50):
         ms_by=("sum over the 17 rungs of each one's profiler device time "
                "per launch (CUDA events around the call where unseen)"),
         wrapper_ms=total("wrapper_ms"), rungs=rungs))
-    for e in entries:
-        print_probe(e, "phase 8")
+    print_probe(entries[-1], "phase 8")
     return entries
 
 
@@ -1032,22 +1014,9 @@ def draws_of(gen, scene, cfg, dev):
         noise=torch.rand((B,), generator=gen, device=dev))
 
 
-# P3 against the float64 sum: the f32 sum of a row of n payloads, in
-# whatever order the atomics land, within P3_SUM_C sqrt(n) 2^-24 x the sum
-# of their |values| (rounding errors of a long sum add up as a random walk,
-# sqrt(n); its worst case, (n - 1) 2^-24, is no check on rows of thousands:
-# one lost payload among 4,314 is 2.3e-4 of the row's sum).  P3_SUM_C is
-# set from the card's readings (PERF.md section 6).
-P3_SUM_C = 4.0
-
-
-def P3_SUM_BOUND(n):
-    return P3_SUM_C * n.sqrt() * 2.0 ** -24
-
-
 def table_vs_sum64(g, sidx, vals, T, what, scale=1.0):
     """A table gradient g (an atomic f32 sum of the payloads vals into
-    rows sidx of T rows, over `scale`) held within P3_SUM_BOUND(n) x the
+    rows sidx of T rows, over `scale`) held within p3_sum_bound(n) x the
     sum of |payload| (over scale) of each (row, column) of the float64
     sum of the same payloads, for a row that takes n payloads.  Returns
     the numbers the kernels-line notes print."""
@@ -1059,7 +1028,7 @@ def table_vs_sum64(g, sidx, vals, T, what, scale=1.0):
     mag = sum64(vals.abs())
     n = torch.bincount(sidx.long(), minlength=T).double()
     n = n[:, None].expand(T, vals.shape[1]).reshape(g.shape)
-    over = d / (mag * P3_SUM_BOUND(n)).clamp_min(1e-300)
+    over = d / (mag * p3_sum_bound(n)).clamp_min(1e-300)
     check(bool((over <= 1.0).all()), f"{what} beyond {P3_SUM_C} sqrt(n) "
           f"2^-24 x sum|payload| (max abs {float(d.max())}, "
           f"{float(over.max()):.3f} of the bound)")
@@ -1088,15 +1057,15 @@ def hash_grid_payloads(g, x, res, shape):
 def hash_grid_entries(kept, launches, request, tag, reps=50):
     """The hash-grid kernels on the last training step's kept calls: the
     forward equal to its plain version bit for bit, the table gradient
-    within P3_SUM_BOUND of the float64 sum of its payloads; device ms by
+    within p3_sum_bound of the float64 sum of its payloads; device ms by
     torch.profiler (the backward's memset and kernel), wrapper and plain
     ms by CUDA events; the bound of the bytes each must move once (x, the
     gather-dtype table and the features; or x, the features' gradient and
     the f32 table gradient).
     Returns the kernels-line entries."""
     from google_nerf_tpu_torch.ops.cuda import hash_grid as hg
-    (tab, x, res), _ = kept["hash_grid_encode"][0]
-    (g, xb, _, resb, shape, tg, xg), _ = kept["hash_grid_grads"][0]
+    (tab, x, res), _ = kept["hash_grid_encode"].calls[0]
+    (g, xb, _, resb, shape, tg, xg), _ = kept["hash_grid_grads"].calls[0]
     d = (hg.hash_grid_encode(tab, x, res)
          - hg.hash_grid_encode_plain(tab, x, res)).abs()
     err = float(d.max())
@@ -1116,32 +1085,15 @@ def hash_grid_entries(kept, launches, request, tag, reps=50):
              lambda: hg.hash_grid_grads_plain(g, xb, None, resb, shape),
              ("hash_grid_bwd_kernel", "Memset (Device)"),
              n * 12 + feats + L * T * F * 4, t_errs[""]))
-    out = []
-    for name, fn, plain, knames, nbytes, e in runs:
-        ev = device_events(lambda: [fn() for _ in range(reps)])
-        ops = profiled_ms(ev, knames)
-        wrapper_ms = cuda_ms(fn, reps)
-        ms = None if any(v is None for v, _ in ops.values()) else sum(
-            v for v, _ in ops.values())
-        ms_by = ("profiler device time per call: " + ", ".join(
-            f"{k} ({c} of {reps} seen)" for k, (_, c) in ops.items()))
-        if ms is None:
-            ms, ms_by = wrapper_ms, "CUDA events around the wrapper call"
-        bound_ms, bound_by = bound_of(nbytes, 0, H100_F32_FLOPS)
-        out.append(dict(
-            name=name, id="HG", route="cuda", source=f"{CSRC}/hash_grid.cu",
-            replaces="none (XLA in google_nerf_tpu/models/encoders.py)",
-            launches=launches[name], max_abs_err=e, ms=ms,
-            plain_ms=cuda_ms(plain, 5), bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, library=None,
-            request=request, ms_by=ms_by, wrapper_ms=wrapper_ms,
-            kernel_ms=ops[knames[0]][0],
-            call_device_ms=per_call_ms(ev, reps), rows=n * L * 8))
-        print_probe(out[-1], tag)
-    return out
+    return [kernel_row(
+        tag, fn, plain, knames, (nbytes, 0), reps=reps, plain_reps=5,
+        name=name, id="HG", source=f"{CSRC}/hash_grid.cu",
+        replaces="none (XLA in google_nerf_tpu/models/encoders.py)",
+        launches=launches[name], max_abs_err=e, request=request,
+        rows=n * L * 8)[0] for name, fn, plain, knames, nbytes, e in runs]
 
 
-def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
+def kernel_vs_plain_step(tsys, ph, state, scene, cfg, draws, *,
                          names=("gather_rows", "scatter_add_rows"),
                          table="packed_table", tag="phase 9"):
     """One step's loss and gradients with the encoder's kernels (`names`
@@ -1149,7 +1101,7 @@ def kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg, draws, *,
     with their plain versions, from one state, batch and set of draws:
     loss within rtol 1e-6, every gradient but the table's within rtol
     1e-6, the kernel step's table gradient within
-    P3_SUM_BOUND(n) x the sum of |payload| of its (row, column) of the
+    p3_sum_bound(n) x the sum of |payload| of its (row, column) of the
     float64 sum of its payloads, for a row that takes n payloads.
     Returns (errors, the recorded calls)."""
     batch = tsys.sample_batch(scene, cfg.batch_size,
@@ -1207,7 +1159,6 @@ def phase9(seed, dev, steps=TRAIN_STEPS):
     from google_nerf_tpu_torch.data.synthetic import SyntheticDataset
     from google_nerf_tpu_torch.ops import packed_hash as ph
     from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.tools.kernel_probe import Probe
     from google_nerf_tpu_torch.train import system as tsys
     cfg = bench_torch.train_config()          # bench.py:92-117
     torch.cuda.synchronize()
@@ -1286,28 +1237,12 @@ def phase9(seed, dev, steps=TRAIN_STEPS):
     for k, n in launches.items():
         check(n > 0, f"phase 9: {k} not launched in training")
 
-    errs, rec = kernel_vs_plain_step(tsys, ph, probe, state, scene, cfg,
+    errs, rec = kernel_vs_plain_step(tsys, ph, state, scene, cfg,
                                      draws_of(gen, scene, cfg, dev))
     summary["kernel_vs_plain_step"] = errs
     print(f"phase 9: kernel step vs plain step {errs}", flush=True)
-    (tab, idx), _ = rec["gather_rows"].calls[0]
-    (sidx, vals, T), _ = rec["scatter_add_rows"].calls[0]
-    n = idx.numel()
-    entries = []
-    for pid, p in (
-            ("P2", Probe("train", "gather_rows_bf16",
-                         f"the encoder's row gather, {n} x 16 bf16",
-                         probe.gather_rows, probe.gather_rows_plain,
-                         (tab, idx), n)),
-            ("P3", Probe("train", "scatter_add_rows",
-                         f"the table gradient, {n} x 16 f32 onto {T} rows",
-                         probe.scatter_add_rows,
-                         probe.scatter_add_rows_plain, (sidx, vals, T), n,
-                         scatter=True))):
-        entries.append(measure_probe(p, pid, launches[p.name], "train",
-                                     reps=50))
-        print_probe(entries[-1], "phase 9")
-    return state, cfg, summary, entries
+    return state, cfg, summary, probe_entries(probe, rec, launches, "train",
+                                              "phase 9")
 
 
 def trained_frame_errors(got, want, what, limit=1e-4, flip_limit=2e-3,
@@ -1398,25 +1333,13 @@ def stage_kernel(rbm, bf, name, request, frame, names, launches):
 
 
 def oneshot_p2(ph, probe, frame, launches):
-    """P2 on the one-shot frame: every encoder gather of one more frame
-    recorded; the largest (a full drain trip) against its plain version,
-    timed as phase 8 times the probes.  Returns the kernels-line entry."""
-    from google_nerf_tpu_torch.tools.kernel_probe import Probe
-    rec = Recorder(ph.gather_rows)
-    ph.gather_rows = rec
-    try:
-        frame()
-        torch.cuda.synchronize()
-    finally:
-        ph.gather_rows = rec.fn
-    (tab, idx), _ = max(rec.calls, key=lambda c: c[0][1].numel())
-    n = idx.numel()
-    e = measure_probe(Probe("oneshot", "gather_rows_bf16",
-                            f"the one-shot drain trip's encoder gather, {n} "
-                            "x 16 bf16", probe.gather_rows,
-                            probe.gather_rows_plain, (tab, idx), n),
-                      "P2", launches, "oneshot", reps=20)
-    e["gathers_per_frame"] = len(rec.calls)
+    """P2 on the one-shot frame: the largest encoder gather of one more
+    frame (a full drain trip), as probe_entries measures a served gather.
+    Returns the kernels-line entry."""
+    _, kept = with_kept(ph, {"gather_rows": dict(keep="largest")}, frame)
+    e, = probe_entries(probe, kept, {"gather_rows_bf16": launches},
+                       "oneshot", "phase 11", reps=20)
+    e["gathers_per_frame"] = kept["gather_rows"].n
     return e
 
 
@@ -1531,7 +1454,6 @@ def phase11(state, tcfg, dev):
                   "P2 not launched on the oneshot stage")
             entries.append(oneshot_p2(ph, probe, shared["frames"]["oneshot"],
                                       launches["gather_rows_bf16"]))
-            print_probe(entries[-1], "phase 11")
         elif name == "baked_oneshot":
             info["mae_vs_live"] = float((out["rgb"] - shared["out"][
                 "oneshot"]["rgb"]).abs().mean())
@@ -1617,7 +1539,7 @@ def cli_counters(bf, probe):
 
 def with_kept(mod, names, run):
     """run() with mod's wrappers `names` ({name: Recorder keywords})
-    recorded; returns (run's result, {name: recorded calls})."""
+    recorded; returns (run's result, {name: its Recorder})."""
     keep = {n: Recorder(getattr(mod, n), **kw) for n, kw in names.items()}
     for n, k in keep.items():
         setattr(mod, n, k)
@@ -1627,13 +1549,13 @@ def with_kept(mod, names, run):
     finally:
         for n, k in keep.items():
             setattr(mod, n, k.fn)
-    return out, {n: k.calls for n, k in keep.items()}
+    return out, keep
 
 
 def kept_training(tsys, ph, run, names=("gather_rows", "scatter_add_rows")):
     """run() with the P2/P3 calls (`names` of module ph) made inside
     fused_train_step recorded (the last of each); returns (run's result,
-    kept calls)."""
+    their Recorders)."""
     in_step = [False]
     step_fn = tsys.fused_train_step
 
@@ -1652,32 +1574,239 @@ def kept_training(tsys, ph, run, names=("gather_rows", "scatter_add_rows")):
         tsys.fused_train_step = step_fn
 
 
-def train_probe_entries(probe, kept, launches, request, tag):
-    """P2 (the encoder's forward gather, where it was kept) and P3 (the
-    table gradient) on the last training step's calls, measured as phase
-    8 measures the probes and printed under `tag`."""
+def probe_entries(probe, kept, launches, request, tag, reps=50):
+    """P2 on the encoder gather kept (the last training step's, or a
+    renderer's largest) and P3 on the table gradient kept, each where
+    `kept` (Recorders of the encoder's wrappers) holds it, measured as
+    phase 8 measures the probes and printed under `tag`."""
     from google_nerf_tpu_torch.tools.kernel_probe import Probe
     out = []
     if "gather_rows" in kept:
-        (tab, idx), _ = kept["gather_rows"][0]
+        (tab, idx), _ = kept["gather_rows"].calls[0]
         n = idx.numel()
         out.append(measure_probe(Probe(
             request, "gather_rows_bf16",
             f"the encoder's row gather, {n} x {tab.shape[1]} bf16 from "
             f"{tab.shape[0]} rows", probe.gather_rows,
             probe.gather_rows_plain, (tab, idx), n), "P2",
-            launches["gather_rows_bf16"], request, reps=50))
-        print_probe(out[-1], tag)
-    (sidx, vals, T), _ = kept["scatter_add_rows"][0]
-    n = sidx.numel()
-    out.append(measure_probe(Probe(
-        request, "scatter_add_rows",
-        f"the table gradient, {n} x {vals.shape[1]} f32 onto {T} rows",
-        probe.scatter_add_rows, probe.scatter_add_rows_plain,
-        (sidx, vals, T), n, scatter=True), "P3",
-        launches["scatter_add_rows"], request, reps=50))
-    print_probe(out[-1], tag)
+            launches["gather_rows_bf16"], request, tag, reps))
+    if "scatter_add_rows" in kept:
+        (sidx, vals, T), _ = kept["scatter_add_rows"].calls[0]
+        n = sidx.numel()
+        out.append(measure_probe(Probe(
+            request, "scatter_add_rows",
+            f"the table gradient, {n} x {vals.shape[1]} f32 onto {T} rows",
+            probe.scatter_add_rows, probe.scatter_add_rows_plain,
+            (sidx, vals, T), n, scatter=True), "P3",
+            launches["scatter_add_rows"], request, tag, reps))
     return out
+
+
+VALIDATE_PSNR = 25.0        # dB: a CLI run's validate floor
+# the packed encoder: the module that calls its kernels, the wrappers it
+# calls, its table's param key (ENCODER_RUNS gives the others)
+PACKED = ("ops.packed_hash", ("gather_rows", "scatter_add_rows"),
+          "packed_table")
+COUNTER = {"gather_rows": "gather_rows_bf16"}   # a wrapper's counter key
+MARCHES = ("march_rays_train_block", "march_rays_train_seg")
+
+
+@dataclass(frozen=True)
+class Serve:
+    """One serving run of a CLI leg's checkpoint: test_torch.run on the
+    leg's argv and `flags` (train_torch.main with --val_only among them);
+    the VIEW_800 flags make the synthetic split VIEWS_800 views.
+    launched: the counters that must be past 0; gap: the most its PSNR
+    may lie from validate's, in dB (None: not held); request: the
+    kernels-line request of its kept calls (K2's first 160 for
+    brick_mxu, else P2's largest gather); marches: count the one-shot
+    renderer's marcher calls (under --march block the block marcher must
+    run and the segment marcher not)."""
+    label: str
+    flags: tuple = ()
+    launched: tuple = ("gather_rows_bf16",)
+    gap: float | None = None
+    request: str | None = None
+    marches: bool = False
+
+
+def cli_leg(tag, label, argv, *, encoder=PACKED, request=None,
+            early_at=None, psnr_ok=None, depth=None, serve=(), slim=True,
+            step=None):
+    """A CLI run as a user makes it, in the working directory: training
+    (train_torch.main, or train_scannet_torch.run for a scannet argv)
+    with every kernel counter at 0 just before (read just after) and the
+    last calls of the encoder's wrappers inside the train steps kept
+    (`encoder`: its module under google_nerf_tpu_torch, those wrappers,
+    its table's param key); then each `serve` run of the slim checkpoint
+    (the full one with slim False), the counters at 0 before each; then,
+    with step = (seed, split or None), one step from the trained state
+    on that split's draws with the encoder's kernels against one with
+    their plain versions (kernel_vs_plain_step: phase 9's bounds).
+
+    Checks: both checkpoints written; each wrapper of the encoder
+    launched in training; unless --no_save_test, the logged losses, one
+    every 100 steps, finite; validate's PSNR >= VALIDATE_PSNR, or
+    psnr_ok(it, the train psnr at step early_at); with --depth_dir, a
+    logged depth term, every one finite and positive; each serving run
+    as Serve says.  With `request`, the encoder's kernels on the last
+    train step's calls join the kernels line (the hash-grid kernels, or
+    P2/P3).  depth = (the test views' ray depth in metres, its mask):
+    their depth MAE from the trained state (printed, not checked).
+    Returns (the training's summary, {serve label: its summary},
+    kernels-line entries)."""
+    import importlib
+    import os
+
+    import google_nerf_tpu_torch.models.render_brick_mxu as rbm
+    import google_nerf_tpu_torch.models.render_test_oneshot as ros
+    import test_torch
+    import train_scannet_torch
+    import train_torch
+    from google_nerf_tpu_torch.opt import get_opts
+    from google_nerf_tpu_torch.ops import packed_hash as ph
+    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
+    from google_nerf_tpu_torch.ops.cuda import probe
+    from google_nerf_tpu_torch.train import system as tsys
+    dev = torch.device("cuda")
+    hp = get_opts(argv)
+    steps = hp.num_epochs * hp.steps_per_epoch
+    modname, names, table = encoder
+    mod = (importlib.import_module(f"google_nerf_tpu_torch.{modname}")
+           if modname else None)
+    ckpt = f"ckpts/{hp.dataset_name}/{hp.exp_name}/epoch={hp.num_epochs - 1}"
+
+    def run():
+        if hp.dataset_name == "scannet":
+            return train_scannet_torch.run(argv)
+        return train_torch.main(get_opts(argv))
+
+    reset_cli_counters(bf, probe)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    (logs, early), kept = kept_training(
+        tsys, mod, lambda: steps_metrics(tsys, early_at, run), names)
+    launches = cli_counters(bf, probe)
+    info = dict(logs, launches=launches, wall_s=time.time() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for d in (ckpt, ckpt + "_slim"):
+        check(os.path.isfile(os.path.join(d, "state.pt")),
+              f"{tag}: no checkpoint {d}")
+    for n in names:
+        k = COUNTER.get(n, n)
+        check(launches[k] > 0, f"{tag}: {k} not launched by the {label} "
+              "training")
+    if not hp.no_save_test:     # the run logs under its results
+        recs = [json.loads(line) for line in open(
+            f"results/{hp.dataset_name}/{hp.exp_name}/logs/scalars.jsonl")]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(len(losses) == steps // 100 and all(
+            math.isfinite(v) for v in losses),
+            f"{tag}: {label} logged losses {losses}")
+        dterm = [r["depth_loss"] for r in recs if "depth_loss" in r]
+        if hp.depth_dir:
+            check(dterm and all(math.isfinite(v) and v > 0 for v in dterm),
+                  f"{tag}: {label} logged depth terms {dterm}")
+        info.update(records=recs, logged_loss=losses, depth_loss=dterm)
+    if early_at:
+        info["train_psnr_early"] = early
+    ok = (logs["psnr"] >= VALIDATE_PSNR if psnr_ok is None
+          else psnr_ok(logs["psnr"], early))
+    check(ok, f"{tag}: {label} validate psnr {logs['psnr']} (the floor "
+          f"{VALIDATE_PSNR} dB, or its rule on the train psnr {early} at "
+          f"step {early_at})")
+    print(f"{tag}: {label}: {steps} steps in {info['wall_s']:.1f} s (with "
+          f"setup and validate); {logs.get('ms_per_step')} ms/step net of "
+          f"warm-up, {logs.get('rays_per_sec')} rays/s; "
+          + (f"train psnr at step {early_at} {early:.3f}; " if early_at
+             else "")
+          + f"validate psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; "
+          f"peak {info['peak_gib']:.2f} GiB; launches {launches}",
+          flush=True)
+    entries = []
+    if request:
+        entries += (hash_grid_entries(kept, launches, request, tag)
+                    if "hash_grid_encode" in kept else
+                    probe_entries(probe, kept, launches, request, tag))
+    del kept
+    if depth is not None:
+        info["depth_mae_m"] = test_view_depth_mae(argv, ckpt, *depth)
+        print(f"{tag}: {label}: test-view depth MAE {info['depth_mae_m']:.4f}"
+              " m (printed, not checked)", flush=True)
+
+    served = {}
+    for s in serve:
+        if s.request and "brick_mxu" in s.flags:
+            keep = rbm, {"brick_field_tiles_tp": dict(keep="first", first=160)}
+        elif s.request:
+            keep = ph, {"gather_rows": dict(keep="largest")}
+        elif s.marches:
+            keep = ros, {n: dict(keep="first", first=0) for n in MARCHES}
+        else:
+            keep = None, {}
+        cli = train_torch.main if "--val_only" in s.flags else test_torch.run
+        opts = get_opts(argv + list(s.flags) + [
+            "--ckpt_path", ckpt + ("_slim" if slim else "")])
+        views = (synthetic_views(VIEWS_800) if VIEW_800[1] in s.flags
+                 else contextlib.nullcontext())
+        reset_cli_counters(bf, probe)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with views:
+            out, kept = with_kept(*keep, lambda: cli(opts))
+        sl = cli_counters(bf, probe)
+        got = dict(out, launches=sl, wall_s=time.time() - t0,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        check(math.isfinite(out["psnr"]), f"{tag}: {s.label} psnr "
+              f"{out['psnr']}")
+        for k in s.launched:
+            check(sl[k] > 0, f"{tag}: {k} not launched by {s.label}")
+        if s.gap is not None:
+            got["gap_db"] = abs(out["psnr"] - logs["psnr"])
+            check(got["gap_db"] <= s.gap, f"{tag}: {s.label} psnr "
+                  f"{out['psnr']}, {got['gap_db']} dB from validate's "
+                  f"(at most {s.gap})")
+        if s.marches:
+            got["marches"] = m = {n: r.n for n, r in kept.items()}
+            if hp.march == "block":
+                check(m["march_rays_train_block"] > 0
+                      and m["march_rays_train_seg"] == 0,
+                      f"{tag}: --march block served with {m}")
+        print(f"{tag}: {s.label} ({' '.join(s.flags) or 'the defaults'}): "
+              f"psnr {out['psnr']:.3f}, fps {out.get('fps')}; frame 0 "
+              f"{out.get('frame0')}; launches {sl}; {got['wall_s']:.1f} s",
+              flush=True)
+        if "brick_field_tiles_tp" in kept:
+            entries.append(measure(
+                bf, "brick_field_tiles_tp", kept["brick_field_tiles_tp"].calls,
+                s.request, sl["brick_field_tiles_tp"], reps=3, trained=True))
+        elif s.request:
+            entries += probe_entries(probe, kept, sl, s.request, tag, reps=20)
+        del kept
+        served[s.label] = got
+
+    if step is not None:
+        seed, split = step
+        state, scene, cfg = restored_state(argv, ckpt, dev, split)
+        draws = draws_of(torch.Generator(device=dev).manual_seed(seed), scene,
+                         cfg, dev)
+        info["kernel_vs_plain_step"], _ = kernel_vs_plain_step(
+            tsys, mod, state, scene, cfg, draws, names=names, table=table,
+            tag=f"{tag} {label}")
+        print(f"{tag}: {label} kernel step vs plain step "
+              f"{info['kernel_vs_plain_step']}", flush=True)
+        del state, scene
+    return info, served, entries
+
+
+def train_keys(info):
+    """The keys phases 17, 20 and 21 report of a CLI leg's training."""
+    return dict(train_wall_s=info["wall_s"],
+                ms_per_step=info.get("ms_per_step"),
+                rays_per_sec=info.get("rays_per_sec"), psnr=info["psnr"],
+                ssim=info["ssim"], launches=info["launches"],
+                peak_gib=info["peak_gib"],
+                kernel_vs_plain_step=info["kernel_vs_plain_step"])
 
 
 def phase12(seed, steps=CLI_STEPS):
@@ -1691,174 +1820,63 @@ def phase12(seed, steps=CLI_STEPS):
     the renderers oneshot and fast, oneshot on fast's 1024-sample
     lattice, brick_mxu (512^3 bake, tp) at test.py's defaults; then, on
     VIEWS_800 test views at 800^2, oneshot over the 512^3 bake (--bake)
-    and brick_mxu with every tile drainable (BRICK_EXACT).  Each run has the
-    kernel counters at 0 just before it (read just after).  Checks: P2
-    and P3 launched in training; the logged loss finite at every log
-    line; the full and slim checkpoints written; validate's PSNR >= 25
-    dB; the --val_only logs within 1e-4 dB of validate's, P2 launched
-    there; P2 launched by every run of the live field, K2 by every
-    brick_mxu run; fast's PSNR within 0.5 dB of oneshot's on the same
-    lattice; the 800^2 brick_mxu frame 0 with no pair undrained and its
-    PSNR within 1.5 dB of oneshot's over the same bake (the other gaps
-    printed).  P2/P3 on the training steps' last calls, P2 on the
-    largest gather of the default oneshot and of fast, and K2 on the
-    800^2 brick_mxu run's first 160 calls join the kernels line
-    (requests "cli train", "cli oneshot", "cli fast", "cli brick_mxu").
-    Returns (summary, kernels-line entries)."""
-    import contextlib
+    and brick_mxu with every tile drainable (BRICK_EXACT); one cli_leg.
+    Checks, beyond the leg's (the validate floor, P2 and P3 launched in
+    training, the logged losses, both checkpoints): the --val_only logs
+    within 1e-4 dB of validate's, P2 launched there; P2 launched by
+    every run of the live field, K2 by every brick_mxu run; fast's PSNR
+    within 0.5 dB of oneshot's on the same lattice; the 800^2 brick_mxu
+    frame 0 with no pair undrained and its PSNR within 1.5 dB of
+    oneshot's over the same bake (the other gaps printed).  P2/P3 on the
+    training steps' last calls, P2 on the largest gather of the default
+    oneshot and of fast, and K2 on the 800^2 brick_mxu run's first 160
+    calls join the kernels line (requests "cli train", "cli oneshot",
+    "cli fast", "cli brick_mxu").  Returns (summary, kernels-line
+    entries)."""
     import os
     import tempfile
-
-    import google_nerf_tpu_torch.models.render_brick_mxu as rbm
-    import test_torch
-    import train_torch
-    from google_nerf_tpu_torch.opt import get_opts
-    from google_nerf_tpu_torch.ops import packed_hash as ph
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.tools.kernel_probe import Probe
-    from google_nerf_tpu_torch.train import system as tsys
     argv = CLI_SCENE + ["--num_epochs", "1", "--steps_per_epoch", str(steps),
                         "--seed", str(seed), "--exp_name", "cli"]
     cut = (f"depth cut: 1 epoch of {steps} steps (opt.py: 30 x 1000), "
            f"{VIEWS_800} test views at 800^2 (the split: 50); widths at "
            "opt.py's defaults")
     print(f"phase 12: {cut}", flush=True)
-    summary, entries = dict(cut=cut, steps=steps), []
+    summary = dict(cut=cut, steps=steps)
+    k2 = ("brick_field_tiles_tp",)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            # ---- train; P2 and P3 calls kept from inside the train steps
-            # (the grid updates and validate gather through P2 too)
-            reset_cli_counters(bf, probe)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            logs, kept = kept_training(
-                tsys, ph, lambda: train_torch.main(get_opts(argv)))
-            launches = cli_counters(bf, probe)
-            train_s = time.time() - t0
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            for k in ("gather_rows_bf16", "scatter_add_rows"):
-                check(launches[k] > 0, f"phase 12: {k} not launched by "
-                      "train_torch")
-            recs = [json.loads(line) for line in open(
-                "results/synthetic/cli/logs/scalars.jsonl")]
-            losses = [r["loss"] for r in recs if "loss" in r]
-            check(len(losses) == steps // 100 and all(
-                math.isfinite(v) for v in losses),
-                f"phase 12: logged losses {losses}")
-            ckdir = "ckpts/synthetic/cli/epoch=0"
-            for d in (ckdir, ckdir + "_slim"):
-                check(os.path.isfile(os.path.join(d, "state.pt")),
-                      f"phase 12: no checkpoint {d}")
-            check(logs["psnr"] >= 25.0,
-                  f"phase 12: validate psnr {logs['psnr']} < 25 dB")
-            summary["train"] = dict(logs, launches=launches,
-                                    wall_s=train_s, peak_gib=peak,
-                                    logged_loss=losses)
-            print(f"phase 12: train_torch: {steps} steps in {train_s:.1f} s "
-                  f"(with setup and validate); {logs.get('ms_per_step')} "
-                  f"ms/step net of warm-up, {logs.get('rays_per_sec')} "
-                  f"rays/s; validate psnr {logs['psnr']:.3f}, ssim "
-                  f"{logs['ssim']:.4f}; peak {peak:.2f} GiB; launches "
-                  f"{launches}", flush=True)
-            entries += train_probe_entries(probe, kept, launches,
-                                           "cli train", "phase 12")
-            del kept
-
-            # ---- validate the full checkpoint again
-            reset_cli_counters(bf, probe)
-            val = train_torch.main(get_opts(argv + [
-                "--val_only", "--no_save_test", "--ckpt_path", ckdir]))
-            torch.cuda.synchronize()
-            vl = cli_counters(bf, probe)
-            check(vl["gather_rows_bf16"] > 0,
-                  "phase 12: P2 not launched by --val_only")
-            dv = {k: abs(val[k] - logs[k]) for k in ("psnr", "ssim")}
-            check(dv["psnr"] <= 1e-4, f"phase 12: --val_only psnr "
-                  f"{val['psnr']} vs validate's {logs['psnr']}")
-            summary["val_only"] = dict(val, launches=vl, diff=dv)
-            print(f"phase 12: --val_only {val}; vs validate {dv}; launches "
-                  f"{vl}", flush=True)
-
-            # ---- serve the checkpoint.  fast marches the 1024-sample
-            # lattice, oneshot test.py's 512 by default: fast is held to
-            # oneshot on its own lattice.  At 256^2 an 8x8 tile spans ~10x
-            # the solid angle of an 800^2 frame's and brick_mxu's tile
-            # lists at test.py's defaults overflow their drain (pairs
-            # undrained, printed); at 800^2 with every tile drainable
-            # (BRICK_EXACT) it leaves none, and is held to oneshot over
-            # the same bake (the 512^3 bake, not the renderer, sets its
-            # distance from the live field).
-            served = {}
-            for label, r, extra, request in (
-                    ("oneshot", "oneshot", [], "cli oneshot"),
-                    ("fast", "fast", [], "cli fast"),
-                    ("oneshot_1024", "oneshot",
-                     ["--render_max_samples", "1024"], None),
-                    ("brick_mxu_256", "brick_mxu", [], None),
-                    ("oneshot_baked_800", "oneshot", VIEW_800 + ["--bake"],
-                     None),
-                    ("brick_mxu_800", "brick_mxu", VIEW_800 + BRICK_EXACT,
-                     "cli brick_mxu")):
-                reset_cli_counters(bf, probe)
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.time()
-                views = (synthetic_views(VIEWS_800) if VIEW_800[1] in extra
-                         else contextlib.nullcontext())
-
-                def run():
-                    with views:
-                        return test_torch.run(get_opts(
-                            argv + ["--renderer", r, "--ckpt_path", ckdir]
-                            + extra))
-                if request is None:
-                    out, kept = run(), {}
-                    torch.cuda.synchronize()
-                elif r == "brick_mxu":
-                    out, kept = with_kept(
-                        rbm, dict(brick_field_tiles_tp=dict(keep="first",
-                                                            first=160)),
-                        run)
-                else:
-                    out, kept = with_kept(
-                        ph, dict(gather_rows=dict(keep="largest")), run)
-                sl = cli_counters(bf, probe)
-                info = dict(out, launches=sl, wall_s=time.time() - t0,
-                            peak_gib=torch.cuda.max_memory_allocated()
-                            / 2 ** 30)
-                served[label] = info
-                print(f"phase 12: test_torch --renderer {r} {' '.join(extra)}"
-                      f": mean psnr {out['psnr']:.3f}, fps {out['fps']:.2f}; "
-                      f"frame 0 {out['frame0']}; launches {sl}; "
-                      f"{info['wall_s']:.1f} s", flush=True)
-                check(math.isfinite(out["psnr"]),
-                      f"phase 12: {label} psnr {out['psnr']}")
-                if r == "brick_mxu":
-                    check(sl["brick_field_tiles_tp"] > 0,
-                          f"phase 12: K2 not launched by {label}")
-                elif "--bake" not in extra:
-                    check(sl["gather_rows_bf16"] > 0,
-                          f"phase 12: P2 not launched by {label}")
-                if request is None:
-                    continue
-                if r == "brick_mxu":
-                    entries.append(measure(
-                        bf, "brick_field_tiles_tp",
-                        kept["brick_field_tiles_tp"], request,
-                        sl["brick_field_tiles_tp"], reps=3, trained=True))
-                else:
-                    (tab, idx), _ = kept["gather_rows"][0]
-                    n = idx.numel()
-                    entries.append(measure_probe(
-                        Probe(request, "gather_rows_bf16",
-                              f"the {r} renderer's largest encoder gather, "
-                              f"{n} x 16 bf16", probe.gather_rows,
-                              probe.gather_rows_plain, (tab, idx), n),
-                        "P2", sl["gather_rows_bf16"], request, reps=20))
-                    print_probe(entries[-1], "phase 12")
-                del kept
+            # fast marches the 1024-sample lattice, oneshot test.py's 512
+            # by default: fast is held to oneshot on its own lattice.  At
+            # 256^2 an 8x8 tile spans ~10x the solid angle of an 800^2
+            # frame's and brick_mxu's tile lists at test.py's defaults
+            # overflow their drain (pairs undrained, printed); at 800^2
+            # with every tile drainable (BRICK_EXACT) it leaves none, and
+            # is held to oneshot over the same bake (the 512^3 bake, not
+            # the renderer, sets its distance from the live field).
+            train, served, entries = cli_leg(
+                "phase 12", "cli", argv, request="cli train", slim=False,
+                serve=(Serve("val_only", ("--val_only", "--no_save_test"),
+                             gap=1e-4),
+                       Serve("oneshot", ("--renderer", "oneshot"),
+                             request="cli oneshot"),
+                       Serve("fast", ("--renderer", "fast"),
+                             request="cli fast"),
+                       Serve("oneshot_1024", ("--renderer", "oneshot",
+                                              "--render_max_samples",
+                                              "1024")),
+                       Serve("brick_mxu_256", ("--renderer", "brick_mxu"),
+                             launched=k2),
+                       Serve("oneshot_baked_800", ("--renderer", "oneshot",
+                                                   *VIEW_800, "--bake"),
+                             launched=()),
+                       Serve("brick_mxu_800", ("--renderer", "brick_mxu",
+                                               *VIEW_800, *BRICK_EXACT),
+                             launched=k2, request="cli brick_mxu")))
+            val = served.pop("val_only")
+            summary.update(train=train, val_only=dict(val, diff={
+                k: abs(val[k] - train[k]) for k in ("psnr", "ssim")}))
             gap = {k: abs(served[a]["psnr"] - served[b]["psnr"])
                    for k, a, b in (
                        ("fast_vs_oneshot", "fast", "oneshot"),
@@ -2095,19 +2113,11 @@ def phase13(seed, steps=DATA_STEPS, scan_root=None):
     import os
     import tempfile
 
-    import test_torch
-    import train_scannet_torch
-    import train_torch
     from google_nerf_tpu_torch.data import dataset_dict
-    from google_nerf_tpu_torch.opt import get_opts
-    from google_nerf_tpu_torch.ops import packed_hash as ph
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.train import system as tsys
     from google_nerf_tpu_torch.utils.ckpt import load_ckpt
     dev = torch.device("cuda")
-    depth = ["--num_epochs", "1", "--steps_per_epoch", str(steps), "--seed",
-             str(seed)]
+    run_steps = ["--num_epochs", "1", "--steps_per_epoch", str(steps),
+                 "--seed", str(seed)]
     cut = (f"depth cut: {NSVF_VIEWS[0]} + {NSVF_VIEWS[1]} NSVF views "
            f"(Synthetic-NeRF: 100 + 200), {SCANNET_FRAMES[0]} + "
            f"{SCANNET_FRAMES[1]} ScanNet frames (a scan: hundreds), 1 "
@@ -2116,45 +2126,6 @@ def phase13(seed, steps=DATA_STEPS, scan_root=None):
     print(f"phase 13: {cut}", flush=True)
     summary, entries = dict(cut=cut), []
     cwd = os.getcwd()
-
-    def train_run(label, run, logs_path):
-        reset_cli_counters(bf, probe)
-        t0 = time.time()
-        logs, kept = kept_training(tsys, ph, run)
-        launches = cli_counters(bf, probe)
-        wall = time.time() - t0
-        for k in ("gather_rows_bf16", "scatter_add_rows"):
-            check(launches[k] > 0, f"phase 13: {k} not launched by {label}")
-        recs = [json.loads(line) for line in open(logs_path)]
-        losses = [r["loss"] for r in recs if "loss" in r]
-        check(len(losses) == steps // 100 and all(
-            math.isfinite(v) for v in losses),
-            f"phase 13: {label} logged losses {losses}")
-        check(logs["psnr"] >= 25.0,
-              f"phase 13: {label} validate psnr {logs['psnr']} < 25 dB")
-        print(f"phase 13: {label}: {steps} steps in {wall:.1f} s (with "
-              f"load and validate); {logs.get('ms_per_step')} ms/step net "
-              f"of warm-up, {logs.get('rays_per_sec')} rays/s; validate "
-              f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; launches "
-              f"{launches}", flush=True)
-        return logs, kept, launches, dict(logs, launches=launches,
-                                          wall_s=wall, records=recs)
-
-    def serve(label, argv, ckpt, validate_psnr):
-        reset_cli_counters(bf, probe)
-        out = test_torch.run(get_opts(argv + ["--ckpt_path", ckpt]))
-        torch.cuda.synchronize()
-        sl = cli_counters(bf, probe)
-        check(sl["gather_rows_bf16"] > 0,
-              f"phase 13: P2 not launched by test_torch on {label}")
-        gap = abs(out["psnr"] - validate_psnr)
-        check(gap <= 1.0, f"phase 13: test_torch psnr {out['psnr']} on "
-              f"{label}, {gap} dB from validate's")
-        print(f"phase 13: test_torch on {label}: mean psnr "
-              f"{out['psnr']:.3f} ({gap:.3f} dB from validate), fps "
-              f"{out['fps']:.2f}; launches {sl}", flush=True)
-        return dict(out, launches=sl, gap_db=gap)
-
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
@@ -2171,18 +2142,13 @@ def phase13(seed, steps=DATA_STEPS, scan_root=None):
             load_s = time.time() - t0
             print(f"phase 13: nsvf scene: {wrote}; train split loaded in "
                   f"{load_s:.2f} s", flush=True)
-            argv = ["--root_dir", root, "--dataset_name", "nsvf",
-                    "--exp_name", "nsvf"] + depth
-            logs, kept, launches, info = train_run(
-                "nsvf", lambda: train_torch.main(get_opts(argv)),
-                "results/nsvf/nsvf/logs/scalars.jsonl")
-            entries += train_probe_entries(probe, kept, launches, "nsvf",
-                                           "phase 13")
-            del kept
-            served = serve("nsvf", argv, "ckpts/nsvf/nsvf/epoch=0_slim",
-                           logs["psnr"])
+            train, served, rows = cli_leg(
+                "phase 13", "nsvf", ["--root_dir", root, "--dataset_name",
+                                     "nsvf", "--exp_name", "nsvf"]
+                + run_steps, request="nsvf", serve=(Serve("nsvf", gap=1.0),))
+            entries += rows
             summary["nsvf"] = dict(scene=dict(wrote, load_s=load_s),
-                                   train=info, serve=served)
+                                   train=train, serve=served["nsvf"])
             torch.cuda.empty_cache()
 
             # ---- ScanNet
@@ -2207,48 +2173,29 @@ def phase13(seed, steps=DATA_STEPS, scan_root=None):
             print(f"phase 13: scannet scene: {wrote}; train split with "
                   f"priors loaded in {load_s:.2f} s", flush=True)
             base = ["--root_dir", scene, "--dataset_name", "scannet",
-                    "--raw_scan_rootdir", raw] + depth
+                    "--raw_scan_rootdir", raw] + run_steps
             runs = {}
             for label, extra in (
                     ("sup", ["--depth_dir", priors, "--depth_loss_w",
                              "0.1"]),
                     ("nosup", ["--depth_loss_w", "0"])):
-                argv = base + extra + ["--exp_name", label]
-                logs, kept, launches, info = train_run(
-                    f"scannet {label}",
-                    lambda: train_scannet_torch.run(argv),
-                    f"results/scannet/{label}/logs/scalars.jsonl")
-                if label == "sup":
-                    entries += train_probe_entries(probe, kept, launches,
-                                                   "scannet", "phase 13")
-                del kept
-                dterm = [r["depth_loss"] for r in info["records"]
-                         if "depth_loss" in r]
-                info["depth_loss"] = dterm
-                if label == "sup":
-                    check(len(dterm) > 0 and all(
-                        math.isfinite(v) and v > 0 for v in dterm),
-                        f"phase 13: supervised depth term {dterm}")
-                ckpt = f"ckpts/scannet/{label}/epoch=0"
-                info["depth_mae_m"] = test_view_depth_mae(
-                    argv, ckpt, gt_depth, gt_mask)
-                print(f"phase 13: scannet {label}: logged depth term "
-                      f"{dterm}; test-view depth MAE "
-                      f"{info['depth_mae_m']:.4f} m (printed, not checked)",
-                      flush=True)
-                runs[label] = dict(info, argv=argv)
+                sup = label == "sup"
+                runs[label], served, rows = cli_leg(
+                    "phase 13", f"scannet {label}",
+                    base + extra + ["--exp_name", label],
+                    request="scannet" if sup else None,
+                    depth=(gt_depth, gt_mask),
+                    serve=(Serve("scannet sup", gap=1.0),) if sup else ())
+                entries += rows
+                if sup:
+                    summary["scannet"] = dict(scene=dict(wrote, load_s=load_s),
+                                              train=runs,
+                                              serve=served["scannet sup"])
             tabs = [load_ckpt(f"ckpts/scannet/{k}/epoch=0")["params"][
                 "packed_table"] for k in ("sup", "nosup")]
             check(not torch.equal(tabs[0].cpu(), tabs[1].cpu()),
                   "phase 13: the supervised and unsupervised ScanNet "
                   "tables are equal")
-            served = serve("scannet sup", runs["sup"]["argv"],
-                           "ckpts/scannet/sup/epoch=0_slim",
-                           runs["sup"]["psnr"])
-            for r in runs.values():
-                r.pop("argv")
-            summary["scannet"] = dict(scene=dict(wrote, load_s=load_s),
-                                      train=runs, serve=served)
         finally:
             os.chdir(cwd)
     torch.cuda.empty_cache()
@@ -2335,18 +2282,8 @@ def phase14(seed, steps=DATA_STEPS):
     versions (phase 9's bounds), and P2/P3 on the last training step's
     calls on the kernels line (requests "hash", "packed2").  Returns
     (summary, kernels-line entries)."""
-    import importlib
     import os
     import tempfile
-
-    import google_nerf_tpu_torch.models.render_test_oneshot as ros
-    import test_torch
-    import train_torch
-    from google_nerf_tpu_torch.opt import get_opts
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.train import system as tsys
-    dev = torch.device("cuda")
     cut = (f"depth cut: 1 epoch of {HASH_STEPS} steps for hash, {steps} "
            "for the others (opt.py: 30 x 1000); widths at opt.py's defaults")
     print(f"phase 14: {cut}", flush=True)
@@ -2355,97 +2292,22 @@ def phase14(seed, steps=DATA_STEPS):
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            for label, flags, modname, names, table in ENCODER_RUNS:
+            for label, flags, *encoder in ENCODER_RUNS:
                 n_steps = HASH_STEPS if label == "hash" else steps
-                argv = CLI_SCENE + flags + [
-                    "--num_epochs", "1", "--steps_per_epoch", str(n_steps),
-                    "--seed", str(seed), "--exp_name", label,
-                    "--no_save_test"]
-                mod = (importlib.import_module(
-                    f"google_nerf_tpu_torch.{modname}") if modname
-                    else None)
-                reset_cli_counters(bf, probe)
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.time()
-                (logs, early), kept = kept_training(
-                    tsys, mod, lambda: steps_metrics(
-                        tsys, EARLY_STEP,
-                        lambda: train_torch.main(get_opts(argv))), names)
-                launches = cli_counters(bf, probe)
-                wall = time.time() - t0
-                peak = torch.cuda.max_memory_allocated() / 2 ** 30
-                for n in names:
-                    k = "gather_rows_bf16" if n == "gather_rows" else n
-                    check(launches[k] > 0, f"phase 14: {k} not launched by "
-                          f"the {label} training")
-                check(math.isfinite(logs["psnr"]),
-                      f"phase 14: {label} validate psnr {logs['psnr']}")
-                if label == "freq":
-                    check(logs["psnr"] > early, f"phase 14: freq validate "
-                          f"psnr {logs['psnr']} not above the train psnr "
-                          f"{early} at step {EARLY_STEP}")
-                else:
-                    check(logs["psnr"] >= 25.0, f"phase 14: {label} "
-                          f"validate psnr {logs['psnr']} < 25 dB")
-                print(f"phase 14: {label}: {n_steps} steps in {wall:.1f} s "
-                      f"(with setup and validate); {logs.get('ms_per_step')}"
-                      f" ms/step net of warm-up, {logs.get('rays_per_sec')} "
-                      f"rays/s; train psnr at step {EARLY_STEP} {early:.3f};"
-                      f" validate psnr {logs['psnr']:.3f}, ssim "
-                      f"{logs['ssim']:.4f}; peak {peak:.2f} GiB; launches "
-                      f"{launches}", flush=True)
-                info = dict(logs, launches=launches, wall_s=wall,
-                            peak_gib=peak, train_psnr_early=early)
-                ckdir = f"ckpts/synthetic/{label}/epoch=0"
-                if label in ("hash", "packed2"):
-                    entries += (hash_grid_entries(kept, launches, label,
-                                                  "phase 14")
-                                if label == "hash" else train_probe_entries(
-                                    probe, kept, launches, label,
-                                    "phase 14"))
-                    del kept
-                    state, scene, cfg = restored_state(argv, ckdir, dev)
-                    draws = draws_of(torch.Generator(device=dev).manual_seed(
-                        seed + 14), scene, cfg, dev)
-                    info["kernel_vs_plain_step"], _ = kernel_vs_plain_step(
-                        tsys, mod, probe, state, scene, cfg, draws,
-                        names=names, table=table, tag="phase 14 " + label)
-                    print(f"phase 14: {label} kernel step vs plain step "
-                          f"{info['kernel_vs_plain_step']}", flush=True)
-                    del state, scene
-                else:
-                    del kept
-
-                # ---- serve the slim checkpoint (oneshot)
-                marches = {n: Recorder(getattr(ros, n), keep="first",
-                                       first=0)
-                           for n in ("march_rays_train_block",
-                                     "march_rays_train_seg")}
-                for n, r in marches.items():
-                    setattr(ros, n, r)
-                reset_cli_counters(bf, probe)
-                t0 = time.time()
-                try:
-                    out = test_torch.run(get_opts(
-                        argv + ["--ckpt_path", ckdir + "_slim"]))
-                    torch.cuda.synchronize()
-                finally:
-                    for n, r in marches.items():
-                        setattr(ros, n, r.fn)
-                calls = {n: r.n for n, r in marches.items()}
-                sl = cli_counters(bf, probe)
-                check(math.isfinite(out["psnr"]),
-                      f"phase 14: {label} served psnr {out['psnr']}")
-                if label == "block":
-                    check(calls["march_rays_train_block"] > 0
-                          and calls["march_rays_train_seg"] == 0,
-                          f"phase 14: --march block served with {calls}")
-                print(f"phase 14: test_torch oneshot on {label}: mean psnr "
-                      f"{out['psnr']:.3f}, fps {out['fps']:.2f}; marches "
-                      f"{calls}; launches {sl}; {time.time() - t0:.1f} s",
-                      flush=True)
-                info["serve"] = dict(out, launches=sl, marches=calls)
-                summary[label] = info
+                timed = label in ("hash", "packed2")
+                info, served, rows = cli_leg(
+                    "phase 14", label, CLI_SCENE + flags + [
+                        "--num_epochs", "1", "--steps_per_epoch",
+                        str(n_steps), "--seed", str(seed), "--exp_name",
+                        label, "--no_save_test"],
+                    encoder=encoder, request=label if timed else None,
+                    early_at=EARLY_STEP,
+                    psnr_ok=(lambda psnr, early: psnr > early)
+                    if label == "freq" else None,
+                    serve=(Serve(label, launched=(), marches=True),),
+                    step=(seed + 14, None) if timed else None)
+                entries += rows
+                summary[label] = dict(info, serve=served[label])
                 torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
@@ -2502,18 +2364,17 @@ C3_REPS = 20
 def conv3x3_entries(seed, launches, shapes=C3_SHAPES):
     """The decoder's 3x3 kernels (ops/cuda/conv3x3) at each (Cin, Cout,
     side): the output held to the plain version (cuDNN's F.conv2d in f32
-    with TF32 off on the card) within C3_REL, norm-relative; the device
-    ms of each kernel a call launches (torch.profiler: the weights'
-    pack, the GEMM and, where `plan` splits K, the fixed-order sum; or
-    the Cout-1 kernel) and the wrapper's ms (CUDA events); the bound,
-    the larger of the bytes' (input, weights, bias and output once) and
-    the operations' (2 x MACs at the f32 peak); the plain version's ms,
-    which is also library_ms.  A split shape must launch the sum.
-    `launches` is the CLI run's count, on every row.  Returns the
-    kernels-line entries."""
+    with TF32 off on the card) within C3_REL, norm-relative; then its
+    kernel_row: the device ms of the kernels a call launches (the
+    weights' pack, the GEMM and, where `plan` splits K, the fixed-order
+    sum; or the Cout-1 kernel), the bound, the larger of the bytes'
+    (input, weights, bias and output once) and the operations' (2 x MACs
+    at the f32 peak), the plain version's ms, which is also library_ms.
+    A split shape must launch the sum, and no other shape.  `launches`
+    is the CLI run's count, on every row.  Returns the kernels-line
+    entries."""
     from google_nerf_tpu_torch.ops.conv3x3 import conv3x3_plain
     from google_nerf_tpu_torch.ops.cuda.conv3x3 import _sms, conv3x3, plan
-    from google_nerf_tpu_torch.tools.kernel_probe import device_ms
     from google_nerf_tpu_torch.utils.precision import exact_f32
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2527,43 +2388,36 @@ def conv3x3_entries(seed, launches, shapes=C3_SHAPES):
         request = f"{cin}->{cout} at {side}^2 x{C3_MINIBATCH}"
         splits = 1 if cout == 1 else plan(C3_MINIBATCH, cin, side, side,
                                           cout, _sms(0))["splits"]
+        kernels = (("conv3x3_cout1",) if cout == 1 else
+                   ("conv3x3_gemm", "conv3x3_pack")
+                   + ("conv3x3_reduce",) * (splits > 1))
+        macs = C3_MINIBATCH * side * side * cout * cin * 9
+        nbytes = 4 * (C3_MINIBATCH * (cin + cout) * side * side
+                      + cout * cin * 9 + cout)
         with exact_f32():
             got, want = conv3x3(x, w, b), conv3x3_plain(x, w, b)
             rel = float((got - want).norm() / want.norm())
             err = float((got - want).abs().max())
             check(rel <= C3_REL, f"conv3x3 {request}: {rel:.2e} from the "
                   f"plain version")
-            wrapper_ms = cuda_ms(lambda: conv3x3(x, w, b), C3_REPS)
-            plain_ms = cuda_ms(lambda: conv3x3_plain(x, w, b), C3_REPS)
-            _, ops = device_ms(lambda: conv3x3(x, w, b), C3_REPS)
-        ops = {k: v for k, v in ops.items() if "conv3x3" in k}
+            row, ops = kernel_row(
+                "phase 15", lambda: conv3x3(x, w, b),
+                lambda: conv3x3_plain(x, w, b), kernels,
+                (nbytes, 2 * macs), reps=C3_REPS, name="conv3x3", id="C3",
+                source=f"{CSRC}/conv3x3.cu",
+                replaces="none (XLA in google_nerf_tpu/depth/decoder.py)",
+                launches=launches, max_abs_err=err, rel_to_plain=rel,
+                library="cuDNN F.conv2d, f32, TF32 off", request=request,
+                splits=splits)
+        ops = [k for k in ops if "conv3x3" in k]
         reduced = any("conv3x3_reduce" in k for k in ops)
         check(reduced == (splits > 1), f"conv3x3 {request}: {splits} "
               f"splits over K, the sum launched: {reduced}")
-        ms = sum(v for v, _ in ops.values())
-        macs = C3_MINIBATCH * side * side * cout * cin * 9
-        nbytes = 4 * (C3_MINIBATCH * (cin + cout) * side * side
-                      + cout * cin * 9 + cout)
-        bound_ms, bound_by = bound_of(nbytes, 2 * macs, H100_F32_FLOPS)
-        gemm = [v for k, (v, _) in ops.items()
-                if "conv3x3_gemm" in k or "conv3x3_cout1" in k]
-        out.append(dict(
-            name="conv3x3", id="C3", route="cuda",
-            source=f"{CSRC}/conv3x3.cu",
-            replaces="none (XLA in google_nerf_tpu/depth/decoder.py)",
-            launches=launches, max_abs_err=err, rel_to_plain=rel, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=plain_ms, library="cuDNN F.conv2d, f32, TF32 off",
-            request=request, wrapper_ms=wrapper_ms,
-            kernel_ms=gemm[0] if gemm else None, splits=splits,
-            launches_a_call=len(ops), tflops=2e-9 * macs / ms,
-            ms_by="profiler device time per call: " + ", ".join(
-                f"{k[:48]} {v:.5f} ms ({c} of {C3_REPS} seen)"
-                for k, (v, c) in ops.items())))
-        print_probe(out[-1], "phase 15")
-        print(f"phase 15: C3 {request}: {out[-1]['tflops']:.1f} TFLOP/s, "
-              f"{100 * bound_ms / ms:.1f}% of its bound; {splits} "
-              f"split(s) over K; {rel:.2e} from the plain version",
+        row.update(launches_a_call=len(ops), tflops=2e-9 * macs / row["ms"])
+        out.append(row)
+        print(f"phase 15: C3 {request}: {row['tflops']:.1f} TFLOP/s, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound; "
+              f"{splits} split(s) over K; {rel:.2e} from the plain version",
               flush=True)
     return out
 
@@ -2723,7 +2577,8 @@ def phase15(seed, scan=None):
         fwd_ms = cuda_ms(frame, DEPTH_REPS)
         frame_ms = [1e3 * s for s in run["frame_s"]]
         med = statistics.median(frame_ms)
-        share = flops * DEPTH_SAMPLES / (fwd_ms * 1e-3) / H100_F32_FLOPS
+        share = (flops * DEPTH_SAMPLES / (fwd_ms * 1e-3)
+                 / PEAKS["flops_per_s"]["float32"])
     c3_entries = conv3x3_entries(seed, c3_launches)
     out = dict(arch=arch, d_latent=DEPTH_LATENT, crop=DEPTH_CROP,
                samples=DEPTH_SAMPLES, frames=len(frames),
@@ -2928,7 +2783,7 @@ def phase16(seed, scan):
         # the FLOPs of a step: 3 x the forward's per image
         x = data["rgb"].to(dev)
         flops = 3 * forward_flops(model, x, z.to(dev)) * t.batch_size
-        share = flops / (med_ms * 1e-3) / H100_F32_FLOPS
+        share = flops / (med_ms * 1e-3) / PEAKS["flops_per_s"]["float32"]
         del model
         torch.cuda.empty_cache()
 
@@ -3153,8 +3008,9 @@ def phase17(seed, scan, steps=SENS_STEPS):
         the priors (depth_dir): each prior the exported mm / 1000 in
         scene units (rtol 1e-5);
       * train_scannet_torch.run at opt.py's defaults with those priors
-        (--depth_loss_w 0.1) for `steps` steps, P2/P3 counters at 0 just
-        before (read just after): both launched, losses finite, the
+        (--depth_loss_w 0.1) for `steps` steps, a cli_leg run with the
+        P2/P3 counters at 0 just before (read just after): both
+        launched, the logged losses (one every 100 steps) finite, the
         depth term positive, validate PSNR >= 25 dB; the test views'
         depth MAE against the exported depth;
       * one step from the trained state with the kernels against the
@@ -3166,81 +3022,42 @@ def phase17(seed, scan, steps=SENS_STEPS):
     import os
     import tempfile
 
-    import train_scannet_torch
     from google_nerf_tpu_torch.data.base import directions_of
-    from google_nerf_tpu_torch.ops import packed_hash as ph
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.train import system as tsys
-    dev = torch.device("cuda")
     t_phase = time.time()
-    raw = scan[1]
-    summary, entries = {}, []
+    summary = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         frames, out, train_ids, test_ids, info = sens_export(tmp, scan)
         summary.update(info)
+        # the test views' ray depth from the exported depth (mm of z)
+        norm = np.linalg.norm(directions_of(480, 640, np.float32(SCANNET_K)),
+                              axis=-1)
+        gt = np.stack([frames[k][2].reshape(-1) / 1000.0 * norm
+                       for k in test_ids])
 
         # ---- training on the export
         os.chdir(tmp)
         try:
-            argv = ["--root_dir", out, "--dataset_name", "scannet",
-                    "--raw_scan_rootdir", raw, "--depth_dir",
+            train, _, entries = cli_leg(
+                "phase 17", "sens", [
+                    "--root_dir", out, "--dataset_name", "scannet",
+                    "--raw_scan_rootdir", scan[1], "--depth_dir",
                     os.path.join(out, "depth"), "--depth_loss_w", "0.1",
                     "--num_epochs", "1", "--steps_per_epoch", str(steps),
-                    "--seed", str(seed), "--exp_name", "sens"]
-            reset_cli_counters(bf, probe)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            logs, kept_calls = kept_training(
-                tsys, ph, lambda: train_scannet_torch.run(argv))
-            launches = cli_counters(bf, probe)
-            wall = time.time() - t0
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            for k in ("gather_rows_bf16", "scatter_add_rows"):
-                check(launches[k] > 0,
-                      f"phase 17: {k} not launched by the training")
-            recs = [json.loads(line) for line in
-                    open("results/scannet/sens/logs/scalars.jsonl")]
-            losses = [r["loss"] for r in recs if "loss" in r]
-            dterm = [r["depth_loss"] for r in recs if "depth_loss" in r]
-            check(losses and all(math.isfinite(v) for v in losses),
-                  f"phase 17: logged losses {losses}")
-            check(dterm and all(math.isfinite(v) and v > 0 for v in dterm),
-                  f"phase 17: logged depth terms {dterm}")
-            check(logs["psnr"] >= 25.0,
-                  f"phase 17: validate psnr {logs['psnr']} < 25 dB")
-            entries += train_probe_entries(probe, kept_calls, launches,
-                                           "sens chain", "phase 17")
-            del kept_calls
-
-            # the test views' ray depth from the exported depth (mm of z)
-            Kd = np.float32(SCANNET_K)
-            norm = np.linalg.norm(directions_of(480, 640, Kd), axis=-1)
-            gt = np.stack([frames[k][2].reshape(-1) / 1000.0 * norm
-                           for k in test_ids])
-            ckpt = "ckpts/scannet/sens/epoch=0"
-            mae = test_view_depth_mae(argv, ckpt, gt, gt > 0)
-            state, scene, cfg = restored_state(argv, ckpt, dev)
-            draws = draws_of(torch.Generator(device=dev).manual_seed(
-                seed + 17), scene, cfg, dev)
-            step_errs, _ = kernel_vs_plain_step(
-                tsys, ph, probe, state, scene, cfg, draws, tag="phase 17")
-            del state, scene
+                    "--seed", str(seed), "--exp_name", "sens"],
+                request="sens chain", depth=(gt, gt > 0),
+                step=(seed + 17, None))
         finally:
             os.chdir(cwd)
-    summary.update(
-        train_wall_s=wall,
-        ms_per_step=logs.get("ms_per_step"),
-        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
-        ssim=logs["ssim"], depth_mae_m=mae, launches=launches,
-        peak_gib=peak, depth_loss=dterm, kernel_vs_plain_step=step_errs,
-        seconds=time.time() - t_phase)
-    print(f"phase 17: {steps} steps in {wall:.1f} s; "
-          f"{logs.get('ms_per_step')} ms/step; validate psnr "
-          f"{logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; test-view depth "
-          f"MAE {mae:.4f} m; peak {peak:.2f} GiB; launches {launches}; "
-          f"kernel step vs plain step {step_errs}; phase "
+    summary.update(train_keys(train), depth_mae_m=train["depth_mae_m"],
+                   depth_loss=train["depth_loss"],
+                   seconds=time.time() - t_phase)
+    print(f"phase 17: {steps} steps in {train['wall_s']:.1f} s; "
+          f"{train.get('ms_per_step')} ms/step; validate psnr "
+          f"{train['psnr']:.3f}, ssim {train['ssim']:.4f}; test-view depth "
+          f"MAE {train['depth_mae_m']:.4f} m; peak {train['peak_gib']:.2f} "
+          f"GiB; launches {train['launches']}; kernel step vs plain step "
+          f"{train['kernel_vs_plain_step']}; phase "
           f"{summary['seconds']:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return summary, entries
@@ -3776,7 +3593,7 @@ def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
               f"{float(metrics['loss'])} vs fused {float(ls)} at world 1")
         errs1 = dict(loss_rel=loss_rel, grads=grads_equal(
             reduced, gs, "packed_table", "phase 19 world 1"))
-        sidx, vals, T = kept["scatter_add_rows"][0][0]
+        sidx, vals, T = kept["scatter_add_rows"].calls[0][0]
         errs1["packed_table"] = table_vs_sum64(
             reduced["packed_table"], sidx, vals, T,
             "phase 19 world 1: DP table gradient vs the float64 sum")
@@ -3866,7 +3683,7 @@ def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
             ph, {"scatter_add_rows": dict(keep="last")},
             lambda: tsys.loss_and_grads(train_state_from_jax(tree, cfg, dev),
                                         scene, b, cfg, draws=d))
-        shard.append((l, g, kept["scatter_add_rows"][0][0]))
+        shard.append((l, g, kept["scatter_add_rows"].calls[0][0]))
     mean = {k: (shard[0][1][k] + shard[1][1][k]) / 2 for k in shard[0][1]}
     errs2 = dict(grads=grads_equal(r0["reduced"], mean, "packed_table",
                                    "phase 19 world 2"))
@@ -3922,7 +3739,7 @@ def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
         check(lrel <= 1e-6, f"phase 19: multi-scene loss of scene {s}")
         e = dict(loss_rel=lrel, grads=grads_equal(
             got["ms_grads"], g, "packed_table", f"phase 19 scene {s}"))
-        sidx, vals, T = kept["scatter_add_rows"][0][0]
+        sidx, vals, T = kept["scatter_add_rows"].calls[0][0]
         e["packed_table"] = table_vs_sum64(
             torch.as_tensor(got["ms_grads"]["packed_table"], device=dev),
             sidx, vals, T, f"phase 19: scene {s} table gradient vs the "
@@ -3968,8 +3785,7 @@ def phase19(seed, tree, cfg=None, dev="cuda:0", backend="nccl",
           f"launches {r0['launches']}, {r1['launches']}", flush=True)
     for k, v in launches.items():
         check(v > 0, f"phase 19: {k} not launched on the DP path")
-    entries = train_probe_entries(probe, dp_kept, launches, "dp",
-                                  "phase 19")
+    entries = probe_entries(probe, dp_kept, launches, "dp", "phase 19")
     summary["launches"] = launches
     summary["seconds"] = time.time() - t_phase
     return summary, entries
@@ -4150,14 +3966,6 @@ def phase20(seed, steps=DATA_STEPS):
     Returns (summary, kernels-line entries)."""
     import os
     import tempfile
-
-    import test_torch
-    import train_torch
-    from google_nerf_tpu_torch.opt import get_opts
-    from google_nerf_tpu_torch.ops import packed_hash as ph
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.train import system as tsys
     dev = torch.device("cuda")
     t_phase = time.time()
     cut = (f"depth cut: {RTMV_VIEWS} views at {RTMV_WH}^2 (RTMV: 150), 1 "
@@ -4186,79 +3994,27 @@ def phase20(seed, steps=DATA_STEPS):
                   f"for bit; decode of one {RTMV_WH}^2 frame {decode_ms:.1f} "
                   "ms", flush=True)
 
-            argv = ["--root_dir", root, "--dataset_name", "rtmv",
-                    "--exp_name", "rtmv", "--num_epochs", "1",
-                    "--steps_per_epoch", str(steps), "--seed", str(seed)]
-            reset_cli_counters(bf, probe)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            logs, kept = kept_training(
-                tsys, ph, lambda: train_torch.main(get_opts(argv)))
-            launches = cli_counters(bf, probe)
-            wall = time.time() - t0
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            for k in ("gather_rows_bf16", "scatter_add_rows"):
-                check(launches[k] > 0,
-                      f"phase 20: {k} not launched by the training")
-            recs = [json.loads(line) for line in
-                    open("results/rtmv/rtmv/logs/scalars.jsonl")]
-            losses = [r["loss"] for r in recs if "loss" in r]
-            check(len(losses) == steps // 100 and all(
-                math.isfinite(v) for v in losses),
-                f"phase 20: logged losses {losses}")
-            check(logs["psnr"] >= 25.0,
-                  f"phase 20: validate psnr {logs['psnr']} < 25 dB")
-            print(f"phase 20: {steps} steps in {wall:.1f} s (with load and "
-                  f"validate); {logs.get('ms_per_step')} ms/step net of "
-                  f"warm-up, {logs.get('rays_per_sec')} rays/s; validate "
-                  f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; peak "
-                  f"{peak:.2f} GiB on the card; launches {launches}",
-                  flush=True)
-            entries = train_probe_entries(probe, kept, launches, "rtmv",
-                                          "phase 20")
-            del kept
-
-            reset_cli_counters(bf, probe)
-            served = test_torch.run(get_opts(
-                argv + ["--ckpt_path", "ckpts/rtmv/rtmv/epoch=0_slim"]))
-            torch.cuda.synchronize()
-            sl = cli_counters(bf, probe)
-            check(sl["gather_rows_bf16"] > 0,
-                  "phase 20: P2 not launched by test_torch")
-            gap = abs(served["psnr"] - logs["psnr"])
-            check(gap <= 1.0, f"phase 20: test_torch psnr {served['psnr']}, "
-                  f"{gap} dB from validate's")
-            print(f"phase 20: test_torch: mean psnr {served['psnr']:.3f} "
-                  f"({gap:.3f} dB from validate), fps {served['fps']:.2f}; "
-                  f"launches {sl}", flush=True)
-
             # the step draws its batch from the 5 test views: the 3.1 GB
             # of train rays are not loaded again
-            state, scene, cfg = restored_state(
-                argv, "ckpts/rtmv/rtmv/epoch=0", dev, "test")
-            draws = draws_of(torch.Generator(device=dev).manual_seed(
-                seed + 20), scene, cfg, dev)
-            step_errs, _ = kernel_vs_plain_step(
-                tsys, ph, probe, state, scene, cfg, draws, tag="phase 20")
-            del state, scene
+            train, served, entries = cli_leg(
+                "phase 20", "rtmv", [
+                    "--root_dir", root, "--dataset_name", "rtmv",
+                    "--exp_name", "rtmv", "--num_epochs", "1",
+                    "--steps_per_epoch", str(steps), "--seed", str(seed)],
+                request="rtmv", serve=(Serve("rtmv", gap=1.0),),
+                step=(seed + 20, "test"))
         finally:
             os.chdir(cwd)
     torch.cuda.empty_cache()
-    summary.update(
-        train_wall_s=wall, ms_per_step=logs.get("ms_per_step"),
-        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
-        ssim=logs["ssim"], launches=launches, peak_gib=peak,
-        peak_host_gib=rss.peak, serve=dict(served, launches=sl, gap_db=gap),
-        kernel_vs_plain_step=step_errs, seconds=time.time() - t_phase)
+    summary.update(train_keys(train), peak_host_gib=rss.peak,
+                   serve=served["rtmv"], seconds=time.time() - t_phase)
     summary["writer_share"] = summary["scene_s"] / summary["seconds"]
-    print(f"phase 20: kernel step vs plain step {step_errs}; phase "
-          f"{summary['seconds']:.1f} s, the scene's writing "
+    print(f"phase 20: phase {summary['seconds']:.1f} s, the scene's writing "
           f"{summary['scene_s']:.1f} s of it "
           f"({100 * summary['writer_share']:.1f}%); peak host memory "
-          f"{rss.peak:.2f} GiB (the process), card {peak:.2f} GiB",
-          flush=True)
+          f"{rss.peak:.2f} GiB (the process), card {train['peak_gib']:.2f} "
+          "GiB", flush=True)
     return summary, entries
-
 
 
 # ------------------ phase 21: a COLMAP scene of JPEG frames in every mode
@@ -4440,14 +4196,6 @@ def phase21(seed, steps=COLMAP_STEPS):
     entries)."""
     import os
     import tempfile
-
-    import test_torch
-    import train_torch
-    from google_nerf_tpu_torch.opt import get_opts
-    from google_nerf_tpu_torch.ops import packed_hash as ph
-    from google_nerf_tpu_torch.ops.cuda import brick_field as bf
-    from google_nerf_tpu_torch.ops.cuda import probe
-    from google_nerf_tpu_torch.train import system as tsys
     dev = torch.device("cuda")
     t_phase = time.time()
     cut = (f"depth cut: {COLMAP_VIEWS} views at {COLMAP_WH[0]}x"
@@ -4481,74 +4229,23 @@ def phase21(seed, steps=COLMAP_STEPS):
                   f"frames {psnr}; decode ms a frame {decode_ms}",
                   flush=True)
 
-            argv = ["--root_dir", root, "--dataset_name", "colmap",
+            train, served, entries = cli_leg(
+                "phase 21", "colmap", [
+                    "--root_dir", root, "--dataset_name", "colmap",
                     "--exp_name", "colmap", "--downsample", "1.0",
                     "--num_epochs", "1", "--steps_per_epoch", str(steps),
-                    "--seed", str(seed)]
-            reset_cli_counters(bf, probe)
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            logs, kept = kept_training(
-                tsys, ph, lambda: train_torch.main(get_opts(argv)))
-            launches = cli_counters(bf, probe)
-            wall = time.time() - t0
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            for k in ("gather_rows_bf16", "scatter_add_rows"):
-                check(launches[k] > 0,
-                      f"phase 21: {k} not launched by the training")
-            recs = [json.loads(line) for line in
-                    open("results/colmap/colmap/logs/scalars.jsonl")]
-            losses = [r["loss"] for r in recs if "loss" in r]
-            check(len(losses) == steps // 100 and all(
-                math.isfinite(v) for v in losses),
-                f"phase 21: logged losses {losses}")
-            check(logs["psnr"] >= 25.0,
-                  f"phase 21: validate psnr {logs['psnr']} < 25 dB")
-            print(f"phase 21: {steps} steps in {wall:.1f} s (with load and "
-                  f"validate); {logs.get('ms_per_step')} ms/step net of "
-                  f"warm-up, {logs.get('rays_per_sec')} rays/s; validate "
-                  f"psnr {logs['psnr']:.3f}, ssim {logs['ssim']:.4f}; peak "
-                  f"{peak:.2f} GiB on the card; launches {launches}",
-                  flush=True)
-            entries = train_probe_entries(probe, kept, launches, "colmap",
-                                          "phase 21")
-            del kept
-
-            reset_cli_counters(bf, probe)
-            served = test_torch.run(get_opts(
-                argv + ["--ckpt_path", "ckpts/colmap/colmap/epoch=0_slim"]))
-            torch.cuda.synchronize()
-            sl = cli_counters(bf, probe)
-            check(sl["gather_rows_bf16"] > 0,
-                  "phase 21: P2 not launched by test_torch")
-            gap = abs(served["psnr"] - logs["psnr"])
-            check(gap <= 1.0, f"phase 21: test_torch psnr {served['psnr']}, "
-                  f"{gap} dB from validate's")
-            print(f"phase 21: test_torch: mean psnr {served['psnr']:.3f} "
-                  f"({gap:.3f} dB from validate), fps {served['fps']:.2f}; "
-                  f"launches {sl}", flush=True)
-
-            state, scene, cfg = restored_state(
-                argv, "ckpts/colmap/colmap/epoch=0", dev, "test")
-            draws = draws_of(torch.Generator(device=dev).manual_seed(
-                seed + 21), scene, cfg, dev)
-            step_errs, _ = kernel_vs_plain_step(
-                tsys, ph, probe, state, scene, cfg, draws, tag="phase 21")
-            del state, scene
+                    "--seed", str(seed)],
+                request="colmap", serve=(Serve("colmap", gap=1.0),),
+                step=(seed + 21, "test"))
         finally:
             os.chdir(cwd)
     torch.cuda.empty_cache()
-    summary.update(
-        train_wall_s=wall, ms_per_step=logs.get("ms_per_step"),
-        rays_per_sec=logs.get("rays_per_sec"), psnr=logs["psnr"],
-        ssim=logs["ssim"], launches=launches, peak_gib=peak,
-        peak_host_gib=rss.peak, serve=dict(served, launches=sl, gap_db=gap),
-        kernel_vs_plain_step=step_errs, seconds=time.time() - t_phase)
-    print(f"phase 21: kernel step vs plain step {step_errs}; phase "
-          f"{summary['seconds']:.1f} s, the scene's writing "
+    summary.update(train_keys(train), peak_host_gib=rss.peak,
+                   serve=served["colmap"], seconds=time.time() - t_phase)
+    print(f"phase 21: phase {summary['seconds']:.1f} s, the scene's writing "
           f"{summary['scene_s']:.1f} s of it; peak host memory "
-          f"{rss.peak:.2f} GiB (the process), card {peak:.2f} GiB",
-          flush=True)
+          f"{rss.peak:.2f} GiB (the process), card {train['peak_gib']:.2f} "
+          "GiB", flush=True)
     return summary, entries
 
 def main():

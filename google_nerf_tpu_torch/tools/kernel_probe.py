@@ -37,6 +37,20 @@ PROFILE_REPS = 50           # calls per profiled timing (the profiler can
                             # miss a session's first launches)
 SCATTER_ATOL = 1e-5         # ~2 N(0,1) rows land on each table row: an
                             # f32 sum in another order moves by a few ulp
+# An atomic f32 sum (P3's, the hash-grid backward's) against the float64
+# sum of the same payloads: a row of n payloads, in whatever order the
+# atomics land, within P3_SUM_C sqrt(n) 2^-24 x the sum of their |values|
+# (rounding errors of a long sum add up as a random walk, sqrt(n); its
+# worst case, (n - 1) 2^-24, is no check on rows of thousands: one lost
+# payload among 4,314 is 2.3e-4 of the row's sum).  P3_SUM_C is set from
+# the card's readings (PERF.md section 6).
+P3_SUM_C = 4.0
+
+
+def p3_sum_bound(n: torch.Tensor) -> torch.Tensor:
+    """The bound on a row of n payloads, as a share of their sum of
+    |values|: P3_SUM_C sqrt(n) 2^-24."""
+    return P3_SUM_C * n.sqrt() * 2.0 ** -24
 
 
 @dataclass
@@ -129,21 +143,36 @@ def device_ms(fn, reps: int) -> tuple[float, dict[str, tuple[float, int]]]:
     seen)}) by torch.profiler over reps back-to-back calls of fn after one
     warm-up.  The profiler can miss launches, so an op's time is its mean
     over the launches seen, and its launches per call its count over reps
-    (rounded, at least 1)."""
+    (rounded, at least 1).  Every call's result is held until the last
+    one ends, so each call writes a block of its own: an output that fits
+    in L2, written over and over in one block, would be timed at L2's
+    rate and beat its bound by HBM bytes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
+        held = [fn() for _ in range(reps)]
         torch.cuda.synchronize()
+    del held
     ops = {e.key: (e.self_device_time_total / 1e3 / e.count, e.count)
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0}
     return sum(ms * max(1, round(n / reps)) for ms, n in ops.values()), ops
+
+
+def named_ms(ops, names) -> dict[str, tuple[float | None, int]]:
+    """{name: (ms per launch, launches seen)} of each name in device_ms'
+    ops: the mean over the launches seen of every device op whose name
+    contains it (ms None where the profiler saw none)."""
+    out = {}
+    for name in names:
+        mine = [v for key, v in ops.items() if name in key]
+        n = sum(c for _, c in mine)
+        out[name] = (sum(ms * c for ms, c in mine) / n if n else None, n)
+    return out
 
 
 def main(argv=None) -> int:

@@ -11,9 +11,9 @@ and 2^18 points, among them x at 0, at 1 and on cell faces.  Bounds:
   * corners: every index equal and every weight bit for bit;
   * features: bit for bit (the kernel adds the 8 corners in the plain
     version's order);
-  * the table gradient: atomic f32 sums within chip_smoke.py's P3 bound
-    (P3_SUM_C sqrt(n) 2^-24 x the sum of |payload| of a row of n
-    payloads) of the float64 sum of the plain version's payloads;
+  * the table gradient: atomic f32 sums within tools/kernel_probe.py's
+    P3 bound (P3_SUM_C sqrt(n) 2^-24 x the sum of |payload| of a row of
+    n payloads) of the float64 sum of the plain version's payloads;
   * dx: atomic sums over levels of terms of either sign, within 1e-5 of
     its largest entry.
 """
@@ -23,6 +23,7 @@ import torch
 from google_nerf_tpu_torch.models import encoders as te
 from google_nerf_tpu_torch.ops import hash_grid as oh
 from google_nerf_tpu_torch.ops.cuda import hash_grid as hg
+from google_nerf_tpu_torch.tools.kernel_probe import p3_sum_bound
 
 CFGS = {
     "ngp_hash_s05": lambda: te.hashgrid_config_for_scale(
@@ -106,9 +107,8 @@ def test_cuda_encode_matches_plain(name, gather, n):
 
 def _assert_table_grad_within_p3_bound(dt, g, x, cfg):
     """dt against the float64 per-row sums of the plain version's payloads
-    (w_c * g) within chip_smoke's P3 bound; returns the most payloads a
-    row took."""
-    from chip_smoke import P3_SUM_BOUND
+    (w_c * g) within tools/kernel_probe's P3 bound; returns the most
+    payloads a row took."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
     n, dev = x.shape[0], x.device
     idx, w, _ = oh.corners(x, cfg.resolutions, T)
@@ -121,7 +121,7 @@ def _assert_table_grad_within_p3_bound(dt, g, x, cfg):
                            device=dev).index_add_(0, rows, v)
     d = (dt.reshape(L * T, F).double() - sum64(payload)).abs()
     terms = torch.bincount(rows, minlength=L * T).double()[:, None]
-    assert bool((d <= P3_SUM_BOUND(terms) * sum64(payload.abs())).all())
+    assert bool((d <= p3_sum_bound(terms) * sum64(payload.abs())).all())
     return int(terms.max())
 
 

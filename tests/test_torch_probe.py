@@ -255,6 +255,17 @@ def test_kernel_probe_cases_on_cpu():
     assert not scatter.agrees(off, scatter.plain(*scatter.args))[0]
 
 
+def test_p3_sum_bound_is_four_sqrt_n_ulps():
+    """The bound atomic f32 sums are held to (P3's and the hash-grid
+    backward's table gradient), as a share of a row's sum of |payload|:
+    4 sqrt(n) 2^-24 for a row of n payloads."""
+    n = torch.tensor([1.0, 4.0, 4314.0], dtype=torch.float64)
+    assert kernel_probe.P3_SUM_C == 4.0
+    want = torch.tensor([4.0, 8.0, 4.0 * 4314.0 ** 0.5],
+                        dtype=torch.float64) * 2.0 ** -24
+    assert torch.allclose(kernel_probe.p3_sum_bound(n), want, rtol=1e-15,
+                          atol=0)
+
 def test_kernel_probe_runs_only_on_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; this checks the refusal without one")
